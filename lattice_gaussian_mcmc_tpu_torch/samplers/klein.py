@@ -1,0 +1,185 @@
+"""Klein's randomized-rounding sampler: precomputation, window policy,
+log-weights and a plain per-row batched draw (counterpart of the JAX
+package's `samplers/klein.py`).
+
+Because sigma_i = sigma / R_ii cancels the quadratic terms, the IMHK
+importance weight of a Klein draw is log w(x) = sum_i log Z_i, the sum of
+the per-coordinate window normalizers; every draw returns it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import warnings
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from lattice_gaussian_mcmc_tpu_torch.lattices.base import Lattice
+from lattice_gaussian_mcmc_tpu_torch.ops.discrete_gaussian import (
+    DEFAULT_WINDOW,
+    dgauss_logits,
+    sample_dgauss_icdf_with_logz,
+)
+from lattice_gaussian_mcmc_tpu_torch.utils.device import resolve_device
+from lattice_gaussian_mcmc_tpu_torch.utils.prng import chain_ids, philox_uniform
+
+MAX_WINDOW = 1024
+
+
+@dataclasses.dataclass
+class KleinPrecomp:
+    """Center-dependent precomputation for Klein sampling on one lattice.
+
+    Fields:
+      basis:   (n, n) basis (columns = basis vectors).
+      U:       (n, n) unit-diagonal upper-triangular R / diag(R).
+      cs:      (n,) scaled transformed center (Q^T c) / diag(R).
+      sigmas:  (n,) conditional widths sigma / R_ii.
+      sigma:   scalar target width (0-d tensor).
+      window:  window size of the 1D draws.
+      clamped: True when the requested window exceeded MAX_WINDOW and was
+               truncated (the sampled law then has its tails cut).
+    """
+
+    basis: torch.Tensor
+    U: torch.Tensor
+    cs: torch.Tensor
+    sigmas: torch.Tensor
+    sigma: torch.Tensor
+    window: int = DEFAULT_WINDOW
+    clamped: bool = False
+
+    @property
+    def n(self) -> int:
+        return self.basis.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.U.device
+
+    def to(self, device) -> "KleinPrecomp":
+        return dataclasses.replace(
+            self, basis=self.basis.to(device), U=self.U.to(device),
+            cs=self.cs.to(device), sigmas=self.sigmas.to(device),
+            sigma=self.sigma.to(device))
+
+
+def suggest_window(max_cond_sigma: float, tau: float = 6.0) -> int:
+    """Smallest multiple-of-8 window covering +-tau conditional sigmas."""
+    w = 2 * int(math.ceil(tau * max(1.0, float(max_cond_sigma)))) + 2
+    return max(8, ((w + 7) // 8) * 8)
+
+
+def suggest_window_budget(cond_sigmas, budget: float = 0.01,
+                          max_window: int = 1024) -> int:
+    """Smallest multiple-of-8 window whose total truncated tail mass over the
+    whole conditional-sigma profile stays under `budget`. Per coordinate the
+    nearest omitted support point sits at d0 = w/2 - 1/2 in the worst center
+    offset, and the discrete one-sided tails are bounded by
+
+        tail_i <= erfc(d0 / (sigma_i sqrt 2))
+                  + 2 exp(-d0^2 / 2 sigma_i^2) / (sigma_i sqrt(2 pi)).
+
+    On the NTRU-512 FALCON-sigma profile this gives window 16."""
+    sig = np.abs(np.asarray(cond_sigmas, dtype=np.float64))
+    sig = np.maximum(sig, 1e-30)
+    for w in range(8, max_window + 1, 8):
+        d0 = w / 2 - 0.5
+        cont = np.array([math.erfc(x) for x in d0 / (sig * math.sqrt(2.0))])
+        point = 2.0 * np.exp(-0.5 * (d0 / sig) ** 2) / (
+            sig * math.sqrt(2.0 * math.pi))
+        if float(np.sum(cont + point)) <= budget:
+            return w
+    return max_window
+
+
+def klein_precompute(lattice: Lattice, sigma, center=None,
+                     window: Optional[int] = None, tau: float = 6.0,
+                     tail_budget: Optional[float] = None) -> KleinPrecomp:
+    """Klein precomputation on the lattice's device and dtype. Without a
+    `window`, `tail_budget` (when set) picks it by `suggest_window_budget`,
+    otherwise `tau` by `suggest_window`."""
+    R = lattice.R
+    r_diag = torch.diagonal(R)
+    sigma_t = torch.as_tensor(float(sigma), dtype=R.dtype, device=R.device)
+    sigmas = sigma_t / r_diag
+    if center is None:
+        cs = torch.zeros(lattice.n, dtype=R.dtype, device=R.device)
+    else:
+        c = torch.as_tensor(np.asarray(center), dtype=R.dtype).to(R.device)
+        cs = (lattice.Q.T @ c) / r_diag
+    clamped = False
+    if window is None:
+        sig_np = sigmas.cpu().numpy().astype(np.float64)
+        max_cond = float(sig_np.max())
+        if not math.isfinite(max_cond):
+            raise ValueError(
+                "singular basis: a Gram-Schmidt norm is zero, so a "
+                "conditional sigma is infinite")
+        if tail_budget is not None:
+            window = suggest_window_budget(sig_np, tail_budget)
+        else:
+            window = suggest_window(max_cond, tau=tau)
+        if window > MAX_WINDOW:
+            warnings.warn(
+                f"conditional sigma {max_cond:.3g} needs window {window} > "
+                f"{MAX_WINDOW}; clamping — tails beyond the window are "
+                "truncated", stacklevel=2)
+            window = MAX_WINDOW
+            clamped = True
+    U = R / r_diag[:, None]
+    return KleinPrecomp(basis=lattice.basis, U=U, cs=cs, sigmas=sigmas,
+                        sigma=sigma_t, window=int(window), clamped=clamped)
+
+
+def klein_precomp_from_numpy(d: Dict[str, np.ndarray], dtype=torch.float64,
+                             device=None) -> KleinPrecomp:
+    """A `KleinPrecomp` from the JAX object's fields as numpy arrays
+    (`basis, U, cs, sigmas, sigma, window, clamped`), so both packages
+    sample from the same precomputation."""
+    device = resolve_device(device)
+
+    def t(k):
+        return torch.tensor(np.asarray(d[k]), dtype=dtype, device=device)
+
+    return KleinPrecomp(basis=t("basis"), U=t("U"), cs=t("cs"),
+                        sigmas=t("sigmas"), sigma=t("sigma"),
+                        window=int(d["window"]), clamped=bool(d["clamped"]))
+
+
+def klein_sample_batch(pre: KleinPrecomp, num_samples: int, seed: int = 0,
+                       step: int = 0, chain_offset: int = 0):
+    """Plain per-row batched Klein draw: backward substitution over rows
+    i = n-1..0, one inverse-CDF draw per row from the uniform of counter
+    (chain, row i, step). Returns (coeffs (B, n), log_w (B,)) in the
+    precomputation's dtype."""
+    n, dev = pre.n, pre.device
+    u = philox_uniform(seed, chain_ids(num_samples, chain_offset, dev), step,
+                       torch.arange(n, device=dev)).to(pre.U.dtype)
+    X = torch.zeros(num_samples, n, dtype=pre.U.dtype, device=dev)
+    lw = torch.zeros(num_samples, dtype=pre.U.dtype, device=dev)
+    for i in range(n - 1, -1, -1):
+        # columns j <= i of X are still 0, so the full row is the j > i sum
+        c = pre.cs[i] - X @ pre.U[i]
+        z, logz = sample_dgauss_icdf_with_logz(u[i], c, pre.sigmas[i],
+                                               pre.window)
+        X[:, i] = z
+        lw = lw + logz
+    return X, lw
+
+
+def klein_points(basis, coeffs):
+    """Map integer coefficients to lattice points: basis @ x (batched)."""
+    return coeffs.to(basis.dtype) @ basis.T
+
+
+def klein_log_weight(coeffs, pre: KleinPrecomp):
+    """log w(x) = sum_i log Z_i(c_i, sigma_i) at arbitrary x (B, n) or (n,):
+    every conditional mean is a row of one triangular product."""
+    x = torch.as_tensor(coeffs).to(pre.U.dtype)
+    c = pre.cs - x @ pre.U.T + x      # c_i = cs_i - sum_{j>i} U_ij x_j
+    _, logits = dgauss_logits(c, pre.sigmas.expand_as(c), pre.window)
+    return torch.logsumexp(logits, dim=-1).sum(dim=-1)

@@ -1,0 +1,22 @@
+"""Device resolution: the port runs on the card unless asked otherwise."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """`None` means the first CUDA device; with no card that raises, so a
+    run never drops to the CPU silently. Pass `device="cpu"` to use the
+    plain PyTorch versions of the kernels."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch path on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not "
+                           "available")
+    return device

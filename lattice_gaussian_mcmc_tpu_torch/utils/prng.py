@@ -1,0 +1,86 @@
+"""Counter-based random numbers: Philox4x32-10 in plain PyTorch.
+
+Every uniform is a pure function of (seed, chain id, step, row, tag), so a
+chain's draws do not depend on how many chains share a batch — the property
+`fold_in(chain_id)` gives the JAX package's paths. The CUDA kernel in
+`csrc/klein.cu` computes the same function bit for bit; both use the
+counter layout below and the same mantissa-trick uniform.
+
+Counter layout: c0 = chain id, c1 = row, c2 = step, c3 = tag (TAG_ROW for
+a coordinate draw, TAG_ACCEPT for a Metropolis accept uniform); key =
+(seed mod 2^32, seed >> 32 mod 2^32). Only output word 0 is used.
+
+uint32 arithmetic is carried in int64 tensors: every product is split into
+16-bit halves so that no intermediate leaves the int64 range.
+"""
+
+from __future__ import annotations
+
+import torch
+
+PHILOX_M0 = 0xD2511F53
+PHILOX_M1 = 0xCD9E8D57
+PHILOX_W0 = 0x9E3779B9
+PHILOX_W1 = 0xBB67AE85
+MASK32 = 0xFFFFFFFF
+
+TAG_ROW = 0
+TAG_ACCEPT = 1
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """(hi, lo) 32-bit words of the 64-bit product m * x, x uint32 in int64."""
+    p_lo = x * (m & 0xFFFF)          # < 2^48
+    p_hi = x * (m >> 16)             # < 2^48
+    t = p_hi + (p_lo >> 16)          # product = t * 2^16 + (p_lo & 0xFFFF)
+    hi = t >> 16
+    lo = ((t & 0xFFFF) << 16) | (p_lo & 0xFFFF)
+    return hi, lo
+
+
+def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
+    """Philox4x32-10 on broadcastable int64 tensors holding uint32 values.
+    Returns the four output words."""
+    c0, c1, c2, c3 = torch.broadcast_tensors(c0, c1, c2, c3)
+    for r in range(10):
+        if r:
+            k0 = (k0 + PHILOX_W0) & MASK32
+            k1 = (k1 + PHILOX_W1) & MASK32
+        hi0, lo0 = _mulhilo(PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def mantissa_uniform(bits: torch.Tensor) -> torch.Tensor:
+    """23 random mantissa bits under the exponent of 1.0 give a float in
+    [1, 2); minus 1 gives a float32 uniform in [0, 1) (exact)."""
+    fbits = ((bits & 0x7FFFFF) | 0x3F800000).to(torch.int32)
+    return fbits.view(torch.float32) - 1.0
+
+
+def seed_key(seed: int):
+    seed = int(seed)
+    return seed & MASK32, (seed >> 32) & MASK32
+
+
+def philox_uniform(seed: int, chains: torch.Tensor, step: int,
+                   rows: torch.Tensor, tag: int = TAG_ROW) -> torch.Tensor:
+    """float32 uniforms of shape (len(rows), len(chains)): entry (r, b) is
+    the uniform of counter (chains[b], rows[r], step, tag) under `seed`."""
+    k0, k1 = seed_key(seed)
+    c0 = (chains.to(torch.int64) & MASK32)[None, :]
+    c1 = (rows.to(torch.int64) & MASK32)[:, None]
+    c2 = torch.full((1, 1), int(step) & MASK32, dtype=torch.int64,
+                    device=chains.device)
+    c3 = torch.full((1, 1), int(tag) & MASK32, dtype=torch.int64,
+                    device=chains.device)
+    bits, _, _, _ = philox4x32(c0, c1, c2, c3, k0, k1)
+    return mantissa_uniform(bits)
+
+
+def chain_ids(num_chains: int, chain_offset: int = 0,
+              device=None) -> torch.Tensor:
+    """Global chain ids [offset, offset + num_chains) as int64."""
+    return torch.arange(chain_offset, chain_offset + num_chains,
+                        dtype=torch.int64, device=device)
