@@ -277,14 +277,10 @@ int launch_fused(const Operands& op, const Uniforms& un, float* x, float* lw,
   return (int)cudaGetLastError();
 }
 
-#define KLEIN_WINDOW_SWITCH(window, CALL) \
-  switch (window) {                       \
-    case 8: return CALL(8);               \
-    case 16: return CALL(16);             \
-    case 24: return CALL(24);             \
-    case 32: return CALL(32);             \
-    default: return CALL(0);              \
-  }
+// Window 16 (the flagship's) is compiled with its CDF in registers; any
+// other window takes the runtime-window path.
+#define KLEIN_BY_WINDOW(window, CALL) \
+  return (window) == 16 ? CALL(16) : CALL(0);
 
 }  // namespace
 
@@ -302,7 +298,7 @@ int klein_draw_launch(const float* U, const float* UT, const float* cs,
   const Uniforms un{unif, B, seed_lo, seed_hi};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CALL(W) launch_draw<W>(op, un, y, lw, B, step, chain_offset, st)
-  KLEIN_WINDOW_SWITCH(window, CALL)
+  KLEIN_BY_WINDOW(window, CALL)
 #undef CALL
 }
 
@@ -321,7 +317,7 @@ int imhk_fused_launch(const float* U, const float* UT, const float* cs,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define CALL(W) \
   launch_fused<W>(op, un, x, lw, acc, prop, B, n_steps, step, chain_offset, st)
-  KLEIN_WINDOW_SWITCH(window, CALL)
+  KLEIN_BY_WINDOW(window, CALL)
 #undef CALL
 }
 

@@ -320,32 +320,3 @@ imhk_fused.launches = 0
 def reset_launch_counts():
     klein_draw.launches = 0
     imhk_fused.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# (B, n)-layout entry points, counterparts of the Pallas module's.
-# ---------------------------------------------------------------------------
-
-
-def klein_sample_batch_cuda(pre: KleinPrecomp, num_samples: int,
-                            seed: int = 0, step: int = 0,
-                            chain_offset: int = 0, uniforms=None):
-    """Batched Klein draw through B1. Returns (coeffs (B, n), log_w (B,))."""
-    ops = kernel_operands(pre)
-    y, lw = klein_draw(ops, num_samples, seed=seed, step=step,
-                       chain_offset=chain_offset, uniforms=uniforms)
-    return from_kernel_layout(ops, y), lw
-
-
-def imhk_step_fused_cuda(pre: KleinPrecomp, coeffs, log_ws, acc,
-                         n_steps: int = 1, seed: int = 0, step: int = 0,
-                         chain_offset: int = 0, uniforms=None):
-    """n_steps IMHK steps in one B2 launch on (B, n) coefficients.
-    Returns updated (coeffs, log_ws, acc)."""
-    ops = kernel_operands(pre)
-    x = to_kernel_layout(ops, coeffs)
-    lw = log_ws.to(torch.float32).clone()
-    acc = acc.to(torch.float32).clone()
-    imhk_fused(ops, x, lw, acc, n_steps, seed=seed, step=step,
-               chain_offset=chain_offset, uniforms=uniforms)
-    return from_kernel_layout(ops, x), lw, acc

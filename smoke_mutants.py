@@ -1,0 +1,73 @@
+#!/usr/bin/env python3
+"""Check that `chip_smoke.py`'s kernel-vs-plain gates catch broken kernels.
+
+    python3 smoke_mutants.py
+
+For each mutant below, copies the checkout into a temporary directory,
+breaks `csrc/klein.cu` there, runs `chip_smoke.py` on the card and requires
+it to fail in its `kernel_vs_plain` phase. Prints that phase's JSON line per
+mutant and exits non-zero if a mutant got through. Needs a CUDA card; never
+touches the checkout itself.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+KERNEL = os.path.join("lattice_gaussian_mcmc_tpu_torch", "csrc", "klein.cu")
+
+
+def _tf32(c):
+    return (f"u.{c} = __uint_as_float(__float_as_uint(u.{c}) & 0xFFFFE000u);")
+
+
+MUTANTS = {
+    # B2 accepts every proposal
+    "always_accept": ("if (logf(u) < __fsub_rn(lwp, lw)) {", "if (true) {"),
+    # the coupling reads U with TF32's 10-bit mantissa (hazard C2)
+    "tf32_coupling": ("const float4 u = __ldg(u4 + q);",
+                      "float4 u = __ldg(u4 + q); "
+                      + " ".join(_tf32(c) for c in "xyzw")),
+}
+
+
+def run_mutant(name, old, new):
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "repo")
+        shutil.copytree(REPO, root, ignore=shutil.ignore_patterns(
+            ".git", "_build", "chiprun_out", "__pycache__"))
+        path = os.path.join(root, KERNEL)
+        with open(path) as f:
+            src = f.read()
+        if src.count(old) != 1:
+            raise SystemExit(f"{name}: mutation site not found in {KERNEL}")
+        with open(path, "w") as f:
+            f.write(src.replace(old, new))
+        r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root,
+                           capture_output=True, text=True, timeout=900)
+    phase = None
+    for line in r.stdout.splitlines():
+        if line.startswith("{"):
+            obj = json.loads(line)
+            if obj.get("phase") == "kernel_vs_plain" and "ok" in obj \
+                    and "error" not in obj:
+                phase = obj
+    caught = r.returncode != 0 and phase is not None and not phase["ok"]
+    print(json.dumps({"mutant": name, "caught": caught, "rc": r.returncode,
+                      "kernel_vs_plain": phase}), flush=True)
+    return caught
+
+
+def main():
+    caught = [run_mutant(name, *edit) for name, edit in MUTANTS.items()]
+    return 0 if all(caught) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

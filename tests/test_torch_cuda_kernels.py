@@ -62,8 +62,8 @@ def test_b1_matches_plain_host_uniforms_and_philox(ops):
 
 @pytest.mark.cuda
 def test_b1_runtime_window_matches_plain():
-    """A window outside the kernel's compiled set (8, 16, 24, 32) takes
-    its runtime-window path."""
+    """A window other than the compiled 16 takes the runtime-window
+    path."""
     ops = _operands(window=40)
     y, lw = klein_cuda.klein_draw(ops, B, seed=2, step=1)
     yp, lwp = klein_cuda.klein_draw_plain(ops, B, seed=2, step=1)

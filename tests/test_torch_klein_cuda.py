@@ -33,9 +33,12 @@ LW_ATOL = 1e-4
 # can flip one draw by +-1 when the two implementations round the centre or
 # the CDF in another order. Every
 # later row of that chain is then drawn around another centre, so such a
-# chain is compared only down to its tie: at most this share of all draws
-# may be ties, each off by exactly 1.
-MAX_MISMATCH = 1e-3
+# chain is compared only down to its tie: at most this share of the chains
+# may differ, and each such chain first differs by exactly 1. Pallas sums
+# the coupling in bf16 pieces and the CDF as a matrix product, so ties are
+# more frequent than between the port's kernel and its plain version: 0 of
+# 256 chains in the B1 test, 6 of 256 over the two B2 steps.
+MAX_TIE_CHAINS = 0.05
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -69,7 +72,7 @@ def _tie_chains(got, want):
     got, want = np.asarray(got), np.asarray(want)
     diff = got != want
     ties = diff.any(axis=1)
-    assert ties.sum() <= MAX_MISMATCH * got.size, ties.sum()
+    assert ties.mean() <= MAX_TIE_CHAINS, ties.sum()
     for b in np.flatnonzero(ties):
         first = np.flatnonzero(diff[b]).max()
         assert abs(got[b, first] - want[b, first]) == 1, (b, first)
@@ -106,8 +109,9 @@ def test_b1_plain_matches_pallas_stream(pres):
     _, k_unif = jax.random.split(key)
     unif = np.array(jax.random.uniform(k_unif, (N_PAD, B),
                                         dtype=jnp.float32))
-    X, lw = klein_cuda.klein_sample_batch_cuda(
-        pre_t, B, uniforms=torch.from_numpy(unif))
+    ops = klein_cuda.kernel_operands(pre_t)
+    y, lw = klein_cuda.klein_draw(ops, B, uniforms=torch.from_numpy(unif))
+    X = klein_cuda.from_kernel_layout(ops, y)
     assert X.shape == (B, N) and lw.dtype == torch.float32
     same = ~_tie_chains(X.numpy(), Xp)
     np.testing.assert_allclose(lw.numpy()[same], np.asarray(lwp)[same],
@@ -128,10 +132,13 @@ def test_b2_plain_matches_pallas_stream(pres):
     _, k_unif = jax.random.split(k2)
     unif = np.array(jax.random.uniform(
         k_unif, (2 * (N_PAD + 8), B), dtype=jnp.float32))
-    X, lw, acc = klein_cuda.imhk_step_fused_cuda(
-        pre_t, torch.tensor(np.asarray(X0)),
-        torch.tensor(np.asarray(lw0, dtype=np.float32)),
-        torch.zeros(B), n_steps=2, uniforms=torch.from_numpy(unif))
+    ops = klein_cuda.kernel_operands(pre_t)
+    x = klein_cuda.to_kernel_layout(ops, torch.tensor(np.asarray(X0)))
+    lw = torch.tensor(np.asarray(lw0, dtype=np.float32))
+    acc = torch.zeros(B)
+    klein_cuda.imhk_fused(ops, x, lw, acc, 2,
+                          uniforms=torch.from_numpy(unif))
+    X = klein_cuda.from_kernel_layout(ops, x)
     # The Pallas interpreter does not carry the aliased state buffer into
     # the kernel, so a chain that rejects both proposals comes back as NaN
     # there. The port must have kept that chain's starting state.
