@@ -4,31 +4,45 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from `lattice_gaussian_mcmc_tpu_torch/csrc/` and
-drives the port's main path: IMHK on the NTRU-512 secret basis (dimension
-1024, sigma = FALCON-512's 165.7, window 16 from tail budget 0.01). Phases,
-one JSON line each:
+drives the port's paths: the rows of the reference's flagship benchmark
+(`bench.py`) on the NTRU-512 secret basis (dimension 1024). Phases, one JSON
+line each:
 
-  toolchain        versions, the card, the kernel build
-  kernel_vs_plain  B1 (Klein draw) and B2 (fused IMHK) against their plain
-                   PyTorch versions on the card, on the caller's uniforms,
-                   plus the f32 conditional-centre error against float64,
-                   and B2 in the 2D hard regime, where it rejects
+  toolchain        versions, the card, the kernel builds (one nvcc per
+                   source, all started together)
+  kernel_vs_plain  each kernel against its plain PyTorch version on the
+                   card, on the caller's random numbers: B1 (Klein draw),
+                   B2 (fused IMHK) with the f32 conditional-centre error
+                   against float64 and B2 in the 2D hard regime, where it
+                   rejects; B3 (IMHK trajectory) bit for bit against B2 and
+                   against its plain version; B4 (fused SMK) at the SMK
+                   row's operands and decision by decision in the 2D hard
+                   regime; B5 (Peikert) at the Peikert row's operands
   law              2D hard regime: TVD to the enumerated target and the
-                   stationary acceptance 0.9904
-  flagship         IMHKSampler.sample_iid at 524,288 chains, 64 fused steps
-                   per launch: samples/s, acceptance, launch counts
-  timing           each kernel against its plain version at the flagship
-                   shapes (draws, log-weights, accept decisions), and its
-                   bound
+                   stationary acceptance 0.9904 (IMHK), TVD of SMK
+  flagship         IMHKSampler.sample_iid at 524,288 chains, sigma 165.7,
+                   64 fused steps per launch: samples/s, acceptance
+  hard_regime      sigma = 0.45 max ||b*_i||, 131,072 chains: B3 trajectory
+                   of 48 log-weights, pooled ACF and Sokal tau_int, a timed
+                   64-step B2 run: samples/s, acceptance, ESS/s
+  smk              SMKSampler at the same sigma, proposal 0.45 sigma,
+                   131,072 chains, 32 steps: samples/s, acceptance
+  peikert          PeikertSampler at 1.05 r s1(B), 65,536 chains x 8
+                   rounds in one launch: samples/s, second moment
+  timing           B1 and B2 against their plain versions at the flagship
+                   shapes, and every kernel's bound
 
-then the card's name and power limit, a `kernels` line, and as the last
-line {"ok": true, "device": {...}}. Any failed check exits non-zero before
-the last line. Imports nothing of JAX.
+Each path phase (flagship, hard_regime, smk, peikert) sets every launch
+count to 0 before it runs and reads them after. Then the card's name and
+power limit, a `kernels` line, and as the last line {"ok": true, "device":
+{...}}. Any failed check exits non-zero before the last line. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -74,8 +88,31 @@ HARD_ACCEPTANCE = 0.9904     # enumerated stationary acceptance, 2D hard regime
 # 131,072 chains x 12 steps: binomial noise ~8e-5, so 2e-3 still tells a
 # sampler that never rejects (1.0) from the law
 HARD_ACCEPTANCE_TOL = 2e-3
-HARD_CHECK_CHAINS = 65_536   # B2 vs plain in the hard regime
+HARD_CHECK_CHAINS = 65_536   # B2 / B4 vs plain in the 2D hard regime
 HARD_CHECK_STEPS = 4
+SMK_2D_PROPOSAL = 0.35       # SMK's proposal width in the 2D hard regime
+LAW_CHAINS = 131_072
+LAW_STEPS = 12
+# The bench rows (bench.py:136-296) at their own shapes. The acceptances
+# are properties of the law at these sigmas, window policy and schedule:
+# the reference's figures (BENCH_r05.json), held to +-0.01.
+ROW_SIGMA_OVER_MAX_GS = 0.45
+ROW_CHAINS = 131_072
+HARD_T = 48                  # trajectory length (thin 1), lw ring only
+HARD_MAX_LAG = HARD_T // 2
+HARD_ROW_ACCEPTANCE = 0.794
+SMK_STEPS = 32
+SMK_PROPOSAL_OVER_SIGMA = 0.45
+SMK_ROW_ACCEPTANCE = 0.595
+ROW_ACCEPTANCE_TOL = 0.01
+PEIKERT_CHAINS = 65_536
+PEIKERT_ROUNDS = 8
+PEIKERT_SIGMA_OVER_RS1 = 1.05
+PEIKERT_WINDOW = 24          # suggest_peikert_window(r, 1024), budget 0.01
+MAX_NORM_GAP = 0.02          # |E||Bx||^2 / (dim sigma^2) - 1|
+B3_CHECK_KEEP, B3_CHECK_THIN = 3, 2
+B4_CHECK_STEPS = 2
+B5_CHECK_ROUNDS = 2
 
 
 def emit(obj):
@@ -109,12 +146,12 @@ def cuda_ms(fn, reps=1):
     return start.elapsed_time(end) / reps
 
 
-def compare_draws(y, yp, lw, lwp, n, among=None):
+def compare_draws(y, yp, lw, lwp, n, among=None, lw_among=None):
     """Kernel vs plain on chain-minor draws (n_pad, B): the share of integer
     coefficients that differ, the share of chains that differ, whether each
     such chain (of those in the mask `among`) first differs, in its highest
     row, drawn first, by exactly one, and max |lw err| over the chains that
-    agree."""
+    agree (and lie in the mask `lw_among`)."""
     import torch
     diff = y[:n] != yp[:n]                    # (n, B)
     chains = diff.any(dim=0)
@@ -126,7 +163,7 @@ def compare_draws(y, yp, lw, lwp, n, among=None):
         first = torch.where(diff[:, idx], rows, -1).max(dim=0).values
         step = (y[first, idx] - yp[first, idx]).abs()
         ties_ok = bool((step == 1).all())
-    same = ~chains
+    same = ~chains if lw_among is None else ~chains & lw_among
     lw_err = float((lw[same] - lwp[same]).abs().max()) if bool(same.any()) \
         else float("nan")
     return {"coeffs_differing": float(diff.float().mean()),
@@ -134,13 +171,14 @@ def compare_draws(y, yp, lw, lwp, n, among=None):
             "ties_off_by_one": ties_ok, "max_abs_lw_err": lw_err}
 
 
-def compare_steps(x, xp, lx, lxp, ax, axp, n, n_steps):
+def compare_steps(x, xp, lx, lxp, ax, axp, n, n_steps, lw_among=None):
     """compare_draws on B2's final states, plus its accept decisions: the
     share of chains whose acceptance counts differ, how many of the chains
     that agree in state differ in count, and the rejections on each side.
     A chain whose decisions differ holds another proposal altogether, so
     the off-by-one test covers the chains whose counts agree."""
-    res = compare_draws(x, xp, lx, lxp, n, among=ax == axp)
+    res = compare_draws(x, xp, lx, lxp, n, among=ax == axp,
+                        lw_among=lw_among)
     same = (x[:n] == xp[:n]).all(dim=0)
     B = x.shape[1]
     res.update(
@@ -167,11 +205,58 @@ def fused_vs_plain(ops, y, lw, n_steps, gen):
     return compare_steps(x, xp, lx, lxp, ax, axp, ops.n, n_steps)
 
 
+def smk_vs_plain(ops, y, n_steps, gen):
+    """B4 and its plain version, n_steps from the state y on the same
+    caller's uniforms; compare_steps of the final states, with the last
+    step's log alpha in place of lw, held on the chains that agree and
+    accepted every step (their last proposal is their final state). Also
+    the two device times of the runs."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import smk_cuda
+    B = y.shape[1]
+    u = torch.rand(n_steps * (ops.n_pad + smk_cuda.ACCEPT_ROWS), B,
+                   device=y.device, generator=gen)
+    x, ax = y.clone(), torch.zeros(B, device=y.device)
+    xp, axp = y.clone(), torch.zeros(B, device=y.device)
+    out, outp = [], []
+    ms = cuda_ms(lambda: out.extend(
+        smk_cuda.smk_steps(ops, x, ax, n_steps, uniforms=u)))
+    plain_ms = cuda_ms(lambda: outp.extend(
+        smk_cuda.smk_steps_plain(ops, xp, axp, n_steps, uniforms=u)))
+    res = compare_steps(x, xp, out[2], outp[2], ax, axp, ops.n, n_steps,
+                        lw_among=(ax == n_steps) & (axp == n_steps))
+    res["max_abs_log_alpha_err"] = res.pop("max_abs_lw_err")
+    return res, ms, plain_ms
+
+
 def draws_ok(res, max_chains=MAX_CHAIN_SHARE):
     return (res["coeffs_differing"] <= MAX_COEFF_SHARE
             and res["chains_differing"] <= max_chains
             and res["ties_off_by_one"]
             and res["max_abs_lw_err"] <= MAX_LW_ERR)
+
+
+def hard_decisions_ok(res, chains):
+    """In the 2D hard regime: the draws agree up to ties, the kernel
+    rejects, every decision on a chain that agrees is the plain version's,
+    and the rejection totals differ by no more than the tie-routed chains."""
+    n_tied = round(res["chains_differing"] * chains)
+    return (res["coeffs_differing"] <= MAX_COEFF_SHARE
+            and res["chains_differing"] <= MAX_CHAIN_SHARE
+            and res["ties_off_by_one"] and res["rejections"] > 0
+            and res["accept_differing_agreeing"] == 0
+            and res["accept_differing"] <= MAX_ACCEPT_SHARE
+            and abs(res["rejections"] - res["rejections_plain"]) <= n_tied)
+
+
+def compare_rings(ring, ringp):
+    """B5 against its plain version: coordinates are independent draws, so
+    a tie moves one coordinate by one and nothing else."""
+    diff = ring != ringp
+    step = (ring[diff] - ringp[diff]).abs()
+    return {"coeffs_differing": float(diff.float().mean()),
+            "ties_off_by_one": bool((step == 1).all()),
+            "max_abs_err": float(step.max()) if step.numel() else 0.0}
 
 
 def bound_ms(flop, nbytes):
@@ -186,32 +271,101 @@ def klein_flop(n, window):
     return n * (n - 1) + 6 * n * window
 
 
-def main():
+def smk_flop(n, window):
+    # per step: a Klein sweep, then per row and window entry of the reverse
+    # normaliser two multiplies, an add, the exp and the sum, and per row
+    # the reverse centre and the two target quadratics (8)
+    return klein_flop(n, window) + 5 * n * window + 8 * n
+
+
+def peikert_flop(n, window):
+    # per round: L2 z over the lower triangle with its diagonal, n(n+1)/2
+    # FMAs; Box-Muller, ~10 operations per pair of normals; the rounding
+    # of every row as in klein_flop
+    return n * (n + 1) + 5 * n + 6 * n * window
+
+
+def tvd_2d(X, basis2, sigma):
+    """TVD of 2D coefficient draws X (B, 2) to the enumerated D_{L,sigma}
+    on the box |x_i| <= 8, the mass outside the box counted as error."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, REPO)
-    from lattice_gaussian_mcmc_tpu_torch.lattices import (
-        lattice_from_basis,
-        ntru_lattice,
-    )
-    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import _build, klein_cuda
-    from lattice_gaussian_mcmc_tpu_torch.samplers import (
-        IMHKSampler,
-        klein_precompute,
-    )
-    from lattice_gaussian_mcmc_tpu_torch.samplers.imhk import (
-        STEPS_PER_LAUNCH,
-    )
+    dev = X.device
+    r = torch.arange(-8, 9, dtype=torch.float64, device=dev)
+    grid = torch.cartesian_prod(r, r)          # row (a+8)*17 + (b+8)
+    pts = grid @ torch.tensor(basis2, dtype=torch.float64, device=dev).T
+    p = torch.softmax(-0.5 * (pts ** 2).sum(1) / sigma ** 2, dim=0)
+    inside = (X.abs() <= 8).all(dim=1)
+    Xi = X[inside].long() + 8
+    emp = torch.bincount(Xi[:, 0] * 17 + Xi[:, 1], minlength=17 * 17)
+    emp = emp.double() / X.shape[0]
+    return 0.5 * float((emp - p).abs().sum() + (1 - inside.double().mean()))
 
-    # the plain versions' matrix products run in full float32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    card = nvidia_smi_line()
 
-    # ---------------------------------------------------------------- toolchain
+class Smoke:
+    """The shared objects of one run and the numbers the `kernels` line
+    reports."""
+
+    def __init__(self):
+        import torch
+        sys.path.insert(0, REPO)
+        from lattice_gaussian_mcmc_tpu_torch.lattices import ntru_lattice
+        from lattice_gaussian_mcmc_tpu_torch.ops.kernels import (
+            klein_cuda,
+            peikert_cuda,
+            smk_cuda,
+        )
+        self.kc, self.sc, self.pc = klein_cuda, smk_cuda, peikert_cuda
+        # the plain versions' matrix products run in full float32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.dev = torch.device("cuda", 0)
+        self.card = nvidia_smi_line()
+        self.lat = ntru_lattice(512, q=12289, seed=0,
+                                cache_dir=os.path.join(REPO, "bench_cache"),
+                                device=self.dev)
+        self.gen = torch.Generator(device=self.dev).manual_seed(1234)
+        self.sigma_row = ROW_SIGMA_OVER_MAX_GS * float(
+            self.lat.gs_norms.max())
+        self.launches = {}       # path phase -> launch counts
+        self.k = {}              # kernel -> numbers for the kernels line
+
+    def reset_counts(self):
+        for mod in (self.kc, self.sc, self.pc):
+            mod.reset_launch_counts()
+
+    def counts(self):
+        return {"klein_draw": self.kc.klein_draw.launches,
+                "imhk_fused": self.kc.imhk_fused.launches,
+                "imhk_trajectory": self.kc.imhk_trajectory.launches,
+                "smk_steps": self.sc.smk_steps.launches,
+                "peikert_rounds": self.pc.peikert_rounds.launches}
+
+    def note(self, kernel, **kw):
+        self.k.setdefault(kernel, {}).update(kw)
+
+    def hard_operands(self):
+        from lattice_gaussian_mcmc_tpu_torch.samplers import klein_precompute
+        pre = klein_precompute(self.lat, self.sigma_row, tail_budget=0.01)
+        return pre, self.kc.kernel_operands(pre)
+
+    def peikert_sigma(self):
+        """(sigma, r, s1(B)) of the Peikert row: sigma = 1.05 r s1(B)."""
+        if not hasattr(self, "_peikert"):
+            import numpy as np
+            from lattice_gaussian_mcmc_tpu_torch.ops.theta import (
+                smoothing_parameter_zn,
+            )
+            s1 = float(np.linalg.norm(
+                self.lat.basis.cpu().double().numpy(), 2))
+            r = smoothing_parameter_zn(self.lat.n, 0.01)
+            self._peikert = (PEIKERT_SIGMA_OVER_RS1 * r * s1, r, s1)
+        return self._peikert
+
+
+# ---------------------------------------------------------------- toolchain
+def phase_toolchain(s: Smoke):
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import _build
     nvcc = subprocess.run([_build.find_nvcc(), "--version"],
                           capture_output=True, text=True).stdout
     try:
@@ -220,32 +374,40 @@ def main():
     except ImportError:
         has_triton = False
     t0 = time.perf_counter()
-    _build.load_klein()
+    built = _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = _build.BUILD_INFO.get("klein", {}).get("ptxas", "")
-    emit({"phase": "toolchain", "python": sys.version.split()[0],
-          "torch": torch.__version__,
-          "cuda": torch.version.cuda,
+    for name in ("klein", "smk", "peikert"):
+        _build.load(name)
+    ptxas = {name: [ln.strip() for ln in info["ptxas"].splitlines()
+                    if "registers" in ln or "spill" in ln][:12]
+             for name, info in _build.BUILD_INFO.items()}
+    emit({"phase": "toolchain", "ok": True, "python": sys.version.split()[0],
+          "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc.strip().splitlines()[-1] if nvcc else None,
-          "triton": has_triton, "card": card,
-          "build_s": build_s,
-          "ptxas": [ln.strip() for ln in ptxas.splitlines()
-                    if "registers" in ln or "spill" in ln][:12]})
+          "triton": has_triton, "card": s.card, "build_s": build_s,
+          "build_s_each": built, "ptxas": ptxas})
 
-    # ---------------------------------------------------------- kernel_vs_plain
-    lat = ntru_lattice(512, q=12289, seed=0,
-                       cache_dir=os.path.join(REPO, "bench_cache"),
-                       device=dev)
-    pre = klein_precompute(lat, FALCON_SIGMA, tail_budget=0.01)
-    ops = klein_cuda.kernel_operands(pre)
+
+# ---------------------------------------------------------- kernel_vs_plain
+def phase_kernel_vs_plain(s: Smoke):
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.lattices import lattice_from_basis
+    from lattice_gaussian_mcmc_tpu_torch.samplers import (
+        IMHKSampler,
+        PeikertSampler,
+        SMKSampler,
+        klein_precompute,
+    )
+    kc, sc, pc, dev, gen = s.kc, s.sc, s.pc, s.dev, s.gen
+    pre = klein_precompute(s.lat, FALCON_SIGMA, tail_budget=0.01)
+    ops = kc.kernel_operands(pre)
     n, n_pad, W = ops.n, ops.n_pad, ops.window
     if (n, W) != (1024, 16):
         fail("kernel_vs_plain", f"expected dim 1024 window 16, got {n} {W}")
-    gen = torch.Generator(device=dev).manual_seed(1234)
     B = CHECK_CHAINS
     u1 = torch.rand(n_pad, B, device=dev, generator=gen)
-    y, lw = klein_cuda.klein_draw(ops, B, uniforms=u1)
-    yp, lwp = klein_cuda.klein_draw_plain(ops, B, uniforms=u1)
+    y, lw = kc.klein_draw(ops, B, uniforms=u1)
+    yp, lwp = kc.klein_draw_plain(ops, B, uniforms=u1)
     torch.cuda.synchronize()
     b1 = compare_draws(y, yp, lw, lwp, n)
     b2 = fused_vs_plain(ops, y, lw, 2, gen)
@@ -266,55 +428,191 @@ def main():
     s2 = IMHKSampler(lat2, HARD_SIGMA, burn_in=12)
     ops2 = s2.operands
     u0 = torch.rand(ops2.n_pad, HARD_CHECK_CHAINS, device=dev, generator=gen)
-    y2, lw2 = klein_cuda.klein_draw(ops2, HARD_CHECK_CHAINS, uniforms=u0)
+    y2, lw2 = kc.klein_draw(ops2, HARD_CHECK_CHAINS, uniforms=u0)
     b2_hard = fused_vs_plain(ops2, y2, lw2, HARD_CHECK_STEPS, gen)
-    # every decision the kernel makes on a chain that agrees is the plain
-    # version's, and the rejection totals differ by no more than the chains
-    # re-routed by a tie
-    n_tied = round(b2_hard["chains_differing"] * HARD_CHECK_CHAINS)
-    hard_ok = (draws_ok(b2_hard) and b2_hard["rejections"] > 0
-               and b2_hard["accept_differing_agreeing"] == 0
-               and b2_hard["accept_differing"] <= MAX_ACCEPT_SHARE
-               and abs(b2_hard["rejections"] - b2_hard["rejections_plain"])
-               <= n_tied)
-    ok = (draws_ok(b1) and draws_ok(b2) and centre < MAX_CENTRE_ERR
-          and b2["accept_differing"] <= MAX_ACCEPT_SHARE
-          and b2["accept_differing_agreeing"] == 0 and hard_ok)
+    b2_ok = (draws_ok(b1) and draws_ok(b2) and centre < MAX_CENTRE_ERR
+             and b2["accept_differing"] <= MAX_ACCEPT_SHARE
+             and b2["accept_differing_agreeing"] == 0
+             and hard_decisions_ok(b2_hard, HARD_CHECK_CHAINS))
+    del u1, y, yp, u0
+    s.note("B1", max_abs_err=b1["max_abs_lw_err"],
+           coeffs_differing=b1["coeffs_differing"])
+    s.note("B2", max_abs_err=max(b2["max_abs_lw_err"],
+                                 b2_hard["max_abs_lw_err"]),
+           coeffs_differing=max(b2["coeffs_differing"],
+                                b2_hard["coeffs_differing"]),
+           accept_differing=max(b2["accept_differing"],
+                                b2_hard["accept_differing"]))
+
+    # B3 at the hard-regime row's operands (window 8, ~20% rejections).
+    # Against B2: one code path, so the ring cannot change the chain; the
+    # final state, lw and counts are B2's bit for bit, and ring entry k is
+    # B2's state after (k + 1) thin steps, exactly. Against its plain
+    # version: compare_steps on the caller's uniforms, and each lw of the
+    # ring where the ring's states agree (a state's lw is a function of the
+    # state alone).
+    _, ops_h = s.hard_operands()
+    yh, lwh = kc.klein_draw(ops_h, B, seed=21)
+    x3, l3, a3 = yh.clone(), lwh.clone(), torch.zeros_like(lwh)
+    x3, l3, a3, tx, tlw = kc.imhk_trajectory(
+        ops_h, x3, l3, a3, B3_CHECK_KEEP, B3_CHECK_THIN, seed=22, step=1,
+        coeffs=True)
+    x2, l2, a2 = yh.clone(), lwh.clone(), torch.zeros_like(lwh)
+    ring_equal = True
+    for k in range(B3_CHECK_KEEP):
+        kc.imhk_fused(ops_h, x2, l2, a2, B3_CHECK_THIN, seed=22,
+                      step=1 + k * B3_CHECK_THIN)
+        ring_equal &= (torch.equal(tlw[k], l2) and torch.equal(
+            tx[k * ops_h.n_pad:(k + 1) * ops_h.n_pad], x2))
+    b3_vs_b2 = {"ring_equal": ring_equal,
+                "final_equal": (torch.equal(x3, x2) and torch.equal(l3, l2)
+                                and torch.equal(a3, a2)),
+                "rejections": int(B3_CHECK_KEEP * B3_CHECK_THIN * B
+                                  - float(a3.sum()))}
+    del x2, tx
+    nk = B3_CHECK_KEEP
+    u3 = torch.rand(nk * (ops_h.n_pad + kc.ACCEPT_ROWS), B, device=dev,
+                    generator=gen)
+    x3, l3, a3 = yh.clone(), lwh.clone(), torch.zeros_like(lwh)
+    xp, lp, ap = yh.clone(), lwh.clone(), torch.zeros_like(lwh)
+    out, outp = [], []
+    b3_ms = cuda_ms(lambda: out.extend(kc.imhk_trajectory(
+        ops_h, x3, l3, a3, nk, 1, uniforms=u3, coeffs=True)))
+    b3_plain_ms = cuda_ms(lambda: outp.extend(kc.imhk_trajectory_plain(
+        ops_h, xp, lp, ap, nk, 1, uniforms=u3, coeffs=True)))
+    b3 = compare_steps(x3, xp, l3, lp, a3, ap, n, nk)
+    # no agreeing chain at some k (a badly wrong kernel) reads as inf
+    ring_err, np_ = 0.0, ops_h.n_pad
+    for k in range(nk):
+        same = (out[3][k * np_:k * np_ + n]
+                == outp[3][k * np_:k * np_ + n]).all(dim=0)
+        d = (out[4][k, same] - outp[4][k, same]).abs()
+        ring_err = max(ring_err,
+                       float(d.max()) if d.numel() else math.inf)
+    b3["max_abs_ring_lw_err"] = ring_err
+    b3_ok = (ring_equal and b3_vs_b2["final_equal"]
+             and b3_vs_b2["rejections"] > 0 and draws_ok(b3)
+             and b3["accept_differing"] <= MAX_ACCEPT_SHARE
+             and b3["rejections"] > 0
+             and b3["max_abs_ring_lw_err"] <= MAX_LW_ERR)
+    del yh, x3, xp, out, outp, u3
+    s.note("B3", max_abs_err=b3["max_abs_ring_lw_err"],
+           coeffs_differing=b3["coeffs_differing"],
+           accept_differing=b3["accept_differing"],
+           plain_ms=b3_plain_ms, check_ms=b3_ms,
+           check_shape=f"{B} chains x {nk} steps, window {ops_h.window}")
+
+    # B4 at the SMK row's operands (target sigma_row, proposal 0.45
+    # sigma_row, window 8), from a B1 draw of the target
+    ss = SMKSampler(s.lat, s.sigma_row,
+                    proposal_sigma=SMK_PROPOSAL_OVER_SIGMA * s.sigma_row,
+                    tail_budget=0.01)
+    y4, _ = kc.klein_draw(ss.klein_operands, B, seed=31)
+    b4, b4_ms, b4_plain_ms = smk_vs_plain(ss.operands, y4, B4_CHECK_STEPS,
+                                          gen)
+    # ... and in the 2D hard regime, where it rejects, decision by decision
+    s4 = SMKSampler(lat2, HARD_SIGMA, proposal_sigma=SMK_2D_PROPOSAL)
+    y4h, _ = kc.klein_draw(s4.klein_operands, HARD_CHECK_CHAINS, seed=32)
+    b4_hard, _, _ = smk_vs_plain(s4.operands, y4h, HARD_CHECK_STEPS, gen)
+    b4_hard["max_abs_lw_err"] = b4_hard["max_abs_log_alpha_err"]
+    b4_ok = (b4["coeffs_differing"] <= MAX_COEFF_SHARE
+             and b4["chains_differing"] <= MAX_CHAIN_SHARE
+             and b4["ties_off_by_one"] and b4["rejections"] > 0
+             and b4["accept_differing"] <= MAX_ACCEPT_SHARE
+             and b4["max_abs_log_alpha_err"] <= MAX_LW_ERR
+             and hard_decisions_ok(b4_hard, HARD_CHECK_CHAINS))
+    del y4, y4h
+    s.note("B4", max_abs_err=max(b4["max_abs_log_alpha_err"],
+                                 b4_hard["max_abs_log_alpha_err"]),
+           coeffs_differing=max(b4["coeffs_differing"],
+                                b4_hard["coeffs_differing"]),
+           accept_differing=max(b4["accept_differing"],
+                                b4_hard["accept_differing"]),
+           plain_ms=b4_plain_ms, check_ms=b4_ms,
+           check_shape=f"{B} chains x {B4_CHECK_STEPS} steps, window "
+                       f"{ss.operands.window}")
+
+    # B5 at the Peikert row's operands (window 24): bit for bit on the
+    # caller's normals up to ties; with in-kernel Philox the normals come
+    # from the card's logf/sqrtf/cosf/sinf and torch's, which need not
+    # round alike, so that run is held by its tie share alone
+    sigma_pk, _, _ = s.peikert_sigma()
+    ops_p = PeikertSampler(s.lat, sigma_pk).operands
+    nr = B5_CHECK_ROUNDS
+    z = torch.randn(nr * ops_p.n_pad, B, device=dev, generator=gen)
+    u5 = torch.rand(nr * ops_p.n_pad, B, device=dev, generator=gen)
+    out, outp = [], []
+    b5_ms = cuda_ms(lambda: out.append(pc.peikert_rounds(
+        ops_p, B, nr, uniforms=u5, normals=z)))
+    b5_plain_ms = cuda_ms(lambda: outp.append(pc.peikert_rounds_plain(
+        ops_p, B, nr, uniforms=u5, normals=z)))
+    b5 = compare_rings(out[0], outp[0])
+    b5_philox = compare_rings(pc.peikert_rounds(ops_p, B, nr, seed=41),
+                              pc.peikert_rounds_plain(ops_p, B, nr, seed=41))
+    b5_ok = all(r["coeffs_differing"] <= MAX_COEFF_SHARE
+                and r["ties_off_by_one"] for r in (b5, b5_philox))
+    del z, u5, out, outp
+    s.note("B5", max_abs_err=max(b5["max_abs_err"], b5_philox["max_abs_err"]),
+           coeffs_differing=max(b5["coeffs_differing"],
+                                b5_philox["coeffs_differing"]),
+           plain_ms=b5_plain_ms, check_ms=b5_ms,
+           check_shape=f"{B} chains x {nr} rounds, window {ops_p.window}")
+
+    ok = b2_ok and b3_ok and b4_ok and b5_ok
     emit({"phase": "kernel_vs_plain", "ok": ok, "chains": B, "dim": n,
           "window": W, "plain_allow_tf32": False, "b1": b1, "b2_2steps": b2,
           "max_centre_err_over_sigma": centre,
           "b2_hard_regime": dict(b2_hard, chains=HARD_CHECK_CHAINS,
                                  steps=HARD_CHECK_STEPS, sigma=HARD_SIGMA,
-                                 window=ops2.window)})
+                                 window=ops2.window),
+          "b3_vs_b2": dict(b3_vs_b2, keep=B3_CHECK_KEEP, thin=B3_CHECK_THIN),
+          "b3": dict(b3, keep=nk, thin=1, window=ops_h.window),
+          "b4": dict(b4, steps=B4_CHECK_STEPS, window=ss.operands.window),
+          "b4_hard_regime": dict(b4_hard, chains=HARD_CHECK_CHAINS,
+                                 steps=HARD_CHECK_STEPS,
+                                 proposal_sigma=SMK_2D_PROPOSAL,
+                                 window=s4.operands.window),
+          "b5": dict(b5, rounds=nr, window=ops_p.window),
+          "b5_philox": b5_philox,
+          "oks": {"b1_b2": b2_ok, "b3": b3_ok, "b4": b4_ok, "b5": b5_ok}})
     if not ok:
         fail("kernel_vs_plain", "kernel disagrees with its plain version")
-    del u1, y, yp, y2, u0
+    return s2, basis2
 
-    # ---------------------------------------------------------------- law
-    X2 = s2.sample_iid(11, 131_072, n_steps=12, return_coeffs=True)
-    r = torch.arange(-8, 9, dtype=torch.float64, device=dev)
-    grid = torch.cartesian_prod(r, r)          # row (a+8)*17 + (b+8)
-    pts = grid @ torch.tensor(basis2, dtype=torch.float64, device=dev).T
-    p = torch.softmax(-0.5 * (pts ** 2).sum(1) / HARD_SIGMA ** 2, dim=0)
-    inside = (X2.abs() <= 8).all(dim=1)
-    Xi = X2[inside].long() + 8
-    emp = torch.bincount(Xi[:, 0] * 17 + Xi[:, 1], minlength=17 * 17)
-    emp = emp.double() / X2.shape[0]
-    tvd = 0.5 * float((emp - p).abs().sum()
-                      + (1 - inside.double().mean()))
+
+# ---------------------------------------------------------------- law
+def phase_law(s: Smoke, s2, basis2):
+    from lattice_gaussian_mcmc_tpu_torch.samplers import SMKSampler
+    X2 = s2.sample_iid(11, LAW_CHAINS, n_steps=LAW_STEPS, return_coeffs=True)
+    tvd = tvd_2d(X2, basis2, HARD_SIGMA)
     acc2 = s2.acceptance_rate
-    ok = tvd < MAX_TVD and abs(acc2 - HARD_ACCEPTANCE) < HARD_ACCEPTANCE_TOL
-    emit({"phase": "law", "ok": ok, "chains": X2.shape[0], "steps": 12,
+    lat2 = s2.lattice
+    sm = SMKSampler(lat2, HARD_SIGMA, proposal_sigma=SMK_2D_PROPOSAL)
+    X4 = sm.sample_iid(12, LAW_CHAINS, n_steps=LAW_STEPS, return_coeffs=True)
+    tvd_smk = tvd_2d(X4, basis2, HARD_SIGMA)
+    ok = (tvd < MAX_TVD and abs(acc2 - HARD_ACCEPTANCE) < HARD_ACCEPTANCE_TOL
+          and tvd_smk < MAX_TVD)
+    emit({"phase": "law", "ok": ok, "chains": X2.shape[0], "steps": LAW_STEPS,
           "window": s2.pre.window, "tvd": tvd, "acceptance": acc2,
-          "expected_acceptance": HARD_ACCEPTANCE})
+          "expected_acceptance": HARD_ACCEPTANCE, "smk_tvd": tvd_smk,
+          "smk_acceptance": sm.acceptance_rate,
+          "smk_window": sm.operands.window})
     if not ok:
         fail("law", "2D hard regime off its target")
-    del X2, s2
 
-    # ---------------------------------------------------------------- flagship
-    sampler = IMHKSampler(lat, FALCON_SIGMA, tail_budget=0.01)
-    klein_cuda.reset_launch_counts()
+
+# ---------------------------------------------------------------- flagship
+def phase_flagship(s: Smoke):
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.samplers import IMHKSampler
+    from lattice_gaussian_mcmc_tpu_torch.samplers.imhk import (
+        STEPS_PER_LAUNCH,
+    )
+    lat = s.lat
+    s.reset_counts()
     torch.cuda.reset_peak_memory_stats()
+    # the sampler's automatic burn-in draws through B1 (one launch)
+    sampler = IMHKSampler(lat, FALCON_SIGMA, tail_budget=0.01)
     rates, accs = [], []
     for rep in range(FLAGSHIP_REPS):
         torch.cuda.synchronize()
@@ -325,9 +623,12 @@ def main():
         rates.append(FLAGSHIP_CHAINS * STEPS_PER_LAUNCH
                      / (time.perf_counter() - t0))
         accs.append(sampler.acceptance_rate)
-    launches = {"klein_draw": klein_cuda.klein_draw.launches,
-                "imhk_fused": klein_cuda.imhk_fused.launches}
+    launches = s.counts()
+    s.launches["flagship"] = launches
+    expected = {"klein_draw": FLAGSHIP_REPS + 1, "imhk_fused": FLAGSHIP_REPS,
+                "imhk_trajectory": 0, "smk_steps": 0, "peikert_rounds": 0}
     peak = torch.cuda.max_memory_allocated()
+    n = lat.n
     # output check: shape, finite integers, and the D_{L,sigma} second
     # moment E||Bx||^2 ~ dim sigma^2 on a subset of chains
     finite = bool(torch.isfinite(X).all())
@@ -336,41 +637,248 @@ def main():
     norm_ratio = float((v ** 2).sum(1).mean() / (n * FALCON_SIGMA ** 2))
     acc = sum(accs) / len(accs)
     ok = (tuple(X.shape) == (FLAGSHIP_CHAINS, n) and finite and integral
-          and abs(norm_ratio - 1) < 0.02 and 0.99 < acc < 1.0
-          and all(c > 0 for c in launches.values()))
+          and abs(norm_ratio - 1) < MAX_NORM_GAP and 0.99 < acc < 1.0
+          and launches == expected)
     emit({"phase": "flagship", "ok": ok, "dim": n, "sigma": FALCON_SIGMA,
           "window": sampler.pre.window, "chains": FLAGSHIP_CHAINS,
           "steps_per_launch": STEPS_PER_LAUNCH, "reps": FLAGSHIP_REPS,
           "samples_per_s": len(rates) / sum(1 / r for r in rates),
           "rep_samples_per_s": rates, "acceptance": acc,
-          "launches": launches, "peak_allocated_bytes": peak,
+          "burn_in": sampler.burn_in, "launches": launches,
+          "expected_launches": expected, "peak_allocated_bytes": peak,
           "finite": finite, "integral": integral,
-          "norm2_over_dim_sigma2": norm_ratio, "card": card})
+          "norm2_over_dim_sigma2": norm_ratio, "card": s.card})
     if not ok:
         fail("flagship", "flagship run failed its checks")
-    del X, v
+    return sampler
 
-    # ---------------------------------------------------------------- timing
-    # Each kernel against its plain version on the same inputs at the
-    # flagship's shapes (524,288 chains; B2 as the main path launches it,
-    # 64 steps), in-kernel Philox on both sides.
+
+# ---------------------------------------------------------------- hard_regime
+def phase_hard_regime(s: Smoke):
+    """bench.py:136-217: B1 start, a B3 warm-up and a timed B3 run of
+    T = 48 (lw ring only), the pooled ACF on the card to lag 24 and the
+    Sokal tau_int, a warm-up and a timed 64-step B2 run."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.diagnostics import (
+        pooled_acf,
+        sokal_tau,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.samplers import IMHKSampler
+    from lattice_gaussian_mcmc_tpu_torch.samplers.imhk import (
+        STEPS_PER_LAUNCH,
+    )
+    kc = s.kc
+    s.reset_counts()
+    sampler = IMHKSampler(s.lat, s.sigma_row, tail_budget=0.01)
+    ops = sampler.operands
+    Bh, T, n = ROW_CHAINS, HARD_T, ops.n
+    # the trajectory entry point, at a small size: Klein start (B1),
+    # burn-in (B2), kept states (B3)
+    Xs = sampler.sample(7, 4, thin=2, n_chains=CHECK_CHAINS,
+                        return_coeffs=True)
+    entry_ok = (tuple(Xs.shape) == (CHECK_CHAINS * 4, n)
+                and bool(torch.isfinite(Xs).all())
+                and sampler._last_state is not None)
+    entry_acc = sampler.acceptance_rate
+    del Xs
+    seed = 100
+    x, lw = kc.klein_draw(ops, Bh, seed=seed, step=0)
+    acc = torch.zeros_like(lw)
+    x, lw, acc, _, _ = kc.imhk_trajectory(ops, x, lw, acc, T, 1, seed=seed,
+                                          step=1)
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    x, lw, acc, _, tlw = kc.imhk_trajectory(ops, x, lw, acc, T, 1,
+                                            seed=seed, step=1 + T)
+    ev1.record()
+    rho = pooled_acf(tlw, max_lag=HARD_MAX_LAG).cpu()
+    dt_traj = time.perf_counter() - t0
+    b3_ms = ev0.elapsed_time(ev1)
+    ring_finite = bool(torch.isfinite(tlw).all())
+    del tlw
+    step = 1 + 2 * T
+    kc.imhk_fused(ops, x, lw, acc, STEPS_PER_LAUNCH, seed=seed, step=step)
+    acc = torch.zeros_like(lw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kc.imhk_fused(ops, x, lw, acc, STEPS_PER_LAUNCH, seed=seed,
+                  step=step + STEPS_PER_LAUNCH)
+    a_h = float(acc.sum()) / (Bh * STEPS_PER_LAUNCH)   # synchronises
+    sps = Bh * STEPS_PER_LAUNCH / (time.perf_counter() - t0)
+    launches = s.counts()
+    s.launches["hard_regime"] = launches
+    tau = sokal_tau(rho)
+    ess_per_sample = 1.0 / (2.0 * tau)
+    n_pad, W = ops.n_pad, ops.window
+    bound, by = bound_ms(klein_flop(n, W) * Bh * T,
+                         4 * (2 * n_pad * n_pad + 2 * n_pad
+                              + 2 * (n_pad * Bh + 2 * Bh) + T * Bh))
+    s.note("B3", ms=b3_ms, bound_ms=bound, bound_by=by,
+           shape=f"{Bh} chains x {T} steps, window {W}, lw ring")
+    ok = (entry_ok and ring_finite and bool(torch.isfinite(lw).all())
+          and abs(a_h - HARD_ROW_ACCEPTANCE) <= ROW_ACCEPTANCE_TOL
+          and 0.5 <= tau < HARD_MAX_LAG
+          and all(launches[k] > 0 for k in ("klein_draw", "imhk_fused",
+                                            "imhk_trajectory")))
+    emit({"phase": "hard_regime", "ok": ok, "dim": n, "sigma": s.sigma_row,
+          "sigma_over_max_gs": ROW_SIGMA_OVER_MAX_GS, "window": W,
+          "window_path": "compiled" if W == 16 else "runtime",
+          "chains": Bh, "traj_steps": T, "burn_in": sampler.burn_in,
+          "samples_per_s": sps, "acceptance": a_h,
+          "expected_acceptance": HARD_ROW_ACCEPTANCE,
+          "tau_int": tau, "ess_per_sample": ess_per_sample,
+          "ess_per_s": sps * ess_per_sample,
+          "ess_per_s_independence_formula": sps * a_h / (2.0 - a_h),
+          "samples_per_s_ring_plus_acf": Bh * T / dt_traj,
+          "b3_ms": b3_ms, "pooled_acf": [float(r) for r in rho[:8]],
+          "entry_sample_acceptance": entry_acc, "launches": launches,
+          "card": s.card})
+    if not ok:
+        fail("hard_regime", "hard-regime row failed its checks")
+
+
+# ---------------------------------------------------------------- smk
+def phase_smk(s: Smoke):
+    """bench.py:219-252: a Klein start and 32 SMK steps (through
+    SMKSampler.sample_iid, the warm-up of the bench row), then 32 timed
+    steps of B4 from there."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.samplers import SMKSampler
+    kc, sc = s.kc, s.sc
+    s.reset_counts()
+    sampler = SMKSampler(s.lat, s.sigma_row,
+                         proposal_sigma=SMK_PROPOSAL_OVER_SIGMA * s.sigma_row,
+                         tail_budget=0.01)
+    Bs, T = ROW_CHAINS, SMK_STEPS
+    seed = 400
+    X = sampler.sample_iid(seed, Bs, n_steps=T, return_coeffs=True)
+    warm_acc = sampler.acceptance_rate
+    ops = sampler.operands
+    x = kc.to_kernel_layout(sampler.klein_operands, X)
+    del X
+    acc = torch.zeros(Bs, device=s.dev)
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    sc.smk_steps(ops, x, acc, T, seed=seed, step=1 + T)
+    ev1.record()
+    a_s = float(acc.sum()) / (Bs * T)                   # synchronises
+    sps = Bs * T / (time.perf_counter() - t0)
+    b4_ms = ev0.elapsed_time(ev1)
+    launches = s.counts()
+    s.launches["smk"] = launches
+    n, n_pad, W = ops.n, ops.n_pad, ops.window
+    Xf = kc.from_kernel_layout(sampler.klein_operands, x)
+    finite = bool(torch.isfinite(Xf).all())
+    integral = bool((Xf == torch.round(Xf)).all())
+    del x, Xf
+    bound, by = bound_ms(T * smk_flop(n, W) * Bs + n * (n + 1) * Bs,
+                         4 * (2 * n_pad * n_pad + 3 * n_pad
+                              + 2 * n_pad * Bs + 3 * Bs))
+    s.note("B4", ms=b4_ms, bound_ms=bound, bound_by=by,
+           shape=f"{Bs} chains x {T} steps, window {W}")
+    ok = (finite and integral
+          and abs(a_s - SMK_ROW_ACCEPTANCE) <= ROW_ACCEPTANCE_TOL
+          and launches["klein_draw"] > 0 and launches["smk_steps"] > 0)
+    emit({"phase": "smk", "ok": ok, "dim": n, "sigma": s.sigma_row,
+          "proposal_sigma": sampler.proposal_sigma, "window": W,
+          "window_path": "compiled" if W == 16 else "runtime",
+          "chains": Bs, "steps": T, "samples_per_s": sps,
+          "acceptance": a_s, "expected_acceptance": SMK_ROW_ACCEPTANCE,
+          "warm_up_acceptance": warm_acc, "b4_ms": b4_ms,
+          "launches": launches, "card": s.card})
+    if not ok:
+        fail("smk", "SMK row failed its checks")
+
+
+# ---------------------------------------------------------------- peikert
+def phase_peikert(s: Smoke):
+    """bench.py:254-296: PeikertSampler at 1.05 r s1(B), the window of
+    suggest_peikert_window, 65,536 chains x 8 rounds in one B5 launch."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.samplers import PeikertSampler
+    pc = s.pc
+    s.reset_counts()
+    sigma, r, s1 = s.peikert_sigma()
+    sampler = PeikertSampler(s.lat, sigma)
+    ops = sampler.operands
+    Bp, R, n = PEIKERT_CHAINS, PEIKERT_ROUNDS, ops.n
+    # the sampler's entry point, one round
+    pts = sampler.sample(500, CHECK_CHAINS)
+    entry_ok = (tuple(pts.shape) == (CHECK_CHAINS, n)
+                and bool(torch.isfinite(pts).all()))
+    del pts
+    pc.peikert_rounds(ops, Bp, R, seed=501)             # warm-up
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    ring = pc.peikert_rounds(ops, Bp, R, seed=502)
+    ev1.record()
+    torch.cuda.synchronize()
+    sps = Bp * R / (time.perf_counter() - t0)
+    b5_ms = ev0.elapsed_time(ev1)
+    launches = s.counts()
+    s.launches["peikert"] = launches
+    X = pc.ring_coeffs(ops, ring)
+    finite = bool(torch.isfinite(X).all())
+    integral = bool((X == torch.round(X)).all())
+    # D_{L,sigma} second moment on a subset of the last round's draws
+    v = X[-1, :CHECK_CHAINS].double() @ s.lat.basis.T
+    norm_ratio = float((v ** 2).sum(1).mean() / (n * sigma ** 2))
+    del ring, X, v
+    n_pad, W = ops.n_pad, ops.window
+    bound, by = bound_ms(peikert_flop(n, W) * Bp * R,
+                         4 * (n_pad * n_pad + n_pad + R * n_pad * Bp))
+    s.note("B5", ms=b5_ms, bound_ms=bound, bound_by=by,
+           shape=f"{Bp} chains x {R} rounds, window {W}")
+    ok = (entry_ok and finite and integral and W == PEIKERT_WINDOW
+          and abs(norm_ratio - 1) < MAX_NORM_GAP
+          and launches["peikert_rounds"] > 0)
+    emit({"phase": "peikert", "ok": ok, "dim": n, "sigma": sigma, "r": r,
+          "s1": s1, "window": W,
+          "window_path": "compiled" if W == 16 else "runtime",
+          "chains": Bp, "rounds": R, "samples_per_s": sps,
+          "norm2_over_dim_sigma2": norm_ratio, "b5_ms": b5_ms,
+          "launches": launches, "card": s.card})
+    if not ok:
+        fail("peikert", "Peikert row failed its checks")
+
+
+# ---------------------------------------------------------------- timing
+def phase_timing(s: Smoke, sampler):
+    """B1 and B2 against their plain versions on the same inputs at the
+    flagship's shapes (524,288 chains; B2 as the main path launches it, 64
+    steps), in-kernel Philox on both sides."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.samplers.imhk import (
+        STEPS_PER_LAUNCH,
+    )
+    kc = s.kc
     Bf = FLAGSHIP_CHAINS
     ops = sampler.operands
-    ms_b1 = cuda_ms(lambda: klein_cuda.klein_draw(ops, Bf, seed=7), reps=3)
-    y, lw = klein_cuda.klein_draw(ops, Bf, seed=7)
+    n, n_pad, W = ops.n, ops.n_pad, ops.window
+    ms_b1 = cuda_ms(lambda: kc.klein_draw(ops, Bf, seed=7), reps=3)
+    y, lw = kc.klein_draw(ops, Bf, seed=7)
     plain = []
     plain_b1 = cuda_ms(lambda: plain.extend(
-        klein_cuda.klein_draw_plain(ops, Bf, seed=7)))
+        kc.klein_draw_plain(ops, Bf, seed=7)))
     cmp_b1 = compare_draws(y, plain[0], lw, plain[1], n)
     del plain
     x, lx, ax = y.clone(), lw.clone(), torch.zeros_like(lw)
-    ms_b2 = cuda_ms(lambda: klein_cuda.imhk_fused(
+    ms_b2 = cuda_ms(lambda: kc.imhk_fused(
         ops, x, lx, ax, STEPS_PER_LAUNCH, seed=7, step=1))
     xp, lxp, axp = y.clone(), lw.clone(), torch.zeros_like(lw)
-    plain_b2 = cuda_ms(lambda: klein_cuda.imhk_fused_plain(
+    plain_b2 = cuda_ms(lambda: kc.imhk_fused_plain(
         ops, xp, lxp, axp, STEPS_PER_LAUNCH, seed=7, step=1))
     cmp_b2 = compare_steps(x, xp, lx, lxp, ax, axp, n, STEPS_PER_LAUNCH)
-    del x, xp
+    del x, xp, y
     # a tie in any of the 64 proposals may re-route a chain's final state,
     # hence the looser chain share; the accept decisions are held chain by
     # chain and in total, which a kernel that never rejects would fail
@@ -386,37 +894,82 @@ def main():
     bound_b2, by_b2 = bound_ms(STEPS_PER_LAUNCH * flop,
                                4 * (2 * n_pad * n_pad + 2 * n_pad
                                     + 2 * (n_pad * Bf + 2 * Bf)))
+    shape = f"{Bf} chains, window {W}"
+    s.note("B1", ms=ms_b1, plain_ms=plain_b1, bound_ms=bound_b1,
+           bound_by=by_b1, shape=shape,
+           max_abs_err=max(s.k["B1"]["max_abs_err"],
+                           cmp_b1["max_abs_lw_err"]),
+           coeffs_differing=max(s.k["B1"]["coeffs_differing"],
+                                cmp_b1["coeffs_differing"]))
+    s.note("B2", ms=ms_b2, plain_ms=plain_b2, bound_ms=bound_b2,
+           bound_by=by_b2, shape=f"{shape} x {STEPS_PER_LAUNCH} steps",
+           max_abs_err=max(s.k["B2"]["max_abs_err"],
+                           cmp_b2["max_abs_lw_err"]),
+           coeffs_differing=max(s.k["B2"]["coeffs_differing"],
+                                cmp_b2["coeffs_differing"]),
+           accept_differing=max(s.k["B2"]["accept_differing"],
+                                cmp_b2["accept_differing"]))
     emit({"phase": "timing", "ok": ok, "chains": Bf, "b1_vs_plain": cmp_b1,
-          "b2_vs_plain": cmp_b2, "card": card})
+          "b2_vs_plain": cmp_b2,
+          "b3_b4_b5": {k: s.k[k] for k in ("B3", "B4", "B5")},
+          "card": s.card})
     if not ok:
         fail("timing", "kernel disagrees with its plain version at the "
              "flagship shapes")
-    src = "lattice_gaussian_mcmc_tpu_torch/csrc/klein.cu"
-    pallas = "lattice_gaussian_mcmc_tpu/ops/kernels/klein_pallas.py"
-    kernels = [
-        {"name": "klein_draw (B1)", "route": "cuda", "source": src,
-         "replaces": f"{pallas}:642", "launches": launches["klein_draw"],
-         "max_abs_err": max(b1["max_abs_lw_err"],
-                            cmp_b1["max_abs_lw_err"]),
-         "coeffs_differing": max(b1["coeffs_differing"],
-                                 cmp_b1["coeffs_differing"]),
-         "ms": ms_b1, "plain_ms": plain_b1, "bound_ms": bound_b1,
-         "bound_by": by_b1, "library_ms": None},
-        {"name": "imhk_fused (B2)", "route": "cuda", "source": src,
-         "replaces": f"{pallas}:798", "launches": launches["imhk_fused"],
-         "max_abs_err": max(b2["max_abs_lw_err"], b2_hard["max_abs_lw_err"],
-                            cmp_b2["max_abs_lw_err"]),
-         "coeffs_differing": max(b2["coeffs_differing"],
-                                 b2_hard["coeffs_differing"],
-                                 cmp_b2["coeffs_differing"]),
-         "accept_differing": max(b2["accept_differing"],
-                                 b2_hard["accept_differing"],
-                                 cmp_b2["accept_differing"]),
-         "steps_per_launch": STEPS_PER_LAUNCH,
-         "ms": ms_b2, "plain_ms": plain_b2, "bound_ms": bound_b2,
-         "bound_by": by_b2, "library_ms": None},
-    ]
-    print(card, flush=True)
+
+
+KERNELS = [
+    # (key, name, source, replaces, launch counter)
+    ("B1", "klein_draw (B1)", "klein.cu", "klein_pallas.py:642",
+     "klein_draw"),
+    ("B2", "imhk_fused (B2)", "klein.cu", "klein_pallas.py:798",
+     "imhk_fused"),
+    ("B3", "imhk_trajectory (B3)", "klein.cu", "klein_pallas.py:890",
+     "imhk_trajectory"),
+    ("B4", "smk_steps (B4)", "smk.cu", "smk_pallas.py:439", "smk_steps"),
+    ("B5", "peikert_rounds (B5)", "peikert.cu", "peikert_pallas.py:287",
+     "peikert_rounds"),
+]
+
+
+def kernels_line(s: Smoke):
+    """One entry per kernel: `launches` sums its counts over the path
+    phases; `plain_ms` of B3-B5 is at the check size (`check_shape`, where
+    `check_ms` is the kernel's own time), theirs `ms` at the row's shape."""
+    out = []
+    for key, name, src, replaces, counter in KERNELS:
+        entry = {"name": name, "route": "cuda",
+                 "source": f"lattice_gaussian_mcmc_tpu_torch/csrc/{src}",
+                 "replaces": f"lattice_gaussian_mcmc_tpu/ops/kernels/"
+                             f"{replaces}",
+                 "launches": sum(c[counter] for c in s.launches.values())}
+        entry.update(s.k[key])
+        entry["library_ms"] = None
+        out.append(entry)
+    return out
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    s = Smoke()
+    phase_toolchain(s)
+    s2, basis2 = phase_kernel_vs_plain(s)
+    phase_law(s, s2, basis2)
+    del s2
+    sampler = phase_flagship(s)
+    torch.cuda.empty_cache()
+    phase_hard_regime(s)
+    phase_smk(s)
+    phase_peikert(s)
+    torch.cuda.empty_cache()
+    phase_timing(s, sampler)
+    kernels = kernels_line(s)
+    if any(k["launches"] <= 0 for k in kernels):
+        fail("kernels", "a kernel of the paths was never launched")
+    print(s.card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

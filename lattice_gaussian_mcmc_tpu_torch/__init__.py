@@ -5,8 +5,11 @@ imports none of it and no JAX. Its kernels are hand-written CUDA for Hopper
 (`csrc/`), built with nvcc at first use. Entry points run on the CUDA card
 unless given `device="cpu"`, where the kernels' plain PyTorch versions run.
 
-Ported so far: the IMHK main path (lattices, the Klein precomputation, the
-Klein draw and fused IMHK kernels, `IMHKSampler.sample_iid`).
+Ported so far: the rows of the reference's flagship benchmark — lattices,
+the Klein precomputation, IMHK (`IMHKSampler.sample_iid` and the trajectory
+`sample`), symmetric Metropolis-Klein (`MetropolisKleinSampler`), Peikert
+(`PeikertSampler`) and the MCMC diagnostics — with kernels B1-B5 (Klein
+draw, fused IMHK, IMHK trajectory, fused SMK, Peikert).
 """
 
 __version__ = "0.1.0"
@@ -20,5 +23,8 @@ from lattice_gaussian_mcmc_tpu_torch.lattices import (  # noqa: F401
 from lattice_gaussian_mcmc_tpu_torch.samplers import (  # noqa: F401
     IMHKSampler,
     KleinPrecomp,
+    MetropolisKleinSampler,
+    PeikertSampler,
+    SMKSampler,
     klein_precompute,
 )

@@ -1,5 +1,5 @@
-"""Windowed 1D discrete Gaussian over Z: logits, log-normalizer and the
-inverse-CDF draw (counterpart of the JAX package's
+"""Windowed 1D discrete Gaussian over Z: logits, log-normalizer, the
+inverse-CDF draw and the Gumbel-max draw (counterpart of the JAX package's
 `ops/discrete_gaussian.py`).
 
 The window is W integers [-W/2, W/2 - 1] around base = round(center);
@@ -58,3 +58,16 @@ def sample_dgauss_icdf_with_logz(u, center, sigma,
     idx = torch.clamp(idx, 0, window - 1)
     z = torch.round(center) - window // 2 + idx.to(center.dtype)
     return z, m + torch.log(total)
+
+
+def sample_dgauss(u, center, sigma, window: int = DEFAULT_WINDOW):
+    """Gumbel-max draw of D_{Z, sigma, center} on the window: u holds W
+    uniforms per draw (shape (..., W), broadcastable against
+    center[..., None]), Gumbel noise g = -log(-log(max(u, tiny))),
+    z = support[argmax(logits + g)]. Exact categorical sampling on the
+    window, the JAX package's law."""
+    support, logits = dgauss_logits(center, sigma, window)
+    u = torch.as_tensor(u, dtype=logits.dtype, device=logits.device)
+    u = torch.clamp(u, min=torch.finfo(logits.dtype).tiny)
+    idx = torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+    return torch.take_along_dim(support, idx[..., None], dim=-1)[..., 0]

@@ -1,9 +1,10 @@
 """Build the CUDA kernels at first use: nvcc -> shared library -> ctypes.
 
 Each source in `csrc/` compiles to `_build/lib<name>-<hash>.so` inside the
-package (the hash covers the source and the flags, so an edited source
-rebuilds), with a plain C interface and no PyTorch headers. Builds happen
-in the process that first launches a kernel, never at import.
+package (the hash covers the source, the shared headers `csrc/*.cuh` and
+the flags, so an edited source rebuilds), with a plain C interface and no
+PyTorch headers. Builds happen in the process that first launches a
+kernel, never at import.
 """
 
 from __future__ import annotations
@@ -39,46 +40,91 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path; its hash covers the source, the shared headers
+    of csrc/ and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
 def build(name: str) -> str:
     """Compile csrc/<name>.cu unless its library exists; return its path."""
-    out = library_path(name)
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC, f"{name}.cu")]
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{r.stderr[-4000:]}")
-    os.replace(tmp, out)
-    BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
-                        "ptxas": r.stderr[-4000:]}
-    return out
+    build_all((name,))
+    return library_path(name)
 
 
-def load_klein() -> ctypes.CDLL:
-    """The Klein kernel library with its C signatures declared."""
-    lib = _LIBS.get("klein")
+_P, _I, _LL, _U32, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_uint32, ctypes.c_float)
+# name -> {C function: argument types}; every function returns int except
+# the error-string one
+_SIGNATURES = {
+    "klein": {
+        "klein_draw_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I,
+                              _U32, _U32, _U32, _U32, _P],
+        "imhk_trajectory_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _I, _I, _LL, _I, _I, _U32, _U32,
+                                   _U32, _U32, _P],
+    },
+    "smk": {
+        "smk_steps_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _LL, _I, _I, _U32, _U32, _U32, _U32, _P],
+    },
+    "peikert": {
+        "peikert_rounds_launch": [_P, _P, _F, _P, _P, _P, _P, _I, _LL, _I,
+                                  _I, _U32, _U32, _U32, _P],
+    },
+}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library csrc/<name>.cu, built at first use, with its C
+    signatures declared."""
+    lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    lib = ctypes.CDLL(build("klein"))
-    p, i, ll, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                     ctypes.c_uint32)
-    lib.klein_draw_launch.argtypes = [p, p, p, p, p, p, p, i, ll, i,
-                                      u32, u32, u32, u32, p]
-    lib.klein_draw_launch.restype = i
-    lib.imhk_fused_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, ll, i,
-                                      i, u32, u32, u32, u32, p]
-    lib.imhk_fused_launch.restype = i
-    lib.klein_error_string.argtypes = [i]
-    lib.klein_error_string.restype = ctypes.c_char_p
-    _LIBS["klein"] = lib
+    lib = ctypes.CDLL(build(name))
+    for fn, argtypes in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _I
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [_I]
+    err.restype = ctypes.c_char_p
+    _LIBS[name] = lib
     return lib
+
+
+def raise_on(name: str, rc: int, what: str):
+    """Raise if a launch of library `name` returned CUDA error `rc`."""
+    if rc:
+        msg = getattr(load(name), f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
+
+
+def build_all(names=tuple(_SIGNATURES)) -> dict:
+    """Compile the named libraries at once, one nvcc process per source, all
+    started together; returns {name: seconds} for those built here."""
+    todo = [n for n in names if not os.path.exists(library_path(n))]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for n in todo:
+        tmp = f"{library_path(n)}.{os.getpid()}.tmp"
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True),
+                    tmp, time.perf_counter())
+    failed = []
+    for n, (proc, tmp, t0) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {n}.cu:\n{err[-4000:]}")
+            continue
+        os.replace(tmp, library_path(n))
+        BUILD_INFO[n] = {"seconds": time.perf_counter() - t0,
+                         "ptxas": err[-4000:]}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {n: BUILD_INFO[n]["seconds"] for n in procs}

@@ -1,11 +1,11 @@
-"""Klein draw (B1) and fused IMHK steps (B2) on Hopper: wrappers of the
-CUDA kernel in `csrc/klein.cu`, their plain PyTorch versions, launch
-counts, and the operand preparation.
+"""Klein draw (B1), fused IMHK steps (B2) and the IMHK trajectory (B3) on
+Hopper: wrappers of the CUDA kernel in `csrc/klein.cu`, their plain PyTorch
+versions, launch counts, and the operand preparation.
 
-Replaces the draw and fused-MH modes of the Pallas kernel
+Replaces the draw, fused-MH and trajectory modes of the Pallas kernel
 `lattice_gaussian_mcmc_tpu/ops/kernels/klein_pallas.py` `_kernel`
 (`klein_sample_batch_pallas`, `imhk_step_pallas_fused`,
-`imhk_steps_batch_pallas`).
+`imhk_steps_batch_pallas`, `imhk_trajectory_pallas`).
 
 Layout. The kernel layout is chain-minor: the state is y (n_pad, B), so one
 thread per chain reads and writes whole rows coalesced. n_pad is n rounded
@@ -16,7 +16,8 @@ cs_eff = cs - U k, computed once per call outside the kernel.
 
 Uniforms. Either the caller passes them (draw mode: row i = coordinate i,
 shape (n_pad, B); fused mode: n_pad + 8 rows per step, the accept uniform
-in row s (n_pad + 8) + n_pad — the Pallas kernel's host-uniform layout), or
+in row s (n_pad + 8) + n_pad — the Pallas kernel's host-uniform layout;
+trajectory mode as fused mode), or
 the kernel draws Philox4x32-10 uniforms keyed by (seed, chain id, step,
 row), the same function as `utils/prng.py`.
 
@@ -34,7 +35,7 @@ import torch
 from lattice_gaussian_mcmc_tpu_torch.ops.discrete_gaussian import (
     window_offsets,
 )
-from lattice_gaussian_mcmc_tpu_torch.ops.kernels._build import load_klein
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels._build import load, raise_on
 from lattice_gaussian_mcmc_tpu_torch.samplers.klein import KleinPrecomp
 from lattice_gaussian_mcmc_tpu_torch.utils.prng import (
     TAG_ACCEPT,
@@ -190,10 +191,13 @@ def klein_draw_plain(ops: KleinOperands, num_chains: int, *, seed: int = 0,
 
 def imhk_fused_plain(ops: KleinOperands, x, lw, acc, n_steps: int, *,
                      seed: int = 0, step: int = 0, chain_offset: int = 0,
-                     uniforms=None):
+                     uniforms=None, tlw=None, tx=None, thin: int = 1):
     """Plain version of B2: n_steps IMHK steps updating the chain-minor
     state x (n_pad, B), lw (B,) and the acceptance count acc (B,) in place.
-    Step s uses Philox step `step + s`. Returns (x, lw, acc)."""
+    Step s uses Philox step `step + s`. With a ring (B3's plain version,
+    `imhk_trajectory_plain`), after step s with (s + 1) % thin == 0 the lw
+    goes to tlw[(s + 1) / thin - 1] and, when tx is given, the state to
+    that keep's n_pad rows of tx. Returns (x, lw, acc)."""
     n_pad, B = x.shape
     dt, dev = ops.U.dtype, ops.device
     prop = torch.zeros_like(x)
@@ -213,7 +217,44 @@ def imhk_fused_plain(ops: KleinOperands, x, lw, acc, n_steps: int, *,
         x.copy_(torch.where(accept[None, :], prop, x))
         lw.copy_(torch.where(accept, lwp, lw))
         acc += accept.to(acc.dtype)
+        if tlw is not None and (s + 1) % thin == 0:
+            k = (s + 1) // thin - 1
+            tlw[k] = lw
+            if tx is not None:
+                tx[k * n_pad:(k + 1) * n_pad] = x
     return x, lw, acc
+
+
+def _trajectory_ring(x, n_keep: int, coeffs: bool):
+    n_pad, B = x.shape
+    tlw = torch.zeros(n_keep, B, dtype=x.dtype, device=x.device)
+    tx = (torch.zeros(n_keep * n_pad, B, dtype=x.dtype, device=x.device)
+          if coeffs else None)
+    return tlw, tx
+
+
+def imhk_trajectory_plain(ops: KleinOperands, x, lw, acc, n_keep: int,
+                          thin: int = 1, *, seed: int = 0, step: int = 0,
+                          chain_offset: int = 0, uniforms=None,
+                          coeffs: bool = False):
+    """Plain version of B3: n_keep * thin IMHK steps (B2's plain version,
+    state in place) keeping every thin-th state. Returns
+    (x, lw, acc, tx (n_keep * n_pad, B) or None, tlw (n_keep, B))."""
+    tlw, tx = _trajectory_ring(x, n_keep, coeffs)
+    imhk_fused_plain(ops, x, lw, acc, n_keep * thin, seed=seed, step=step,
+                     chain_offset=chain_offset, uniforms=uniforms, tlw=tlw,
+                     tx=tx, thin=thin)
+    return x, lw, acc, tx, tlw
+
+
+def trajectory_coeffs(ops: KleinOperands, tx: torch.Tensor) -> torch.Tensor:
+    """Coefficient ring (n_keep * n_pad, B) -> chain-major (B * n_keep, n)
+    integer coefficients (chain b's keeps in rows b n_keep ..)."""
+    n_keep = tx.shape[0] // ops.n_pad
+    B = tx.shape[1]
+    y = tx.reshape(n_keep, ops.n_pad, B)[:, :ops.n]
+    X = y + ops.shift[None, :ops.n, None]
+    return X.permute(2, 0, 1).reshape(B * n_keep, ops.n)
 
 
 # ---------------------------------------------------------------------------
@@ -249,12 +290,6 @@ def _check_operands(ops: KleinOperands):
         raise ValueError(f"window {ops.window} outside [1, 1024]")
 
 
-def _raise_on(rc: int, what: str):
-    if rc:
-        msg = load_klein().klein_error_string(rc).decode()
-        raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
-
-
 def klein_draw(ops: KleinOperands, num_chains: int, *, seed: int = 0,
                step: int = 0, chain_offset: int = 0, uniforms=None):
     """B1: one Klein draw per chain. Returns (y (n_pad, B) recentered
@@ -265,7 +300,7 @@ def klein_draw(ops: KleinOperands, num_chains: int, *, seed: int = 0,
     _check_operands(ops)
     if uniforms is not None:
         _check_cuda("uniforms", uniforms, (ops.n_pad, num_chains))
-    lib = load_klein()
+    lib = load("klein")
     y = torch.empty(ops.n_pad, num_chains, dtype=torch.float32,
                     device=ops.device)
     lw = torch.empty(num_chains, dtype=torch.float32, device=ops.device)
@@ -276,9 +311,35 @@ def klein_draw(ops: KleinOperands, num_chains: int, *, seed: int = 0,
         _ptr(y), _ptr(lw), ops.n_pad, num_chains, ops.window, k0, k1,
         step, chain_offset,
         ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
-    _raise_on(rc, "klein_draw")
+    raise_on("klein", rc, "klein_draw")
     klein_draw.launches += 1
     return y, lw
+
+
+def _fused_launch(ops: KleinOperands, x, lw, acc, n_steps: int, seed: int,
+                  step: int, chain_offset: int, uniforms, tlw=None, tx=None,
+                  thin: int = 1):
+    _check_operands(ops)
+    B = x.shape[1]
+    _check_cuda("x", x, (ops.n_pad, B))
+    _check_cuda("lw", lw, (B,))
+    _check_cuda("acc", acc, (B,))
+    if uniforms is not None:
+        _check_cuda("uniforms", uniforms,
+                    (n_steps * (ops.n_pad + ACCEPT_ROWS), B))
+    lib = load("klein")
+    prop = torch.empty_like(x)
+    k0, k1 = seed_key(seed)
+    rc = lib.imhk_trajectory_launch(
+        _ptr(ops.U), _ptr(ops.UT), _ptr(ops.cs), _ptr(ops.isg),
+        _ptr(uniforms) if uniforms is not None else None,
+        _ptr(x), _ptr(lw), _ptr(acc), _ptr(prop),
+        _ptr(tlw) if tlw is not None else None,
+        _ptr(tx) if tx is not None else None, thin, ops.n_pad, B,
+        ops.window, n_steps, k0, k1, step, chain_offset,
+        ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
+    raise_on("klein", rc,
+             "imhk_trajectory" if tlw is not None else "imhk_fused")
 
 
 def imhk_fused(ops: KleinOperands, x, lw, acc, n_steps: int, *,
@@ -291,32 +352,39 @@ def imhk_fused(ops: KleinOperands, x, lw, acc, n_steps: int, *,
         return imhk_fused_plain(ops, x, lw, acc, n_steps, seed=seed,
                                 step=step, chain_offset=chain_offset,
                                 uniforms=uniforms)
-    _check_operands(ops)
-    B = x.shape[1]
-    _check_cuda("x", x, (ops.n_pad, B))
-    _check_cuda("lw", lw, (B,))
-    _check_cuda("acc", acc, (B,))
-    if uniforms is not None:
-        _check_cuda("uniforms", uniforms,
-                    (n_steps * (ops.n_pad + ACCEPT_ROWS), B))
-    lib = load_klein()
-    prop = torch.empty_like(x)
-    k0, k1 = seed_key(seed)
-    rc = lib.imhk_fused_launch(
-        _ptr(ops.U), _ptr(ops.UT), _ptr(ops.cs), _ptr(ops.isg),
-        _ptr(uniforms) if uniforms is not None else None,
-        _ptr(x), _ptr(lw), _ptr(acc), _ptr(prop), ops.n_pad, B, ops.window,
-        n_steps, k0, k1, step, chain_offset,
-        ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
-    _raise_on(rc, "imhk_fused")
+    _fused_launch(ops, x, lw, acc, n_steps, seed, step, chain_offset,
+                  uniforms)
     imhk_fused.launches += 1
     return x, lw, acc
 
 
-klein_draw.launches = 0
-imhk_fused.launches = 0
+def imhk_trajectory(ops: KleinOperands, x, lw, acc, n_keep: int,
+                    thin: int = 1, *, seed: int = 0, step: int = 0,
+                    chain_offset: int = 0, uniforms=None,
+                    coeffs: bool = False):
+    """B3: n_keep * thin fused IMHK steps in one launch (B2, state in
+    place), writing the lw of every thin-th state to a ring tlw
+    (n_keep, B) and, with `coeffs`, the state to tx (n_keep * n_pad, B).
+    Returns (x, lw, acc, tx or None, tlw). CPU operands run
+    `imhk_trajectory_plain`."""
+    if ops.device.type == "cpu":
+        return imhk_trajectory_plain(ops, x, lw, acc, n_keep, thin,
+                                     seed=seed, step=step,
+                                     chain_offset=chain_offset,
+                                     uniforms=uniforms, coeffs=coeffs)
+    if n_keep < 1 or thin < 1:
+        raise ValueError(f"n_keep {n_keep} and thin {thin} must be >= 1")
+    tlw, tx = _trajectory_ring(x, n_keep, coeffs)
+    _fused_launch(ops, x, lw, acc, n_keep * thin, seed, step, chain_offset,
+                  uniforms, tlw=tlw, tx=tx, thin=thin)
+    imhk_trajectory.launches += 1
+    return x, lw, acc, tx, tlw
 
 
 def reset_launch_counts():
     klein_draw.launches = 0
     imhk_fused.launches = 0
+    imhk_trajectory.launches = 0
+
+
+reset_launch_counts()

@@ -1,0 +1,271 @@
+"""Fused symmetric Metropolis-Klein steps (B4) on Hopper: the wrapper of
+the CUDA kernel in `csrc/smk.cu`, its plain PyTorch version, the launch
+count and the operand preparation.
+
+Replaces the Pallas kernel
+`lattice_gaussian_mcmc_tpu/ops/kernels/smk_pallas.py` `_smk_kernel`
+(`_smk_steps_jit`, `smk_steps_batch_pallas`).
+
+Layout and randomness are B2's (`klein_cuda.py`): the state is the
+chain-minor recentered integer vector y = x - k (n_pad, B) of the target
+precomputation; host uniforms have n_pad + 8 rows per step with the accept
+uniform in row n_pad, or the kernel draws Philox uniforms keyed by (seed,
+chain id, step, row).
+
+Operands follow `_smk_steps_jit`: the proposal widths are the target's
+conditional widths times sigma_prop / sigma (padded rows 1e-6), the window
+is `suggest_window_budget` on that proposal profile (budget 0.01, at most
+1024), and the target enters as its recentered centre cse and
+wqt_i = R_ii / (sqrt(2) sigma) (0 on padded rows, which then add nothing
+to the target quadratics whatever they draw).
+
+Dispatch. A wrapper given CPU tensors runs the plain version; given CUDA
+tensors it launches the kernel or raises. It never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from lattice_gaussian_mcmc_tpu_torch.ops.discrete_gaussian import (
+    window_offsets,
+)
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels import klein_cuda
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels._build import load, raise_on
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels.klein_cuda import (
+    ACCEPT_ROWS,
+    ROW_BLOCK,
+    _check_cuda,
+    _draw_row_plain,
+    _ptr,
+    _uniform_rows,
+)
+from lattice_gaussian_mcmc_tpu_torch.samplers.klein import (
+    MAX_WINDOW,
+    KleinPrecomp,
+    suggest_window_budget,
+)
+from lattice_gaussian_mcmc_tpu_torch.utils.prng import (
+    TAG_ACCEPT,
+    chain_ids,
+    philox_uniform,
+    seed_key,
+)
+
+
+@dataclasses.dataclass
+class SMKOperands:
+    """Kernel operands of one SMK configuration, in the working dtype.
+
+      U, UT: the target's (n_pad, n_pad) unit upper-triangular factor and
+             its transpose.
+      cse:   (n_pad,) recentered target centre cs - U k.
+      isgp:  (n_pad,) inverse proposal widths.
+      wqt:   (n_pad,) R_ii / (sqrt(2) sigma), 0 on padded rows.
+      shift: (n_pad,) the integer recentering k = round(cs).
+      n:     the lattice dimension before padding.
+      window: the proposal's window.
+    """
+
+    U: torch.Tensor
+    UT: torch.Tensor
+    cse: torch.Tensor
+    isgp: torch.Tensor
+    wqt: torch.Tensor
+    shift: torch.Tensor
+    n: int
+    window: int
+
+    @property
+    def n_pad(self) -> int:
+        return self.U.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.U.device
+
+
+def smk_operands(pre: KleinPrecomp, sigma_prop: float, dtype=torch.float32,
+                 klein_ops: Optional[klein_cuda.KleinOperands] = None
+                 ) -> SMKOperands:
+    """Operands of `pre` (the TARGET precomputation) with the proposal
+    width `sigma_prop`. `klein_ops`, B1's operands of the same `pre`, are
+    reused when given."""
+    n = pre.n
+    sigma = float(pre.sigma)
+    sigmas_prop = pre.sigmas.to(torch.float64) * (float(sigma_prop) / sigma)
+    prof = np.abs(sigmas_prop.cpu().numpy())
+    window = min(suggest_window_budget(prof, 0.01), MAX_WINDOW)
+    kops = klein_ops if klein_ops is not None else \
+        klein_cuda.kernel_operands(pre, dtype=dtype)
+    n_pad, dev = kops.n_pad, kops.device
+    sp = torch.full((n_pad,), 1e-6, dtype=torch.float64, device=dev)
+    sp[:n] = sigmas_prop.to(dev)
+    wqt = torch.zeros(n_pad, dtype=torch.float64, device=dev)
+    wqt[:n] = 1.0 / (pre.sigmas.to(torch.float64).to(dev) * math.sqrt(2.0))
+    return SMKOperands(U=kops.U, UT=kops.UT, cse=kops.cs,
+                       isgp=(1.0 / sp).to(dtype), wqt=wqt.to(dtype),
+                       shift=kops.shift, n=n, window=int(window))
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version: the kernel's arithmetic, any device and dtype.
+# ---------------------------------------------------------------------------
+
+
+def _log_normalizer_plain(c, isg, window, offs, offs_half):
+    """log Z of the window around rows of centres c (n, B) with inverse
+    widths isg (n, 1): `_draw_row_plain`'s normaliser, its sum in the
+    kernel's sequential order."""
+    base = torch.round(c)
+    delta = base - c
+    a = isg * isg
+    nad = (-a) * delta
+    m = (-0.5 * a) * (delta * delta)
+    total = torch.zeros_like(c)
+    for k in range(window):
+        total = total + torch.exp(offs[k] * nad + offs_half[k] * (-a))
+    return m + torch.log(total)
+
+
+def _smk_propose_plain(ops: SMKOperands, rows, out, ct, ctn):
+    """The SMK sweep into out (n_pad, B): rows draw around
+    c_i = ct_i - coupling_i with the proposal widths, ctn_i =
+    y_i + coupling_i. Returns the forward sum of log Z_i in float64.
+    Padded rows keep the 0 of out and ctn."""
+    n_pad, B = out.shape
+    dt, dev = ops.U.dtype, ops.device
+    offs = window_offsets(ops.window, dt, dev)[:, None]
+    offs_half = 0.5 * offs * offs
+    lw = torch.zeros(B, dtype=torch.float64, device=dev)
+    for lo in range(n_pad - ROW_BLOCK, -1, -ROW_BLOCK):
+        hi = lo + ROW_BLOCK
+        if lo >= ops.n:
+            continue
+        t = ops.U[lo:hi, hi:] @ out[hi:]
+        u = rows(lo, min(hi, ops.n)).to(dt)
+        for r in range(min(ROW_BLOCK, ops.n - lo) - 1, -1, -1):
+            i = lo + r
+            coup = t[r] + ops.U[i, i + 1:hi] @ out[i + 1:hi]
+            z, logz = _draw_row_plain(ct[i] - coup, ops.isgp[i], u[r],
+                                      ops.window, offs, offs_half)
+            out[i] = z
+            ctn[i] = z + coup
+            lw += logz.to(torch.float64)
+    return lw
+
+
+def smk_steps_plain(ops: SMKOperands, x, acc, n_steps: int, *,
+                    seed: int = 0, step: int = 0, chain_offset: int = 0,
+                    uniforms=None, debug: bool = False):
+    """Plain version of B4: n_steps SMK steps updating the recentered
+    chain-minor state x (n_pad, B) and the acceptance count acc (B,) in
+    place. Step s uses Philox step `step + s`. Returns (x, acc, log_alpha
+    of the last step); with `debug`, also a dict of the last step's
+    proposal `p`, its centres `ctn` and `lwf`, `lwr`, `qn`, `qc`,
+    `log_alpha`."""
+    n_pad, B = x.shape
+    dt, dev = ops.U.dtype, ops.device
+    offs = window_offsets(ops.window, dt, dev)
+    offs_half = 0.5 * offs * offs
+    ct = ops.U @ x
+    prop = torch.zeros_like(x)
+    ctn = torch.zeros_like(x)
+    rows_per_step = n_pad + ACCEPT_ROWS
+    la = torch.zeros(B, dtype=dt, device=dev)
+    dbg = {}
+    for s in range(n_steps):
+        rows = _uniform_rows(ops, B, seed, step + s, chain_offset, uniforms,
+                             s * rows_per_step)
+        if uniforms is not None:
+            ua = uniforms[s * rows_per_step + n_pad]
+        else:
+            ua = philox_uniform(seed, chain_ids(B, chain_offset, dev),
+                                step + s, torch.zeros(1, device=dev),
+                                TAG_ACCEPT)[0]
+        lwf = _smk_propose_plain(ops, rows, prop, ct, ctn)
+        # padded rows add exactly 0 (c' = 0 at width 1e-6, wqt = 0)
+        n = ops.n
+        cp = (ctn[:n] - ct[:n]) + x[:n]
+        lwr = _log_normalizer_plain(cp, ops.isgp[:n, None], ops.window,
+                                    offs, offs_half).to(torch.float64).sum(0)
+        tn = ops.wqt[:n, None] * (ctn[:n] - ops.cse[:n, None])
+        tc = ops.wqt[:n, None] * (ct[:n] - ops.cse[:n, None])
+        qn = (tn * tn).to(torch.float64).sum(dim=0)
+        qc = (tc * tc).to(torch.float64).sum(dim=0)
+        la = ((qc - qn) + (lwf - lwr)).to(dt)
+        ua = torch.clamp(ua.to(dt), min=1e-30)
+        accept = torch.log(ua) < la
+        if debug:
+            dbg = {"p": prop.clone(), "ctn": ctn.clone(), "lwf": lwf,
+                   "lwr": lwr, "qn": qn, "qc": qc, "log_alpha": la}
+        x.copy_(torch.where(accept[None, :], prop, x))
+        ct = torch.where(accept[None, :], ctn, ct)
+        acc += accept.to(acc.dtype)
+    return (x, acc, la, dbg) if debug else (x, acc, la)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrapper.
+# ---------------------------------------------------------------------------
+
+
+def _check_operands(ops: SMKOperands):
+    n_pad = ops.n_pad
+    if n_pad % klein_cuda.BLOCK:
+        raise ValueError(f"n_pad {n_pad} is not a multiple of "
+                         f"{klein_cuda.BLOCK}")
+    _check_cuda("U", ops.U, (n_pad, n_pad))
+    _check_cuda("UT", ops.UT, (n_pad, n_pad))
+    for name in ("cse", "isgp", "wqt"):
+        _check_cuda(name, getattr(ops, name), (n_pad,))
+    if not 1 <= ops.window <= MAX_WINDOW:
+        raise ValueError(f"window {ops.window} outside [1, {MAX_WINDOW}]")
+
+
+def smk_steps(ops: SMKOperands, x, acc, n_steps: int, *, seed: int = 0,
+              step: int = 0, chain_offset: int = 0, uniforms=None):
+    """B4: n_steps fused SMK steps in one launch, updating the recentered
+    state x (n_pad, B) and acc (B,) (float32 acceptance counts) in place.
+    Returns (x, acc, log_alpha of the last step (B,)). CPU operands run
+    `smk_steps_plain`."""
+    if ops.device.type == "cpu":
+        return smk_steps_plain(ops, x, acc, n_steps, seed=seed, step=step,
+                               chain_offset=chain_offset, uniforms=uniforms)
+    _check_operands(ops)
+    B = x.shape[1]
+    _check_cuda("x", x, (ops.n_pad, B))
+    _check_cuda("acc", acc, (B,))
+    if n_steps < 1:
+        raise ValueError(f"n_steps {n_steps} must be >= 1")
+    if uniforms is not None:
+        _check_cuda("uniforms", uniforms,
+                    (n_steps * (ops.n_pad + ACCEPT_ROWS), B))
+    lib = load("smk")
+    ct = torch.empty_like(x)
+    prop = torch.empty_like(x)
+    ctn = torch.empty_like(x)
+    la = torch.empty_like(acc)
+    k0, k1 = seed_key(seed)
+    rc = lib.smk_steps_launch(
+        _ptr(ops.U), _ptr(ops.UT), _ptr(ops.cse), _ptr(ops.isgp),
+        _ptr(ops.wqt), _ptr(uniforms) if uniforms is not None else None,
+        _ptr(x), _ptr(acc), _ptr(ct), _ptr(prop), _ptr(ctn), _ptr(la),
+        ops.n_pad, B, ops.window, n_steps, k0, k1, step, chain_offset,
+        ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
+    raise_on("smk", rc, "smk_steps")
+    smk_steps.launches += 1
+    return x, acc, la
+
+
+def reset_launch_counts():
+    smk_steps.launches = 0
+
+
+reset_launch_counts()

@@ -2,6 +2,7 @@
 # imports samplers.klein
 from lattice_gaussian_mcmc_tpu_torch.samplers.klein import (  # noqa: F401
     KleinPrecomp,
+    klein_log_density,
     klein_log_weight,
     klein_points,
     klein_precomp_from_numpy,
@@ -17,8 +18,22 @@ from lattice_gaussian_mcmc_tpu_torch.samplers.klein_blocked import (  # noqa: F4
 from lattice_gaussian_mcmc_tpu_torch.samplers.imhk import (  # noqa: F401
     ChainState,
     IMHKSampler,
+    MetropolisKleinSampler,
+    SMKSampler,
     estimate_burn_in,
+    imhk_chain,
+    imhk_chains,
     imhk_init,
     imhk_step,
+    smk_chain,
+    smk_chains,
+    smk_step,
     spectral_gap_mc,
+)
+from lattice_gaussian_mcmc_tpu_torch.samplers.peikert import (  # noqa: F401
+    PeikertPrecomp,
+    PeikertSampler,
+    peikert_precomp_from_numpy,
+    peikert_precompute,
+    peikert_sample_batch,
 )

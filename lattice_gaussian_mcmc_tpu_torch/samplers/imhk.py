@@ -1,10 +1,17 @@
-"""Independent Metropolis-Hastings-Klein (IMHK), the half needed by
-`IMHKSampler.sample_iid` (counterpart of the JAX package's
+"""Independent Metropolis-Hastings-Klein (IMHK) and symmetric
+Metropolis-Klein (SMK) chains (counterpart of the JAX package's
 `samplers/imhk.py`).
 
 An IMHK step proposes y ~ Klein and accepts with min(1, w(y) / w(x)); the
-log importance weight log w(y) = sum_i log Z_i falls out of the draw. Chains
+log importance weight log w(y) = sum_i log Z_i falls out of the draw. An SMK
+step proposes a Klein draw of width `proposal_sigma` centred at the current
+lattice point and accepts with the full Metropolis-Hastings ratio. Chains
 are a batch dimension: a state holds (B, n) coefficients.
+
+The plain chains (`imhk_chain(s)`, `smk_chain(s)`) run per-row PyTorch on
+the Philox stream; the samplers route to the kernels: B1 (Klein draw), B2
+(fused IMHK), B3 (IMHK trajectory) and B4 (fused SMK) on a card, their
+plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -16,14 +23,18 @@ from typing import Optional
 import torch
 
 from lattice_gaussian_mcmc_tpu_torch.lattices.base import Lattice
-from lattice_gaussian_mcmc_tpu_torch.ops.kernels import klein_cuda
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels import klein_cuda, smk_cuda
 from lattice_gaussian_mcmc_tpu_torch.samplers.klein import (
     KleinPrecomp,
+    klein_log_density,
     klein_points,
     klein_precompute,
     klein_sample_batch,
 )
-from lattice_gaussian_mcmc_tpu_torch.utils.device import resolve_device
+from lattice_gaussian_mcmc_tpu_torch.utils.device import (
+    check_backend,
+    resolve_device,
+)
 from lattice_gaussian_mcmc_tpu_torch.utils.prng import (
     TAG_ACCEPT,
     chain_ids,
@@ -55,6 +66,12 @@ def imhk_init(pre: KleinPrecomp, num_chains: int, seed: int = 0,
                       steps=0)
 
 
+def _accept_uniform(seed, B, chain_offset, step, dtype, device):
+    u = philox_uniform(seed, chain_ids(B, chain_offset, device), step,
+                       torch.zeros(1, device=device), TAG_ACCEPT)[0]
+    return torch.clamp(u.to(dtype), min=1e-30)
+
+
 def imhk_step(state: ChainState, pre: KleinPrecomp, seed: int = 0,
               chain_offset: int = 0) -> ChainState:
     """One plain IMHK step; its Philox step index is state.steps + 1."""
@@ -62,15 +79,125 @@ def imhk_step(state: ChainState, pre: KleinPrecomp, seed: int = 0,
     step = state.steps + 1
     y, log_w_y = klein_sample_batch(pre, B, seed=seed, step=step,
                                     chain_offset=chain_offset)
-    u = philox_uniform(seed, chain_ids(B, chain_offset, pre.device), step,
-                       torch.zeros(1, device=pre.device), TAG_ACCEPT)[0]
-    u = torch.clamp(u.to(state.log_w.dtype), min=1e-30)
+    u = _accept_uniform(seed, B, chain_offset, step, state.log_w.dtype,
+                        pre.device)
     accept = torch.log(u) < (log_w_y - state.log_w)
     return ChainState(
         coeffs=torch.where(accept[:, None], y, state.coeffs),
         log_w=torch.where(accept, log_w_y, state.log_w),
         accepted=state.accepted + accept.to(torch.int32),
         steps=step)
+
+
+def _run_chains(state: ChainState, step_fn, n_samples: int, thin: int,
+                burn_in: int):
+    """burn_in steps, then n_samples outer steps of `thin` steps each,
+    keeping the state after each: ((C, T, n) coeffs, (C, T) log_w,
+    final state)."""
+    for _ in range(burn_in):
+        state = step_fn(state)
+    coeffs, log_ws = [], []
+    for _ in range(n_samples):
+        for _ in range(thin):
+            state = step_fn(state)
+        coeffs.append(state.coeffs)
+        log_ws.append(state.log_w)
+    return torch.stack(coeffs, dim=1), torch.stack(log_ws, dim=1), state
+
+
+def imhk_chains(pre: KleinPrecomp, n_chains: int, n_samples: int,
+                thin: int = 1, burn_in: int = 0, seed: int = 0,
+                chain_offset: int = 0):
+    """Plain IMHK chains: a Klein start (step 0), burn_in steps, then
+    n_samples kept states every thin steps. Returns coeffs (C, T, n),
+    log_ws (C, T) and the final ChainState."""
+    state = imhk_init(pre, n_chains, seed=seed, chain_offset=chain_offset)
+    return _run_chains(state, lambda st: imhk_step(st, pre, seed,
+                                                   chain_offset),
+                       n_samples, thin, burn_in)
+
+
+def imhk_chain(pre: KleinPrecomp, n_samples: int, thin: int = 1,
+               burn_in: int = 0, seed: int = 0, chain_offset: int = 0):
+    """One plain IMHK chain: coeffs (T, n), log_ws (T,), final state."""
+    coeffs, log_ws, state = imhk_chains(pre, 1, n_samples, thin, burn_in,
+                                        seed, chain_offset)
+    return coeffs[0], log_ws[0], state
+
+
+# ---------------------------------------------------------------------------
+# Symmetric Metropolis-Klein: Klein proposal centred at the current point.
+# ---------------------------------------------------------------------------
+
+
+def _scaled_centres(coeffs, pre: KleinPrecomp, lattice_Q, r_diag):
+    """Q^T (B x) / R_ii per chain: the scaled Klein centre of the lattice
+    point of x (B, n)."""
+    return (coeffs.to(pre.basis.dtype) @ pre.basis.T) @ lattice_Q / r_diag
+
+
+def smk_step(state: ChainState, pre: KleinPrecomp, lattice_Q, lattice_R,
+             seed: int = 0, chain_offset: int = 0) -> ChainState:
+    """One plain symmetric Metropolis-Klein step; Philox step
+    state.steps + 1.
+
+    `pre` holds the proposal widths in .sigmas and the target's width and
+    centre in .sigma and .cs. The proposal is a Klein draw centred at the
+    current point B x; the acceptance uses the full ratio
+    pi(y) q(x|y) / (pi(x) q(y|x)), both proposal densities by
+    `klein_log_density` at recentered precomputations, and
+    log pi(z) = -||B z - c||^2 / (2 sigma^2) = -sum_i (R_ii ((U z)_i -
+    cs_i))^2 / (2 sigma^2)."""
+    B = state.coeffs.shape[0]
+    step = state.steps + 1
+    r_diag = torch.diagonal(lattice_R).to(pre.U.dtype)
+    x = state.coeffs.to(pre.U.dtype)
+    cs_x = _scaled_centres(x, pre, lattice_Q, r_diag)
+    y, _ = klein_sample_batch(pre, B, seed=seed, step=step,
+                              chain_offset=chain_offset, centers=cs_x)
+    cs_y = _scaled_centres(y, pre, lattice_Q, r_diag)
+    log_q_y_x = klein_log_density(y, dataclasses.replace(pre, cs=cs_x))
+    log_q_x_y = klein_log_density(x, dataclasses.replace(pre, cs=cs_y))
+
+    def log_pi(z):
+        resid = (z @ pre.U.T - pre.cs) * r_diag
+        return -0.5 * (resid * resid).sum(dim=-1) / pre.sigma ** 2
+
+    log_ratio = log_pi(y) + log_q_x_y - log_pi(x) - log_q_y_x
+    u = _accept_uniform(seed, B, chain_offset, step, log_ratio.dtype,
+                        pre.device)
+    accept = torch.log(u) < log_ratio
+    return ChainState(coeffs=torch.where(accept[:, None], y, x),
+                      log_w=state.log_w,
+                      accepted=state.accepted + accept.to(torch.int32),
+                      steps=step)
+
+
+def smk_chains(pre: KleinPrecomp, lattice_Q, lattice_R, n_chains: int,
+               n_samples: int, thin: int = 1, burn_in: int = 0,
+               seed: int = 0, chain_offset: int = 0):
+    """Plain SMK chains from a Klein start (step 0, with `pre`'s widths):
+    coeffs (C, T, n) and the final ChainState."""
+    state = imhk_init(pre, n_chains, seed=seed, chain_offset=chain_offset)
+    coeffs, _, state = _run_chains(
+        state, lambda st: smk_step(st, pre, lattice_Q, lattice_R, seed,
+                                   chain_offset),
+        n_samples, thin, burn_in)
+    return coeffs, state
+
+
+def smk_chain(pre: KleinPrecomp, lattice_Q, lattice_R, n_samples: int,
+              thin: int = 1, burn_in: int = 0, seed: int = 0,
+              chain_offset: int = 0):
+    """One plain SMK chain: coeffs (T, n) and the final state."""
+    coeffs, state = smk_chains(pre, lattice_Q, lattice_R, 1, n_samples,
+                               thin, burn_in, seed, chain_offset)
+    return coeffs[0], state
+
+
+# ---------------------------------------------------------------------------
+# Theory helpers.
+# ---------------------------------------------------------------------------
 
 
 def estimate_burn_in(delta, eps: float = 0.01, cap: int = 10_000) -> int:
@@ -102,12 +229,17 @@ class IMHKSampler:
                                     tail_budget=tail_budget).to(self.device)
         self._ops = None
         self.acceptance_rate = None
+        self._last_state = None
         self.burn_in = (burn_in if burn_in is not None
                         else self._auto_burn_in())
 
     def _auto_burn_in(self) -> int:
-        # quick MC gap estimate from a small plain Klein batch
-        _, lw = klein_sample_batch(self.pre, 256, seed=0)
+        # quick MC gap estimate from a small Klein batch: kernel B1 on a
+        # card, the plain per-row draw on the CPU
+        if self.device.type == "cuda":
+            _, lw = klein_cuda.klein_draw(self.operands, 256, seed=0)
+        else:
+            _, lw = klein_sample_batch(self.pre, 256, seed=0)
         return estimate_burn_in(float(spectral_gap_mc(lw)))
 
     @property
@@ -115,6 +247,51 @@ class IMHKSampler:
         if self._ops is None:
             self._ops = klein_cuda.kernel_operands(self.pre)
         return self._ops
+
+    def _advance(self, x, lw, acc, n_steps: int, seed: int, step: int):
+        """n_steps fused IMHK steps (B2), STEPS_PER_LAUNCH per launch,
+        Philox steps step .. step + n_steps - 1."""
+        done = 0
+        while done < n_steps:
+            k = min(STEPS_PER_LAUNCH, n_steps - done)
+            klein_cuda.imhk_fused(self.operands, x, lw, acc, k, seed=seed,
+                                  step=step + done)
+            done += k
+
+    def _output(self, coeffs, return_coeffs: bool):
+        return coeffs if return_coeffs else klein_points(self.pre.basis,
+                                                         coeffs)
+
+    def sample(self, seed: int, num_samples: int, thin: int = 1,
+               n_chains: int = 1, return_coeffs: bool = False,
+               backend: str = "auto"):
+        """Trajectory semantics: `n_chains` chains from a Klein draw (B1),
+        `burn_in` IMHK steps (B2), then `num_samples` kept states per chain,
+        one every `thin` steps, written from inside one launch (B3).
+        Returns (n_chains * num_samples, n) lattice points (or
+        coefficients), chain-major. `acceptance_rate` covers the kept
+        steps; `_last_state` holds the final states for resuming (Philox
+        steps continue at `steps + 1`).
+
+        On a CUDA device the kernels run; on the CPU their plain versions.
+        backend "cuda" raises unless the sampler's device is a card."""
+        check_backend(backend, self.device)
+        ops = self.operands
+        x, lw = klein_cuda.klein_draw(ops, n_chains, seed=seed, step=0)
+        acc = torch.zeros_like(lw)
+        self._advance(x, lw, acc, self.burn_in, seed, 1)
+        acc_burn = float(acc.sum())
+        x, lw, acc, tx, _ = klein_cuda.imhk_trajectory(
+            ops, x, lw, acc, num_samples, thin, seed=seed,
+            step=1 + self.burn_in, coeffs=True)
+        n_steps = num_samples * thin
+        self.acceptance_rate = ((float(acc.sum()) - acc_burn)
+                                / (n_chains * n_steps))
+        self._last_state = ChainState(
+            coeffs=klein_cuda.from_kernel_layout(ops, x), log_w=lw,
+            accepted=acc.to(torch.int32), steps=self.burn_in + n_steps)
+        return self._output(klein_cuda.trajectory_coeffs(ops, tx),
+                            return_coeffs)
 
     def sample_iid(self, seed: int, num_samples: int,
                    n_steps: Optional[int] = None,
@@ -126,23 +303,95 @@ class IMHKSampler:
 
         On a CUDA device the kernels run; on the CPU their plain versions.
         backend "cuda" raises unless the sampler's device is a card."""
-        if backend not in ("auto", "cuda"):
-            raise ValueError(f"unknown backend {backend!r}")
-        if backend == "cuda" and self.device.type != "cuda":
-            raise RuntimeError("backend='cuda' needs the sampler on a CUDA "
-                               f"device, it is on {self.device}")
+        check_backend(backend, self.device)
         n_steps = max(1, self.burn_in if n_steps is None else int(n_steps))
         ops = self.operands
         x, lw = klein_cuda.klein_draw(ops, num_samples, seed=seed, step=0)
         acc = torch.zeros_like(lw)
-        done = 0
-        while done < n_steps:
-            k = min(STEPS_PER_LAUNCH, n_steps - done)
-            klein_cuda.imhk_fused(ops, x, lw, acc, k, seed=seed,
-                                  step=1 + done)
-            done += k
+        self._advance(x, lw, acc, n_steps, seed, 1)
         self.acceptance_rate = float(acc.sum()) / (num_samples * n_steps)
-        coeffs = klein_cuda.from_kernel_layout(ops, x)
-        if return_coeffs:
-            return coeffs
-        return klein_points(self.pre.basis, coeffs)
+        self._last_state = None
+        return self._output(klein_cuda.from_kernel_layout(ops, x),
+                            return_coeffs)
+
+
+class MetropolisKleinSampler:
+    """Symmetric Metropolis-Klein (a Klein proposal of width
+    `proposal_sigma` centred at the current lattice point, full MH ratio).
+    `sample` runs the plain chain (trajectory semantics); `sample_iid` runs
+    independent chains through kernels B1 and B4 on a card, their plain
+    versions on the CPU. Runs on `device` (the card unless asked)."""
+
+    def __init__(self, lattice: Lattice, sigma: float, proposal_sigma=None,
+                 center=None, window: Optional[int] = None,
+                 tail_budget: Optional[float] = None, device=None):
+        self.device = resolve_device(device)
+        self.lattice = lattice
+        self.sigma = float(sigma)
+        self.proposal_sigma = float(proposal_sigma if proposal_sigma
+                                    is not None else sigma)
+        # target precomputation (the kernel takes the proposal widths
+        # apart) ...
+        self._target_pre = klein_precompute(
+            lattice, sigma, center, window,
+            tail_budget=tail_budget).to(self.device)
+        # ... and the plain chain's hybrid: proposal widths in .sigmas,
+        # target width and centre in .sigma and .cs
+        r_diag = torch.diagonal(lattice.R).to(self.device)
+        self.pre = dataclasses.replace(
+            self._target_pre, sigmas=self.proposal_sigma / r_diag)
+        self._Q = lattice.Q.to(self.device)
+        self._R = lattice.R.to(self.device)
+        self._klein_ops = None
+        self._smk_ops = None
+        self.acceptance_rate = None
+
+    @property
+    def klein_operands(self) -> klein_cuda.KleinOperands:
+        """B1's operands for the target: the Klein start."""
+        if self._klein_ops is None:
+            self._klein_ops = klein_cuda.kernel_operands(self._target_pre)
+        return self._klein_ops
+
+    @property
+    def operands(self) -> smk_cuda.SMKOperands:
+        """B4's operands."""
+        if self._smk_ops is None:
+            self._smk_ops = smk_cuda.smk_operands(
+                self._target_pre, self.proposal_sigma,
+                klein_ops=self.klein_operands)
+        return self._smk_ops
+
+    def sample(self, seed: int, num_samples: int, thin: int = 1,
+               burn_in: int = 0, n_chains: int = 1,
+               return_coeffs: bool = False):
+        """Plain SMK chains from a Klein start: burn_in steps, then
+        num_samples kept states every thin steps. Returns
+        (n_chains * num_samples, n) points (or coefficients), chain-major."""
+        coeffs, state = smk_chains(self.pre, self._Q, self._R, n_chains,
+                                   num_samples, thin, burn_in, seed)
+        self.acceptance_rate = float(state.accepted.sum()) / max(
+            n_chains * state.steps, 1)
+        coeffs = coeffs.reshape(-1, self.lattice.n)
+        return coeffs if return_coeffs else klein_points(self.pre.basis,
+                                                         coeffs)
+
+    def sample_iid(self, seed: int, num_samples: int, n_steps: int = 64,
+                   return_coeffs: bool = False, backend: str = "auto"):
+        """`num_samples` independent SMK chains from a Klein draw of the
+        target (B1), `n_steps` fused SMK steps each (B4, one launch);
+        returns the final states, (num_samples, n)."""
+        check_backend(backend, self.device)
+        n_steps = max(1, int(n_steps))
+        kops = self.klein_operands
+        x, _ = klein_cuda.klein_draw(kops, num_samples, seed=seed, step=0)
+        acc = torch.zeros(num_samples, dtype=x.dtype, device=x.device)
+        smk_cuda.smk_steps(self.operands, x, acc, n_steps, seed=seed, step=1)
+        self.acceptance_rate = float(acc.sum()) / (num_samples * n_steps)
+        coeffs = klein_cuda.from_kernel_layout(kops, x)
+        return coeffs if return_coeffs else klein_points(self.pre.basis,
+                                                         coeffs)
+
+
+# the north star names the chain "symmetric Metropolis-Klein" (SMK)
+SMKSampler = MetropolisKleinSampler

@@ -151,19 +151,21 @@ def klein_precomp_from_numpy(d: Dict[str, np.ndarray], dtype=torch.float64,
 
 
 def klein_sample_batch(pre: KleinPrecomp, num_samples: int, seed: int = 0,
-                       step: int = 0, chain_offset: int = 0):
+                       step: int = 0, chain_offset: int = 0, centers=None):
     """Plain per-row batched Klein draw: backward substitution over rows
     i = n-1..0, one inverse-CDF draw per row from the uniform of counter
-    (chain, row i, step). Returns (coeffs (B, n), log_w (B,)) in the
+    (chain, row i, step). `centers` (B, n), when given, replaces the scaled
+    centre pre.cs chain by chain. Returns (coeffs (B, n), log_w (B,)) in the
     precomputation's dtype."""
     n, dev = pre.n, pre.device
     u = philox_uniform(seed, chain_ids(num_samples, chain_offset, dev), step,
                        torch.arange(n, device=dev)).to(pre.U.dtype)
+    cs = pre.cs if centers is None else centers.to(pre.U.dtype).T
     X = torch.zeros(num_samples, n, dtype=pre.U.dtype, device=dev)
     lw = torch.zeros(num_samples, dtype=pre.U.dtype, device=dev)
     for i in range(n - 1, -1, -1):
         # columns j <= i of X are still 0, so the full row is the j > i sum
-        c = pre.cs[i] - X @ pre.U[i]
+        c = cs[i] - X @ pre.U[i]
         z, logz = sample_dgauss_icdf_with_logz(u[i], c, pre.sigmas[i],
                                                pre.window)
         X[:, i] = z
@@ -174,6 +176,17 @@ def klein_sample_batch(pre: KleinPrecomp, num_samples: int, seed: int = 0,
 def klein_points(basis, coeffs):
     """Map integer coefficients to lattice points: basis @ x (batched)."""
     return coeffs.to(basis.dtype) @ basis.T
+
+
+def klein_log_density(coeffs, pre: KleinPrecomp):
+    """Exact log q(x) of Klein's windowed law at integer coefficients x
+    (B, n) or (n,): sum_i [-(x_i - c_i)^2 / (2 sigma_i^2) - log Z_i], every
+    conditional mean c_i a row of one triangular product."""
+    x = torch.as_tensor(coeffs).to(pre.U.dtype)
+    c = pre.cs - x @ pre.U.T + x      # c_i = cs_i - sum_{j>i} U_ij x_j
+    _, logits = dgauss_logits(c, pre.sigmas.expand_as(c), pre.window)
+    quad = -0.5 * ((x - c) / pre.sigmas) ** 2
+    return (quad - torch.logsumexp(logits, dim=-1)).sum(dim=-1)
 
 
 def klein_log_weight(coeffs, pre: KleinPrecomp):

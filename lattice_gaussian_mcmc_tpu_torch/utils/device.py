@@ -20,3 +20,13 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {device} requested but CUDA is not "
                            "available")
     return device
+
+
+def check_backend(backend: str, device: torch.device):
+    """A sampler's `backend`: "auto" runs the kernels on a card and their
+    plain versions on the CPU; "cuda" raises unless the device is a card."""
+    if backend not in ("auto", "cuda"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "cuda" and device.type != "cuda":
+        raise RuntimeError("backend='cuda' needs the sampler on a CUDA "
+                           f"device, it is on {device}")

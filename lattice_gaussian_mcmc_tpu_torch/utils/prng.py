@@ -2,13 +2,15 @@
 
 Every uniform is a pure function of (seed, chain id, step, row, tag), so a
 chain's draws do not depend on how many chains share a batch — the property
-`fold_in(chain_id)` gives the JAX package's paths. The CUDA kernel in
-`csrc/klein.cu` computes the same function bit for bit; both use the
+`fold_in(chain_id)` gives the JAX package's paths. The CUDA kernels in
+`csrc/` compute the same function bit for bit; both use the
 counter layout below and the same mantissa-trick uniform.
 
 Counter layout: c0 = chain id, c1 = row, c2 = step, c3 = tag (TAG_ROW for
-a coordinate draw, TAG_ACCEPT for a Metropolis accept uniform); key =
-(seed mod 2^32, seed >> 32 mod 2^32). Only output word 0 is used.
+a coordinate draw, TAG_ACCEPT for a Metropolis accept uniform, TAG_NORMAL
+for a pair of Box-Muller normals, TAG_GUMBEL for the Gumbel-max uniforms of
+the plain Peikert draw); key = (seed mod 2^32, seed >> 32 mod
+2^32). Uniforms use output word 0; a Box-Muller pair uses words 0 and 1.
 
 uint32 arithmetic is carried in int64 tensors: every product is split into
 16-bit halves so that no intermediate leaves the int64 range.
@@ -26,6 +28,8 @@ MASK32 = 0xFFFFFFFF
 
 TAG_ROW = 0
 TAG_ACCEPT = 1
+TAG_NORMAL = 2
+TAG_GUMBEL = 3
 
 
 def _mulhilo(m: int, x: torch.Tensor):
@@ -64,10 +68,10 @@ def seed_key(seed: int):
     return seed & MASK32, (seed >> 32) & MASK32
 
 
-def philox_uniform(seed: int, chains: torch.Tensor, step: int,
-                   rows: torch.Tensor, tag: int = TAG_ROW) -> torch.Tensor:
-    """float32 uniforms of shape (len(rows), len(chains)): entry (r, b) is
-    the uniform of counter (chains[b], rows[r], step, tag) under `seed`."""
+def philox_words(seed: int, chains: torch.Tensor, step: int,
+                 rows: torch.Tensor, tag: int = TAG_ROW):
+    """The four Philox output words of counter (chains[b], rows[r], step,
+    tag) under `seed`, each of shape (len(rows), len(chains))."""
     k0, k1 = seed_key(seed)
     c0 = (chains.to(torch.int64) & MASK32)[None, :]
     c1 = (rows.to(torch.int64) & MASK32)[:, None]
@@ -75,8 +79,14 @@ def philox_uniform(seed: int, chains: torch.Tensor, step: int,
                     device=chains.device)
     c3 = torch.full((1, 1), int(tag) & MASK32, dtype=torch.int64,
                     device=chains.device)
-    bits, _, _, _ = philox4x32(c0, c1, c2, c3, k0, k1)
-    return mantissa_uniform(bits)
+    return philox4x32(c0, c1, c2, c3, k0, k1)
+
+
+def philox_uniform(seed: int, chains: torch.Tensor, step: int,
+                   rows: torch.Tensor, tag: int = TAG_ROW) -> torch.Tensor:
+    """float32 uniforms of shape (len(rows), len(chains)): entry (r, b) is
+    the uniform of counter (chains[b], rows[r], step, tag) under `seed`."""
+    return mantissa_uniform(philox_words(seed, chains, step, rows, tag)[0])
 
 
 def chain_ids(num_chains: int, chain_offset: int = 0,

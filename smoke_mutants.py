@@ -4,9 +4,9 @@
     python3 smoke_mutants.py
 
 For each mutant below, copies the checkout into a temporary directory,
-breaks `csrc/klein.cu` there, runs `chip_smoke.py` on the card and requires
-it to fail in its `kernel_vs_plain` phase. Prints that phase's JSON line per
-mutant and exits non-zero if a mutant got through. Needs a CUDA card; never
+breaks one kernel source of `csrc/` there, runs `chip_smoke.py` on the card
+and requires it to fail in its `kernel_vs_plain` phase. Prints that phase's
+JSON line per mutant and exits non-zero if a mutant got through. Needs a CUDA card; never
 touches the checkout itself.
 """
 
@@ -20,33 +20,43 @@ import sys
 import tempfile
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNEL = os.path.join("lattice_gaussian_mcmc_tpu_torch", "csrc", "klein.cu")
+CSRC = os.path.join("lattice_gaussian_mcmc_tpu_torch", "csrc")
 
 
-def _tf32(c):
-    return (f"u.{c} = __uint_as_float(__float_as_uint(u.{c}) & 0xFFFFE000u);")
+def _tf32(v, c):
+    return (f"{v}.{c} = __uint_as_float(__float_as_uint({v}.{c}) "
+            "& 0xFFFFE000u);")
 
 
 MUTANTS = {
     # B2 accepts every proposal
-    "always_accept": ("if (logf(u) < __fsub_rn(lwp, lw)) {", "if (true) {"),
-    # the coupling reads U with TF32's 10-bit mantissa (hazard C2)
-    "tf32_coupling": ("const float4 u = __ldg(u4 + q);",
+    "always_accept": ("klein.cu", "if (logf(u) < __fsub_rn(lwp, lw)) {",
+                      "if (true) {"),
+    # the Klein coupling (B1-B4) reads U with TF32's 10-bit mantissa
+    # (hazard C2)
+    "tf32_coupling": ("klein_common.cuh", "const float4 u = __ldg(u4 + q);",
                       "float4 u = __ldg(u4 + q); "
-                      + " ".join(_tf32(c) for c in "xyzw")),
+                      + " ".join(_tf32("u", c) for c in "xyzw")),
+    # B4 drops the reverse proposal term of its ratio (lw_rev = 0)
+    "smk_no_reverse": ("smk.cu", "la = (float)((qc - qn) + (lwf - lwr));",
+                       "la = (float)((qc - qn) + (lwf - 0.0));"),
+    # B5 reads L2 with TF32's 10-bit mantissa
+    "tf32_peikert": ("peikert.cu", "const float4 l = __ldg(l4 + q);",
+                     "float4 l = __ldg(l4 + q); "
+                     + " ".join(_tf32("l", c) for c in "xyzw")),
 }
 
 
-def run_mutant(name, old, new):
+def run_mutant(name, fname, old, new):
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "repo")
         shutil.copytree(REPO, root, ignore=shutil.ignore_patterns(
             ".git", "_build", "chiprun_out", "__pycache__"))
-        path = os.path.join(root, KERNEL)
+        path = os.path.join(root, CSRC, fname)
         with open(path) as f:
             src = f.read()
         if src.count(old) != 1:
-            raise SystemExit(f"{name}: mutation site not found in {KERNEL}")
+            raise SystemExit(f"{name}: mutation site not found in {fname}")
         with open(path, "w") as f:
             f.write(src.replace(old, new))
         r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root,
