@@ -5,8 +5,9 @@
 
 Builds the CUDA kernels from `lattice_gaussian_mcmc_tpu_torch/csrc/` and
 drives the port's paths: the rows of the reference's flagship benchmark
-(`bench.py`) on the NTRU-512 secret basis (dimension 1024). Phases, one JSON
-line each:
+(`bench.py`) on the NTRU-512 secret basis (dimension 1024), the sampling
+rows of its benchmark suite (`experiments/benchmark.py`) and Babai / Gibbs
+decoding. Phases, one JSON line each:
 
   toolchain        versions, the card, the kernel builds (one nvcc per
                    source, all started together)
@@ -17,9 +18,16 @@ line each:
                    rejects; B3 (IMHK trajectory) bit for bit against B2 and
                    against its plain version; B4 (fused SMK) at the SMK
                    row's operands and decision by decision in the 2D hard
-                   regime; B5 (Peikert) at the Peikert row's operands
+                   regime; B5 (Peikert) at the Peikert row's operands; B6
+                   (Klein ring) round 0 and a one-round ring bit for bit
+                   against B1, every round against its plain version; B7
+                   (Babai) against the float64 nearest plane and, at
+                   half-integer 2D targets, decision for decision against
+                   its plain version; B8 (Z^n) against its plain version
   law              2D hard regime: TVD to the enumerated target and the
-                   stationary acceptance 0.9904 (IMHK), TVD of SMK
+                   stationary acceptance 0.9904 (IMHK), TVD of SMK; B8's
+                   TVD to the exact pmf; B6's per-round moments in 2D;
+                   UnifiedLatticeSampler(klein) TVD at sigma 2
   flagship         IMHKSampler.sample_iid at 524,288 chains, sigma 165.7,
                    64 fused steps per launch: samples/s, acceptance
   hard_regime      sigma = 0.45 max ||b*_i||, 131,072 chains: B3 trajectory
@@ -29,11 +37,21 @@ line each:
                    131,072 chains, 32 steps: samples/s, acceptance
   peikert          PeikertSampler at 1.05 r s1(B), 65,536 chains x 8
                    rounds in one launch: samples/s, second moment
+  suite            run_benchmarks at dimensions 256 and 1024 (klein: B6,
+                   imhk: B1 + B2, direct: B8, peikert: B5; 65,536 chains,
+                   1 warm-up, 3 timed runs) and the direct row at 16 and
+                   64: one line per row
+  decode           B7 through Lattice.nearest_plane on NTRU-512, 65,536
+                   targets B x* + w at noise 0.05 and 0.45 min ||b*_i||,
+                   held to x* and to the float64 nearest plane; the f32-QR
+                   centre count (hazard C7); annealed Gibbs through
+                   UnifiedLatticeSampler.decode on NTRU-64
   timing           B1 and B2 against their plain versions at the flagship
+                   shapes, B6-B8 at the suite's and the decode phase's
                    shapes, and every kernel's bound
 
-Each path phase (flagship, hard_regime, smk, peikert) sets every launch
-count to 0 before it runs and reads them after. Then the card's name and
+Each path phase (flagship, hard_regime, smk, peikert, suite, decode) sets
+every launch count to 0 before it runs and reads them after. Then the card's name and
 power limit, a `kernels` line, and as the last line {"ok": true, "device":
 {...}}. Any failed check exits non-zero before the last line. Imports
 nothing of JAX.
@@ -113,6 +131,33 @@ MAX_NORM_GAP = 0.02          # |E||Bx||^2 / (dim sigma^2) - 1|
 B3_CHECK_KEEP, B3_CHECK_THIN = 3, 2
 B4_CHECK_STEPS = 2
 B5_CHECK_ROUNDS = 2
+B6_CHECK_ROUNDS = 3
+KLEIN_ROW_SIGMA_OVER_MAX_GS = 1.3   # the suite's klein and imhk rows
+# B7: a target whose decode differs from the float64 nearest plane must
+# first differ (in its highest coordinate, decoded first) where the float64
+# pre-rounding value lies within this of a half-integer: a tie at float32
+# resolution of the 1024-term coupling sums (measured on NTRU-512: at most
+# 3.0e-6 away, 10 such targets of 8,192)
+BABAI_TIE_TOL = 1e-4
+DECODE_TARGETS = 65_536
+DECODE_RHOS = (0.05, 0.45)           # noise / min ||b*_i||
+DECODE_CHECK = 4096                  # targets held to the float64 oracle
+GIBBS_TARGETS, GIBBS_CHAINS, GIBBS_SWEEPS = 64, 24, 48
+# annealed Gibbs on NTRU-64 at the high noise and at one where Babai's
+# success lies strictly between 0 and 1 (prod_i erf(R_ii / (2 sqrt(2) rho
+# min_gs)) = 0.45 at 0.22), so that the two success rates can part
+GIBBS_RHOS = (0.22, 0.45)
+# B8: independent draws; a CDF-boundary tie moves one draw by one
+MAX_ZN_SHARE = 1e-3
+ZN_SIGMA = 5.0                       # the suite's direct row
+ZN_BOUNDARY = 65_536                 # check uniforms exactly on a CDF entry
+ZN_LAW_DRAWS = 1 << 22
+LAW_2D_CHAINS = 1 << 20              # UnifiedLatticeSampler(klein), sigma 2
+B6_MOMENT_CHAINS = 65_536
+B6_STD_TOL = 0.02                    # |std / (sigma sqrt(diag(G^-1))) - 1|
+SUITE_DIMS = (256, 1024)
+SUITE_CHAINS = 65_536                # the suite's default n_chains
+SUITE_DIRECT_DIMS = (16, 64)
 
 
 def emit(obj):
@@ -301,6 +346,74 @@ def tvd_2d(X, basis2, sigma):
     return 0.5 * float((emp - p).abs().sum() + (1 - inside.double().mean()))
 
 
+def tvd_1d(z, sigma, center):
+    """TVD of draws z to the exact pmf of D_{Z,sigma,center}, the mass
+    outside its support counted as error."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.ops.discrete_gaussian import (
+        exact_pmf,
+    )
+    support, p = exact_pmf(sigma, center)
+    zi = z.reshape(-1).long() - int(support[0])
+    inside = (zi >= 0) & (zi < len(support))
+    emp = torch.bincount(zi[inside], minlength=len(support)).double()
+    emp = emp.cpu().numpy() / zi.numel()
+    return 0.5 * float(abs(emp - p).sum() + (1.0 - emp.sum()))
+
+
+def zn_flop(window, num):
+    # per block of 4,096 draws: the window's logits twice (3 operations
+    # each), the max, the exps and the prefix sum
+    return 9 * window * -(-num // 4096)
+
+
+def decode_targets(lat, T, rho, gen):
+    """(x* uniform in [-2, 2]^n, t = B x* + w with w ~ N(0, (rho
+    min ||b*_i||)^2) per coordinate), float64 on the lattice's device."""
+    import torch
+    n, dev = lat.n, lat.basis.device
+    xs = torch.randint(-2, 3, (T, n), device=dev, generator=gen).double()
+    w = torch.randn(T, n, device=dev, generator=gen, dtype=torch.float64)
+    return xs, xs @ lat.basis.T + (rho * float(lat.gs_norms.min())) * w
+
+
+def f32_qr_centres(lat, t):
+    """ct = (t Q) / diag(R) from a float32 QR of the basis on the card, as
+    `babai_decode_batch_pallas` forms it (hazard C7; (t q_i) / r_ii does
+    not depend on the QR's signs)."""
+    import torch
+    Q, R = torch.linalg.qr(lat.basis.float())
+    return (t.float() @ Q) / torch.diagonal(R)
+
+
+def decode_from_centres(kc, ops, ct):
+    """Coefficients (B, n) float64 that B7 decodes from the given centres
+    ct (B, n) instead of the lattice's float64 ones."""
+    centred, k = kc.babai_recentre(ops, ct)
+    return kc.babai_decode(ops, centred)[:ops.n].T.double() + k
+
+
+def babai_ties(lat, t, X, Xo):
+    """Targets whose decode X differs from the float64 nearest plane Xo,
+    and the largest distance to a half-integer of the float64 pre-rounding
+    value c_i = ct_i - sum_{j>i} U_ij x_j at each one's first differing
+    coordinate (the highest, decoded first; above it both agree)."""
+    import torch
+    diff = X != Xo
+    bad = diff.any(dim=1)
+    if not bool(bad.any()):
+        return 0, 0.0
+    idx = torch.nonzero(bad).squeeze(1)
+    R = lat.R.double()
+    r = torch.diagonal(R)
+    x = Xo[idx].double()
+    c = (t[idx].double() @ lat.Q.double()) / r - x @ (R / r[:, None]).T + x
+    rows = torch.arange(lat.n, device=X.device)[None, :]
+    first = torch.where(diff[idx], rows, -1).max(dim=1).values
+    cf = c[torch.arange(len(idx), device=X.device), first]
+    return int(bad.sum()), float(((cf - torch.floor(cf)) - 0.5).abs().max())
+
+
 class Smoke:
     """The shared objects of one run and the numbers the `kernels` line
     reports."""
@@ -313,8 +426,10 @@ class Smoke:
             klein_cuda,
             peikert_cuda,
             smk_cuda,
+            zn_cuda,
         )
         self.kc, self.sc, self.pc = klein_cuda, smk_cuda, peikert_cuda
+        self.zc = zn_cuda
         # the plain versions' matrix products run in full float32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -330,7 +445,7 @@ class Smoke:
         self.k = {}              # kernel -> numbers for the kernels line
 
     def reset_counts(self):
-        for mod in (self.kc, self.sc, self.pc):
+        for mod in (self.kc, self.sc, self.pc, self.zc):
             mod.reset_launch_counts()
 
     def counts(self):
@@ -338,7 +453,10 @@ class Smoke:
                 "imhk_fused": self.kc.imhk_fused.launches,
                 "imhk_trajectory": self.kc.imhk_trajectory.launches,
                 "smk_steps": self.sc.smk_steps.launches,
-                "peikert_rounds": self.pc.peikert_rounds.launches}
+                "peikert_rounds": self.pc.peikert_rounds.launches,
+                "klein_ring": self.kc.klein_ring.launches,
+                "babai_decode": self.kc.babai_decode.launches,
+                "sample_zn_draws": self.zc.sample_zn_draws.launches}
 
     def note(self, kernel, **kw):
         self.k.setdefault(kernel, {}).update(kw)
@@ -376,7 +494,7 @@ def phase_toolchain(s: Smoke):
     t0 = time.perf_counter()
     built = _build.build_all()
     build_s = time.perf_counter() - t0
-    for name in ("klein", "smk", "peikert"):
+    for name in ("klein", "smk", "peikert", "zn"):
         _build.load(name)
     ptxas = {name: [ln.strip() for ln in info["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln][:12]
@@ -389,6 +507,147 @@ def phase_toolchain(s: Smoke):
 
 
 # ---------------------------------------------------------- kernel_vs_plain
+def check_b6(s: Smoke):
+    """B6 at the suite's klein-row operands on NTRU-512 (sigma 1.3
+    max ||b*_i||, tail budget 0.01), CHECK_CHAINS chains x 3 rounds: one
+    code path with B1 (round 0, and a one-round ring, bit for bit), every
+    round against the plain version on the caller's uniforms and on Philox
+    (round r at step + r), rounds pairwise different."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.samplers import klein_precompute
+    kc, B, R = s.kc, CHECK_CHAINS, B6_CHECK_ROUNDS
+    pre = klein_precompute(s.lat, KLEIN_ROW_SIGMA_OVER_MAX_GS * float(
+        s.lat.gs_norms.max()), tail_budget=0.01)
+    ops = kc.kernel_operands(pre)
+    n, n_pad = ops.n, ops.n_pad
+    u = torch.rand(R * n_pad, B, device=s.dev, generator=s.gen)
+    out, outp = [], []
+    ms = cuda_ms(lambda: out.extend(kc.klein_ring(ops, B, R, uniforms=u)))
+    plain_ms = cuda_ms(lambda: outp.extend(kc.klein_ring_plain(
+        ops, B, R, uniforms=u)))
+    y1, l1 = kc.klein_draw(ops, B, uniforms=u[:n_pad])
+    round0 = torch.equal(out[0][:n_pad], y1) and torch.equal(out[1][0], l1)
+    r1, lr1 = kc.klein_ring(ops, B, 1, seed=61, step=5)
+    y1, l1 = kc.klein_draw(ops, B, seed=61, step=5)
+    one_round = torch.equal(r1, y1) and torch.equal(lr1[0], l1)
+
+    def rounds(ring, ringp, lw, lwp):
+        return [compare_draws(ring[r * n_pad:(r + 1) * n_pad],
+                              ringp[r * n_pad:(r + 1) * n_pad], lw[r],
+                              lwp[r], n) for r in range(R)]
+
+    host = rounds(out[0], outp[0], out[1], outp[1])
+    rq, lq = kc.klein_ring(ops, B, R, seed=62, step=3)
+    rqp, lqp = kc.klein_ring_plain(ops, B, R, seed=62, step=3)
+    philox = rounds(rq, rqp, lq, lqp)
+    distinct = all(not torch.equal(rq[a * n_pad:(a + 1) * n_pad],
+                                   rq[b * n_pad:(b + 1) * n_pad])
+                   for a in range(R) for b in range(a + 1, R))
+    ok = (round0 and one_round and distinct
+          and all(draws_ok(r) for r in host + philox))
+    s.note("B6", max_abs_err=max(r["max_abs_lw_err"] for r in host + philox),
+           coeffs_differing=max(r["coeffs_differing"] for r in host + philox),
+           plain_ms=plain_ms, check_ms=ms,
+           check_shape=f"{B} chains x {R} rounds, window {ops.window}")
+    return ok, {"round0_equals_b1": round0, "one_round_equals_b1": one_round,
+                "rounds_distinct": distinct, "host": host, "philox": philox,
+                "rounds": R, "window": ops.window}
+
+
+def check_b7(s: Smoke):
+    """B7 on NTRU-512 at CHECK_CHAINS targets B x* + w (noise 0.45
+    min ||b*_i||): against its plain version, against the float64 nearest
+    plane up to ties, and the count of targets that centres from a float32
+    QR (hazard C7) decode otherwise; in 2D at half-integer targets, equal
+    to its plain version decision for decision (rintf, hazard C3)."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.lattices import lattice_from_basis
+    from lattice_gaussian_mcmc_tpu_torch.ops import linalg
+    kc, lat, T = s.kc, s.lat, CHECK_CHAINS
+    ops = kc.babai_operands(lat.Q, lat.R)
+    xs, t = decode_targets(lat, T, DECODE_RHOS[-1], s.gen)
+    ct, k = kc.babai_centres(ops, t)
+    out, outp = [], []
+    ms = cuda_ms(lambda: out.append(kc.babai_decode(ops, ct)))
+    plain_ms = cuda_ms(lambda: outp.append(kc.babai_decode_plain(ops, ct)))
+    zeros = torch.zeros(T, device=s.dev)
+    vs_plain = compare_draws(out[0], outp[0], zeros, zeros, lat.n)
+    del vs_plain["max_abs_lw_err"]
+    X = out[0][:lat.n].T.double() + k
+    Xo = linalg.babai_nearest_plane(lat.Q, lat.R, t)
+    n_diff, tie_dist = babai_ties(lat, t, X, Xo)
+    X32 = decode_from_centres(kc, ops, f32_qr_centres(lat, t))
+    c7 = int((X32 != Xo).any(dim=1).sum())
+    lat2 = lattice_from_basis([[1.0, 0.5], [0.0, 1.0]], device=s.dev)
+    ops2 = kc.babai_operands(lat2.Q, lat2.R)
+    h = torch.randint(-40, 41, (HARD_CHECK_CHAINS, 2), device=s.dev,
+                      generator=s.gen).double() / 2
+    ct2, _ = kc.babai_centres(ops2, h)
+    half_ties = int((ct2[1].abs() == 0.5).sum())
+    half_equal = torch.equal(kc.babai_decode(ops2, ct2),
+                             kc.babai_decode_plain(ops2, ct2))
+    ok = (vs_plain["coeffs_differing"] <= MAX_COEFF_SHARE
+          and vs_plain["chains_differing"] <= MAX_CHAIN_SHARE
+          and vs_plain["ties_off_by_one"]
+          and (n_diff == 0 or tie_dist <= BABAI_TIE_TOL)
+          and half_equal and half_ties > 0)
+    s.note("B7", max_abs_err=float((out[0] - outp[0]).abs().max()),
+           coeffs_differing=vs_plain["coeffs_differing"],
+           plain_ms=plain_ms, check_ms=ms,
+           check_shape=f"{T} targets, dim {lat.n}")
+    return ok, {"targets": T, "rho": DECODE_RHOS[-1], "vs_plain": vs_plain,
+                "vs_float64_differing": n_diff,
+                "max_tie_distance": tie_dist,
+                "c7_f32_qr_differing_from_float64": c7,
+                "exact_x_star": int((X == xs).all(dim=1).sum()),
+                "half_integer_2d_equal": half_equal,
+                "half_integer_2d_ties": half_ties}
+
+
+def check_b8(s: Smoke):
+    """B8 at the suite's direct row (sigma 5, window of
+    suggest_peikert_window(5, 1024)), CHECK_CHAINS x 1024 draws: against the
+    plain version on the caller's uniforms (the first ZN_BOUNDARY of them
+    put exactly on CDF entries, where `<` and `<=` part) and on Philox."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels.peikert_cuda import (
+        suggest_peikert_window,
+    )
+    zc = s.zc
+    W = suggest_peikert_window(ZN_SIGMA, s.lat.n)
+    num = CHECK_CHAINS * s.lat.n
+    _, cdf = zc.zn_cdf(ZN_SIGMA, 0.0, W, s.dev)
+    ub = cdf[:-1] / cdf[-1]
+    ub = ub[ub * cdf[-1] == cdf[:-1]]
+    u = torch.rand(num, device=s.dev, generator=s.gen)
+    if ub.numel():
+        u[:ZN_BOUNDARY] = ub.repeat(-(-ZN_BOUNDARY // ub.numel()))[
+            :ZN_BOUNDARY]
+    out, outp = [], []
+    ms = cuda_ms(lambda: out.append(zc.sample_zn_draws(
+        num, ZN_SIGMA, 0.0, W, uniforms=u)))
+    plain_ms = cuda_ms(lambda: outp.append(zc.sample_zn_draws_plain(
+        num, ZN_SIGMA, 0.0, W, uniforms=u)))
+    host = compare_rings(out[0], outp[0])
+    host["boundary_differing"] = float(
+        (out[0][:ZN_BOUNDARY] != outp[0][:ZN_BOUNDARY]).float().mean())
+    philox = compare_rings(
+        zc.sample_zn_draws(num, ZN_SIGMA, 0.0, W, seed=81, device=s.dev),
+        zc.sample_zn_draws_plain(num, ZN_SIGMA, 0.0, W, seed=81,
+                                 device=s.dev))
+    ok = ub.numel() > 0 and all(r["coeffs_differing"] <= MAX_ZN_SHARE
+                                and r["ties_off_by_one"]
+                                for r in (host, philox))
+    s.note("B8", max_abs_err=max(host["max_abs_err"], philox["max_abs_err"]),
+           coeffs_differing=max(host["coeffs_differing"],
+                                philox["coeffs_differing"]),
+           plain_ms=plain_ms, check_ms=ms,
+           check_shape=f"{num} draws, window {W}")
+    return ok, {"draws": num, "window": W, "boundary_uniforms": ZN_BOUNDARY,
+                "boundary_entries": int(ub.numel()), "host": host,
+                "philox": philox}
+
+
 def phase_kernel_vs_plain(s: Smoke):
     import torch
     from lattice_gaussian_mcmc_tpu_torch.lattices import lattice_from_basis
@@ -558,7 +817,10 @@ def phase_kernel_vs_plain(s: Smoke):
            plain_ms=b5_plain_ms, check_ms=b5_ms,
            check_shape=f"{B} chains x {nr} rounds, window {ops_p.window}")
 
-    ok = b2_ok and b3_ok and b4_ok and b5_ok
+    b6_ok, b6 = check_b6(s)
+    b7_ok, b7 = check_b7(s)
+    b8_ok, b8 = check_b8(s)
+    ok = b2_ok and b3_ok and b4_ok and b5_ok and b6_ok and b7_ok and b8_ok
     emit({"phase": "kernel_vs_plain", "ok": ok, "chains": B, "dim": n,
           "window": W, "plain_allow_tf32": False, "b1": b1, "b2_2steps": b2,
           "max_centre_err_over_sigma": centre,
@@ -573,16 +835,57 @@ def phase_kernel_vs_plain(s: Smoke):
                                  proposal_sigma=SMK_2D_PROPOSAL,
                                  window=s4.operands.window),
           "b5": dict(b5, rounds=nr, window=ops_p.window),
-          "b5_philox": b5_philox,
-          "oks": {"b1_b2": b2_ok, "b3": b3_ok, "b4": b4_ok, "b5": b5_ok}})
+          "b5_philox": b5_philox, "b6": b6, "b7": b7, "b8": b8,
+          "oks": {"b1_b2": b2_ok, "b3": b3_ok, "b4": b4_ok, "b5": b5_ok,
+                  "b6": b6_ok, "b7": b7_ok, "b8": b8_ok}})
     if not ok:
         fail("kernel_vs_plain", "kernel disagrees with its plain version")
     return s2, basis2
 
 
 # ---------------------------------------------------------------- law
+def law_zn(s: Smoke):
+    """B8 through sample_zn (scalar sigma and centre): TVD to the exact pmf
+    at sigma 2 and at sigma 1.5, centre 0.5."""
+    from lattice_gaussian_mcmc_tpu_torch.samplers import sample_zn
+    out = {}
+    for name, seed, sigma, c in (("sigma2", 71, 2.0, 0.0),
+                                 ("sigma1.5_c0.5", 72, 1.5, 0.5)):
+        z = sample_zn(seed, 1, sigma, center=c, shape=(ZN_LAW_DRAWS,),
+                      window=32, device=s.dev)
+        out[name] = tvd_1d(z, sigma, c)
+    out["draws"] = ZN_LAW_DRAWS
+    out["ok"] = all(out[k] < MAX_TVD for k in ("sigma2", "sigma1.5_c0.5"))
+    return out
+
+
+def law_b6(s: Smoke, lat2, basis2):
+    """B6 in 2D at sigma 2, 65,536 chains x 3 rounds on Philox: each
+    round's coefficient means within 5 standard errors of 0 and standard
+    deviations within 2% of sigma sqrt(diag((B^T B)^-1))."""
+    import numpy as np
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.samplers import klein_precompute
+    kc, B, R = s.kc, B6_MOMENT_CHAINS, B6_CHECK_ROUNDS
+    ops = kc.kernel_operands(klein_precompute(lat2, 2.0))
+    ring, _ = kc.klein_ring(ops, B, R, seed=73)
+    X = kc.ring_coeffs(ops, ring).double()                  # (R, B, 2)
+    b = np.asarray(basis2)
+    target = torch.tensor(2.0 * np.sqrt(np.diag(np.linalg.inv(b.T @ b))),
+                          device=s.dev)
+    mean_se = (X.mean(dim=1).abs() / (target / math.sqrt(B))).max()
+    std_gap = (X.std(dim=1) / target - 1.0).abs().max()
+    return {"rounds": R, "chains": B,
+            "max_mean_over_se": float(mean_se),
+            "max_std_gap": float(std_gap),
+            "ok": float(mean_se) < 5.0 and float(std_gap) < B6_STD_TOL}
+
+
 def phase_law(s: Smoke, s2, basis2):
-    from lattice_gaussian_mcmc_tpu_torch.samplers import SMKSampler
+    from lattice_gaussian_mcmc_tpu_torch.samplers import (
+        SMKSampler,
+        UnifiedLatticeSampler,
+    )
     X2 = s2.sample_iid(11, LAW_CHAINS, n_steps=LAW_STEPS, return_coeffs=True)
     tvd = tvd_2d(X2, basis2, HARD_SIGMA)
     acc2 = s2.acceptance_rate
@@ -590,13 +893,22 @@ def phase_law(s: Smoke, s2, basis2):
     sm = SMKSampler(lat2, HARD_SIGMA, proposal_sigma=SMK_2D_PROPOSAL)
     X4 = sm.sample_iid(12, LAW_CHAINS, n_steps=LAW_STEPS, return_coeffs=True)
     tvd_smk = tvd_2d(X4, basis2, HARD_SIGMA)
+    zn = law_zn(s)
+    b6 = law_b6(s, lat2, basis2)
+    X = UnifiedLatticeSampler(lat2, sigma=2.0, algorithm="klein").sample(
+        74, LAW_2D_CHAINS, return_coeffs=True)
+    tvd_unified = tvd_2d(X, basis2, 2.0)
+    del X
     ok = (tvd < MAX_TVD and abs(acc2 - HARD_ACCEPTANCE) < HARD_ACCEPTANCE_TOL
-          and tvd_smk < MAX_TVD)
+          and tvd_smk < MAX_TVD and zn["ok"] and b6["ok"]
+          and tvd_unified < MAX_TVD)
     emit({"phase": "law", "ok": ok, "chains": X2.shape[0], "steps": LAW_STEPS,
           "window": s2.pre.window, "tvd": tvd, "acceptance": acc2,
           "expected_acceptance": HARD_ACCEPTANCE, "smk_tvd": tvd_smk,
           "smk_acceptance": sm.acceptance_rate,
-          "smk_window": sm.operands.window})
+          "smk_window": sm.operands.window, "b8_zn": zn, "b6_moments": b6,
+          "unified_klein_tvd_sigma2": tvd_unified,
+          "unified_klein_chains": LAW_2D_CHAINS})
     if not ok:
         fail("law", "2D hard regime off its target")
 
@@ -626,7 +938,8 @@ def phase_flagship(s: Smoke):
     launches = s.counts()
     s.launches["flagship"] = launches
     expected = {"klein_draw": FLAGSHIP_REPS + 1, "imhk_fused": FLAGSHIP_REPS,
-                "imhk_trajectory": 0, "smk_steps": 0, "peikert_rounds": 0}
+                "imhk_trajectory": 0, "smk_steps": 0, "peikert_rounds": 0,
+                "klein_ring": 0, "babai_decode": 0, "sample_zn_draws": 0}
     peak = torch.cuda.max_memory_allocated()
     n = lat.n
     # output check: shape, finite integers, and the D_{L,sigma} second
@@ -851,7 +1164,221 @@ def phase_peikert(s: Smoke):
         fail("peikert", "Peikert row failed its checks")
 
 
+# ---------------------------------------------------------------- suite
+def phase_suite(s: Smoke):
+    """experiments/benchmark.py run_benchmarks at dimensions 256 and 1024,
+    all four rows at their default 65,536 chains, 1 warm-up and 3 timed
+    runs (the NTRU keys of seed 42 from bench_cache/), then the direct row
+    at 16 and 64. One line per row."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.experiments import benchmark
+    from lattice_gaussian_mcmc_tpu_torch.experiments.configs import (
+        BenchmarkConfig,
+    )
+    s.reset_counts()
+    cfg = BenchmarkConfig(
+        output_dir=os.path.join(REPO, "suite_results"),
+        dimensions=SUITE_DIMS, cache_dir=os.path.join(REPO, "bench_cache"))
+    payload = benchmark.run_benchmarks(cfg, device=s.dev)
+    rows = list(payload["sampling"])
+    for n in SUITE_DIRECT_DIMS:
+        rows.append(benchmark.bench_algorithm(
+            "direct", n, cfg, benchmark._row_seed(cfg, "direct"), s.dev))
+        torch.cuda.empty_cache()
+    launches = s.counts()
+    s.launches["suite"] = launches
+    for r in rows:
+        emit({"suite_row": r["algorithm"], "dim": r["dimension"],
+              "chains": r["chains"], "window": r["window"],
+              "sigma": r["sigma"], "samples_per_s": r["samples_per_sec"],
+              "p50_s": r["p50_s"], "min_s": r["min_s"], "max_s": r["max_s"],
+              "peak_allocated_bytes": r.get("device_peak_bytes_allocated"),
+              "norm2_over_dim_sigma2": r["norm2_over_dim_sigma2"]})
+    klein = [r for r in rows if (r["algorithm"], r["dimension"])
+             == ("klein", max(SUITE_DIMS))][0]
+    extra_ok = all(math.isfinite(r["samples_per_sec"])
+                   and r["samples_per_sec"] > 0 for r in rows)
+    ok = (payload["all_passed"] and extra_ok
+          and abs(klein["norm2_over_dim_sigma2"] - 1) < MAX_NORM_GAP
+          and all(launches[k] > 0 for k in ("klein_ring", "klein_draw",
+                                            "imhk_fused", "sample_zn_draws",
+                                            "peikert_rounds")))
+    emit({"phase": "suite", "ok": ok, "all_passed": payload["all_passed"],
+          "rows": len(rows), "dims": list(SUITE_DIMS),
+          "direct_dims": list(SUITE_DIRECT_DIMS),
+          "klein_1024_norm2_over_dim_sigma2": klein["norm2_over_dim_sigma2"],
+          "not_run": payload["not_run"], "launches": launches,
+          "card": s.card})
+    if not ok:
+        fail("suite", "benchmark suite rows failed their checks")
+    return rows
+
+
+# ---------------------------------------------------------------- decode
+def phase_decode(s: Smoke):
+    """B7 through Lattice.nearest_plane on the NTRU-512 secret basis, 65,536
+    targets B x* + w at two noise levels; annealed Gibbs through
+    UnifiedLatticeSampler.decode on NTRU-64 (dimension 128), 64 targets,
+    24 chains, 48 sweeps at two noise levels."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.lattices import ntru_lattice
+    from lattice_gaussian_mcmc_tpu_torch.ops import linalg
+    from lattice_gaussian_mcmc_tpu_torch.samplers import (
+        UnifiedLatticeSampler,
+    )
+    lat, T = s.lat, DECODE_TARGETS
+    lat128 = ntru_lattice(64, q=12289, seed=0,
+                          cache_dir=os.path.join(REPO, "bench_cache"),
+                          device=s.dev)
+    min_gs = float(lat128.gs_norms.min())
+    gibbs_sets = [(rho, *decode_targets(lat128, GIBBS_TARGETS, rho, s.gen))
+                  for rho in GIBBS_RHOS]
+    # warm-up, outside the counts and the clock
+    lat.nearest_plane(decode_targets(lat, 256, DECODE_RHOS[0], s.gen)[1])
+    torch.cuda.synchronize()
+    s.reset_counts()
+    sets, res = [], {}
+    for rho in DECODE_RHOS:
+        xs, t = decode_targets(lat, T, rho, s.gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        X = lat.nearest_plane(t)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        sets.append((rho, xs, t, X))
+        res[f"rho{rho}"] = {"decodes_per_s": T / dt,
+                            "decode_coords_per_s": T * lat.n / dt,
+                            "seconds": dt,
+                            "exact_x_star": int((X == xs).all(dim=1).sum())}
+    gibbs_out = []
+    for rho, xs_g, t_g in gibbs_sets:
+        # sigma0 as experiments/decoding.py sets it
+        sigma0 = max(1.5 * rho * min_gs, 0.3 * min_gs)
+        facade = UnifiedLatticeSampler(lat128, sigma=sigma0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, Xg = facade.decode(91, t_g, stochastic=True,
+                              n_chains=GIBBS_CHAINS, n_sweeps=GIBBS_SWEEPS)
+        torch.cuda.synchronize()
+        gibbs_out.append((sigma0, Xg, time.perf_counter() - t0))
+    launches = s.counts()
+    s.launches["decode"] = launches
+    # checks outside the path: the float64 oracle on a subset, C7, the
+    # Babai baseline of the Gibbs targets
+    ops = s.kc.babai_operands(lat.Q, lat.R)
+    for rho, xs, t, X in sets:
+        r = res[f"rho{rho}"]
+        sub = slice(0, DECODE_CHECK)
+        Xo = linalg.babai_nearest_plane(lat.Q, lat.R, t[sub])
+        r["vs_float64_differing"], r["max_tie_distance"] = babai_ties(
+            lat, t[sub], X[sub], Xo)
+        X32 = decode_from_centres(s.kc, ops, f32_qr_centres(lat, t))
+        r["c7_f32_qr_differing"] = int((X32 != X).any(dim=1).sum())
+        r["c7_f32_qr_differing_from_float64_subset"] = int(
+            (X32[sub] != Xo).any(dim=1).sum())
+        del X32
+    del sets
+    margin = 2.0 * math.sqrt(0.25 / GIBBS_TARGETS)
+    gibbs, gibbs_ok = {}, True
+    for (rho, xs_g, t_g), (sigma0, Xg, dt_g) in zip(gibbs_sets, gibbs_out):
+        Xb = lat128.nearest_plane(t_g)
+        succ_b = float((Xb == xs_g).all(dim=1).double().mean())
+        succ_g = float((Xg == xs_g).all(dim=1).double().mean())
+
+        def dist2(X):
+            return ((X.to(lat128.basis.dtype) @ lat128.basis.T - t_g)
+                    ** 2).sum(1)
+
+        # chain 0 starts at the Babai point and the closest point is kept,
+        # so Gibbs is never farther; the sweeps must find closer points
+        d2_b, d2_g = dist2(Xb), dist2(Xg)
+        never_farther = bool((d2_g <= d2_b * (1 + 1e-12)).all())
+        closer = int((d2_g < d2_b * (1 - 1e-12)).sum())
+        gibbs[f"rho{rho}"] = {"sigma0": sigma0, "success_babai": succ_b,
+                              "success_gibbs": succ_g,
+                              "never_farther": never_farther,
+                              "closer_than_babai": closer, "seconds": dt_g}
+        gibbs_ok = (gibbs_ok and succ_g >= succ_b - margin and never_farther
+                    and closer > 0)
+    mid = gibbs[f"rho{GIBBS_RHOS[0]}"]["success_babai"]
+    low = res[f"rho{DECODE_RHOS[0]}"]
+    ok = (low["exact_x_star"] == T
+          and all(r["vs_float64_differing"] == 0
+                  or r["max_tie_distance"] <= BABAI_TIE_TOL
+                  for r in res.values())
+          and gibbs_ok and 0 < mid < 1
+          and launches["babai_decode"] > 0)
+    emit({"phase": "decode", "ok": ok, "dim": lat.n, "targets": T,
+          "check_targets": DECODE_CHECK, "rhos": res,
+          "tie_tol": BABAI_TIE_TOL,
+          "gibbs": {"dim": lat128.n, "targets": GIBBS_TARGETS,
+                    "chains": GIBBS_CHAINS, "sweeps": GIBBS_SWEEPS,
+                    "margin": margin, "rhos": gibbs},
+          "launches": launches, "card": s.card})
+    if not ok:
+        fail("decode", "decoding failed its checks")
+
+
 # ---------------------------------------------------------------- timing
+def time_b6_b7_b8(s: Smoke):
+    """B6, B7 and B8 by CUDA events at the suite's and the decode phase's
+    shapes (dimension 1024), each with its bound."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.experiments import benchmark
+    from lattice_gaussian_mcmc_tpu_torch.lattices import ntru_lattice
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels.peikert_cuda import (
+        suggest_peikert_window,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.samplers import klein_precompute
+    kc, zc = s.kc, s.zc
+    B = SUITE_CHAINS
+    lat42 = ntru_lattice(512, q=12289, seed=42,
+                         cache_dir=os.path.join(REPO, "bench_cache"),
+                         device=s.dev)
+    pre = klein_precompute(lat42, KLEIN_ROW_SIGMA_OVER_MAX_GS * float(
+        lat42.gs_norms.max()), tail_budget=0.01)
+    ops = kc.kernel_operands(pre)
+    n, n_pad, W, R = ops.n, ops.n_pad, ops.window, benchmark.KLEIN_ROUNDS
+    kc.klein_ring(ops, B, R, seed=5)
+    ms6 = cuda_ms(lambda: kc.klein_ring(ops, B, R, seed=5), reps=3)
+    b6 = bound_ms(klein_flop(n, W) * B * R,
+                  4 * (2 * n_pad * n_pad + 2 * n_pad + R * (n_pad * B + B)))
+    s.note("B6", ms=ms6, bound_ms=b6[0], bound_by=b6[1],
+           shape=f"{B} chains x {R} rounds, window {W}")
+    torch.cuda.empty_cache()
+    lat = s.lat
+    _, t = decode_targets(lat, DECODE_TARGETS, DECODE_RHOS[-1], s.gen)
+    ops7 = kc.babai_operands(lat.Q, lat.R)
+    ct, _ = kc.babai_centres(ops7, t)
+    del t
+    kc.babai_decode(ops7, ct)
+    ms7 = cuda_ms(lambda: kc.babai_decode(ops7, ct), reps=3)
+    T, np7 = DECODE_TARGETS, ops7.n_pad
+    b7 = bound_ms(lat.n * (lat.n - 1) * T,
+                  4 * (2 * np7 * np7 + 2 * np7 * T))
+    s.note("B7", ms=ms7, bound_ms=b7[0], bound_by=b7[1],
+           shape=f"{T} targets, dim {lat.n}")
+    del ct
+    num = B * n
+    Wz = suggest_peikert_window(ZN_SIGMA, n)
+    zc.sample_zn_draws(num, ZN_SIGMA, 0.0, Wz, seed=5, device=s.dev)
+    ms8 = cuda_ms(lambda: zc.sample_zn_draws(num, ZN_SIGMA, 0.0, Wz, seed=5,
+                                             device=s.dev), reps=3)
+    b8 = bound_ms(zn_flop(Wz, num), 4 * num)
+    # yardstick, used nowhere in the port: num draws of the same window
+    # law by one library call, on its own random numbers
+    _, cdf = zc.zn_cdf(ZN_SIGMA, 0.0, Wz, s.dev)
+    w = torch.diff(cdf, prepend=cdf.new_zeros(1))
+    torch.multinomial(w, num, replacement=True)
+    lib8 = cuda_ms(lambda: torch.multinomial(w, num, replacement=True),
+                   reps=3)
+    s.note("B8", ms=ms8, bound_ms=b8[0], bound_by=b8[1], library_ms=lib8,
+           library_call="torch.multinomial(window weights, num, "
+                        "replacement=True)",
+           shape=f"{num} draws, window {Wz}")
+    torch.cuda.empty_cache()
+
+
 def phase_timing(s: Smoke, sampler):
     """B1 and B2 against their plain versions on the same inputs at the
     flagship's shapes (524,288 chains; B2 as the main path launches it, 64
@@ -909,9 +1436,11 @@ def phase_timing(s: Smoke, sampler):
                                 cmp_b2["coeffs_differing"]),
            accept_differing=max(s.k["B2"]["accept_differing"],
                                 cmp_b2["accept_differing"]))
+    time_b6_b7_b8(s)
     emit({"phase": "timing", "ok": ok, "chains": Bf, "b1_vs_plain": cmp_b1,
           "b2_vs_plain": cmp_b2,
-          "b3_b4_b5": {k: s.k[k] for k in ("B3", "B4", "B5")},
+          "b3_to_b8": {k: s.k[k] for k in ("B3", "B4", "B5", "B6", "B7",
+                                           "B8")},
           "card": s.card})
     if not ok:
         fail("timing", "kernel disagrees with its plain version at the "
@@ -929,13 +1458,19 @@ KERNELS = [
     ("B4", "smk_steps (B4)", "smk.cu", "smk_pallas.py:439", "smk_steps"),
     ("B5", "peikert_rounds (B5)", "peikert.cu", "peikert_pallas.py:287",
      "peikert_rounds"),
+    ("B6", "klein_ring (B6)", "klein.cu", "klein_pallas.py:714",
+     "klein_ring"),
+    ("B7", "babai_decode (B7)", "klein.cu", "klein_pallas.py:1027",
+     "babai_decode"),
+    ("B8", "sample_zn_draws (B8)", "zn.cu", "zn_pallas.py:97",
+     "sample_zn_draws"),
 ]
 
 
 def kernels_line(s: Smoke):
     """One entry per kernel: `launches` sums its counts over the path
-    phases; `plain_ms` of B3-B5 is at the check size (`check_shape`, where
-    `check_ms` is the kernel's own time), theirs `ms` at the row's shape."""
+    phases; `plain_ms` of B3-B8 is at the check size (`check_shape`, where
+    `check_ms` is the kernel's own time), their `ms` at the row's shape."""
     out = []
     for key, name, src, replaces, counter in KERNELS:
         entry = {"name": name, "route": "cuda",
@@ -944,7 +1479,7 @@ def kernels_line(s: Smoke):
                              f"{replaces}",
                  "launches": sum(c[counter] for c in s.launches.values())}
         entry.update(s.k[key])
-        entry["library_ms"] = None
+        entry.setdefault("library_ms", None)
         out.append(entry)
     return out
 
@@ -964,6 +1499,9 @@ def main():
     phase_hard_regime(s)
     phase_smk(s)
     phase_peikert(s)
+    torch.cuda.empty_cache()
+    phase_suite(s)
+    phase_decode(s)
     torch.cuda.empty_cache()
     phase_timing(s, sampler)
     kernels = kernels_line(s)

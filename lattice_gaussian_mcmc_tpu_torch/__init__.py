@@ -8,8 +8,11 @@ unless given `device="cpu"`, where the kernels' plain PyTorch versions run.
 Ported so far: the rows of the reference's flagship benchmark — lattices,
 the Klein precomputation, IMHK (`IMHKSampler.sample_iid` and the trajectory
 `sample`), symmetric Metropolis-Klein (`MetropolisKleinSampler`), Peikert
-(`PeikertSampler`) and the MCMC diagnostics — with kernels B1-B5 (Klein
-draw, fused IMHK, IMHK trajectory, fused SMK, Peikert).
+(`PeikertSampler`) and the MCMC diagnostics — and the benchmark suite's
+sampling rows (`experiments/benchmark.py`), Z^n (`identity_lattice`,
+`sample_zn`), `KleinSampler`, Babai and Gibbs decoding and the
+`UnifiedLatticeSampler` facade, with kernels B1-B8 (Klein draw, fused IMHK,
+IMHK trajectory, fused SMK, Peikert, Klein ring, Babai, Z^n).
 """
 
 __version__ = "0.1.0"
@@ -23,8 +26,11 @@ from lattice_gaussian_mcmc_tpu_torch.lattices import (  # noqa: F401
 from lattice_gaussian_mcmc_tpu_torch.samplers import (  # noqa: F401
     IMHKSampler,
     KleinPrecomp,
+    KleinSampler,
     MetropolisKleinSampler,
     PeikertSampler,
     SMKSampler,
+    UnifiedLatticeSampler,
+    identity_lattice,
     klein_precompute,
 )

@@ -1,14 +1,15 @@
-// Klein draw, fused IMHK steps and the IMHK trajectory on Hopper (sm_90a),
-// one thread per chain.
+// Klein draw and its ring, fused IMHK steps, the IMHK trajectory and batched
+// Babai decoding on Hopper (sm_90a), one thread per chain (or target).
 //
 // Replaces the Pallas TPU kernel
 // lattice_gaussian_mcmc_tpu/ops/kernels/klein_pallas.py `_kernel` in its
-// draw mode (klein_sample_batch_pallas, B1), its fused Metropolis-Hastings
-// mode (imhk_step_pallas_fused / imhk_steps_batch_pallas, B2) and its
-// trajectory mode (imhk_trajectory_pallas, B3). The law is the same; the TPU
-// layout devices (bf16 split of U, CDF as a triangular matrix product,
-// (8, 128) row groups, the 8-row DMA staging of the trajectory ring) are not
-// carried over.
+// draw mode (klein_sample_batch_pallas, B1), its ring mode
+// (klein_sample_ring_pallas, B6), its fused Metropolis-Hastings mode
+// (imhk_step_pallas_fused / imhk_steps_batch_pallas, B2) and its trajectory
+// mode (imhk_trajectory_pallas, B3), and the inner kernel of
+// babai_decode_batch_pallas (B7). The law is the same; the TPU layout
+// devices (bf16 split of U, CDF as a triangular matrix product, (8, 128) row
+// groups, the 8-row DMA staging of the rings) are not carried over.
 //
 // What it computes, per chain, for rows i = n_pad-1 down to 0:
 //   c_i   = cs_i - sum_{j>i} U_ij y_j          (FP32 FMA on the CUDA cores)
@@ -23,6 +24,23 @@
 // coefficient ring is given, its column to rows k n_pad .. of tx, with
 // k = (s + 1) / thin - 1. B2 and B3 are one code path (null ring pointers
 // for B2), so the ring cannot change the chain.
+//
+// Ring mode (B6) is the draw kernel run n_rounds times per chain: round r
+// uses Philox step `step + r` (host uniform rows r n_pad ..) and writes its
+// draw straight into rows r n_pad .. of the output ring and its lw into
+// row r of the lw ring. B1 is the same kernel with one round, so round 0
+// of a ring is a B1 draw on the same uniforms, bit for bit. B1 takes the
+// instantiation with one compile-time round (RING = false): with the
+// runtime round count the draw at the flagship shapes took 101-103 ms
+// instead of 85 (tools/ab_klein.py, NVIDIA H100 80GB HBM3, 700 W).
+//
+// Babai mode (B7) is the same backward substitution with rintf (half to
+// even, as torch.round) in place of the draw: y_i = rint(ct_i - sum_{j>i}
+// U_ij y_j) per target, on recentred centres ct (the wrapper removes
+// k = rint(ct) in float64 first, so |y| stays small). No uniforms, no lw.
+// Bound (n = 1024): n(n-1) FLOP of coupling per target, ~1 ms for 65,536
+// targets at 67 TFLOP/s; the centres in and the coefficients out are 0.5 GB,
+// 0.16 ms at 3.35 TB/s.
 //
 // Design. The state is chain-minor (n_pad, B): thread t of a block owns
 // chain blockIdx.x * 128 + t, so every row access of a warp is one
@@ -59,18 +77,50 @@ using namespace lgk;
 
 namespace {
 
-template <int W>
+// n_rounds Klein draws per chain: round r into rows r n_pad .. of y
+// (n_rounds n_pad, B) and its lw into lw_out[r, chain] (B1: RING = false,
+// one round).
+template <int W, bool RING>
 __global__ void __launch_bounds__(THREADS)
     klein_draw_kernel(Operands op, Uniforms un, float* __restrict__ y,
-                      float* __restrict__ lw_out, long long B, uint32_t step,
-                      uint32_t chain_offset) {
+                      float* __restrict__ lw_out, long long B, int n_rounds,
+                      uint32_t step, uint32_t chain_offset) {
   extern __shared__ float tile[];
   const long long chain = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (chain >= B) return;
   const uint32_t chain_id = chain_offset + (uint32_t)chain;
-  const double lw = propose<W>(op, y, B, chain, chain_id,
-                               tile + threadIdx.x, un, 0, step);
-  lw_out[chain] = (float)lw;
+  const size_t round_size = (size_t)op.n_pad * (size_t)B;
+  const int rounds = RING ? n_rounds : 1;
+  for (int r = 0; r < rounds; ++r) {
+    const uint32_t step_r = step + (uint32_t)r;
+    const double lw =
+        propose<W>(op, y + (size_t)r * round_size, B, chain, chain_id,
+                   tile + threadIdx.x, un, (long long)r * op.n_pad, step_r);
+    lw_out[(size_t)r * (size_t)B + (size_t)chain] = (float)lw;
+  }
+}
+
+// B7: Babai nearest plane per target on recentred centres ct (n_pad, B),
+// coefficients (recentred) into y (n_pad, B).
+__global__ void __launch_bounds__(THREADS)
+    babai_kernel(const float* __restrict__ U, const float* __restrict__ UT,
+                 const float* __restrict__ ct, float* __restrict__ y,
+                 int n_pad, long long B) {
+  extern __shared__ float tile[];
+  const long long chain = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (chain >= B) return;
+  float* col = tile + threadIdx.x;
+  for (int lo = n_pad - RB; lo >= 0; lo -= RB) {
+    cross_block(UT, n_pad, lo, y, B, chain, col);
+    for (int r = RB - 1; r >= 0; --r) {
+      const int i = lo + r;
+      const size_t at = (size_t)i * (size_t)B + (size_t)chain;
+      const float c = row_centre(ct[at], U + (size_t)i * n_pad + lo, col, r);
+      const float yi = rintf(c);
+      col[r * THREADS] = yi;
+      y[at] = yi;
+    }
+  }
 }
 
 template <int W>
@@ -118,10 +168,14 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int W>
 int launch_draw(const Operands& op, const Uniforms& un, float* y, float* lw,
-                long long B, uint32_t step, uint32_t chain_offset,
-                cudaStream_t stream) {
-  klein_draw_kernel<W><<<grid_for(B), THREADS, kSmem, stream>>>(
-      op, un, y, lw, B, step, chain_offset);
+                long long B, int n_rounds, uint32_t step,
+                uint32_t chain_offset, cudaStream_t stream) {
+  if (n_rounds == 1)
+    klein_draw_kernel<W, false><<<grid_for(B), THREADS, kSmem, stream>>>(
+        op, un, y, lw, B, 1, step, chain_offset);
+  else
+    klein_draw_kernel<W, true><<<grid_for(B), THREADS, kSmem, stream>>>(
+        op, un, y, lw, B, n_rounds, step, chain_offset);
   return (int)cudaGetLastError();
 }
 
@@ -140,20 +194,46 @@ int launch_fused(const Operands& op, const Uniforms& un, float* x, float* lw,
 
 extern "C" {
 
-// B1: one Klein draw per chain. unif: (n_pad, B) or null for Philox.
+// B6: n_rounds Klein draws per chain into the ring y (n_rounds n_pad, B)
+// and the lw ring (n_rounds, B). unif: (n_rounds n_pad, B) or null for
+// Philox (round r at step + r).
+int klein_ring_launch(const float* U, const float* UT, const float* cs,
+                      const float* isg, const float* unif, float* y,
+                      float* lw, int n_pad, long long B, int window,
+                      int n_rounds, uint32_t seed_lo, uint32_t seed_hi,
+                      uint32_t step, uint32_t chain_offset, void* stream) {
+  if (n_pad <= 0 || n_pad % RB != 0 || B <= 0 || window <= 0 ||
+      n_rounds <= 0)
+    return (int)cudaErrorInvalidValue;
+  const Operands op{U, UT, cs, isg, n_pad, window};
+  const Uniforms un{unif, B, seed_lo, seed_hi};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define CALL(W) \
+  launch_draw<W>(op, un, y, lw, B, n_rounds, step, chain_offset, st)
+  KLEIN_BY_WINDOW(window, CALL)
+#undef CALL
+}
+
+// B1: one Klein draw per chain (B6 with one round). unif: (n_pad, B) or
+// null for Philox.
 int klein_draw_launch(const float* U, const float* UT, const float* cs,
                       const float* isg, const float* unif, float* y,
                       float* lw, int n_pad, long long B, int window,
                       uint32_t seed_lo, uint32_t seed_hi, uint32_t step,
                       uint32_t chain_offset, void* stream) {
-  if (n_pad <= 0 || n_pad % RB != 0 || B <= 0 || window <= 0)
+  return klein_ring_launch(U, UT, cs, isg, unif, y, lw, n_pad, B, window, 1,
+                           seed_lo, seed_hi, step, chain_offset, stream);
+}
+
+// B7: Babai nearest plane for B targets; ct (n_pad, B) recentred centres,
+// y (n_pad, B) out.
+int babai_decode_launch(const float* U, const float* UT, const float* ct,
+                        float* y, int n_pad, long long B, void* stream) {
+  if (n_pad <= 0 || n_pad % RB != 0 || B <= 0)
     return (int)cudaErrorInvalidValue;
-  const Operands op{U, UT, cs, isg, n_pad, window};
-  const Uniforms un{unif, B, seed_lo, seed_hi};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL(W) launch_draw<W>(op, un, y, lw, B, step, chain_offset, st)
-  KLEIN_BY_WINDOW(window, CALL)
-#undef CALL
+  babai_kernel<<<grid_for(B), THREADS, kSmem,
+                 static_cast<cudaStream_t>(stream)>>>(U, UT, ct, y, n_pad, B);
+  return (int)cudaGetLastError();
 }
 
 // B2 (tlw null) and B3: n_steps fused IMHK steps; x (n_pad, B), lw (B,),

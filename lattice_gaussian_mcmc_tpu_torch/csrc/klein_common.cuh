@@ -1,7 +1,9 @@
-// Device functions shared by the Klein (klein.cu), SMK (smk.cu) and Peikert
-// (peikert.cu) kernels on Hopper (sm_90a): Philox4x32-10, the windowed
-// inverse-CDF row draw and its log-normalizer, and the Klein proposal sweep
-// over 64-row blocks, one thread per chain on a chain-minor (n_pad, B) state.
+// Device functions shared by the Klein and Babai (klein.cu), SMK (smk.cu),
+// Peikert (peikert.cu) and Z^n (zn.cu) kernels on Hopper (sm_90a):
+// Philox4x32-10, the windowed inverse-CDF row draw and its log-normalizer,
+// the coupling passes of a backward substitution over 64-row blocks, and the
+// Klein proposal sweep, one thread per chain on a chain-minor (n_pad, B)
+// state.
 //
 // expf and logf are the accurate versions (no --use_fast_math); the logit
 // and CDF arithmetic uses explicitly rounded operations so that the compiler
@@ -20,6 +22,7 @@ constexpr int ACCEPT_ROWS = 8;
 constexpr uint32_t TAG_ROW = 0;
 constexpr uint32_t TAG_ACCEPT = 1;
 constexpr uint32_t TAG_NORMAL = 2;
+constexpr uint32_t TAG_ZN = 4;
 
 // Philox4x32-10 with counter (c0, c1, c2, c3) and key (k0, k1): the
 // function of lattice_gaussian_mcmc_tpu_torch/utils/prng.py, bit for bit.
@@ -142,6 +145,50 @@ struct Operands {
   int window;
 };
 
+// Cross-block coupling of rows lo .. lo+63 to the rows j >= lo+64 already
+// solved in column `chain` of ybuf (n_pad, B): one pass over those rows,
+// each y_j read once and multiplied into 64 register accumulators by a
+// column of U (contiguous in UT, warp-uniform float4 loads), FP32 FMA. The
+// 64 sums go to the thread's column `col` of the shared tile (stride
+// THREADS).
+__device__ __forceinline__ void cross_block(const float* __restrict__ UT,
+                                            int n_pad, int lo,
+                                            const float* __restrict__ ybuf,
+                                            long long B, long long chain,
+                                            float* col) {
+  const int hi = lo + RB;
+  float acc[RB];
+#pragma unroll
+  for (int r = 0; r < RB; ++r) acc[r] = 0.0f;
+  for (int j = hi; j < n_pad; ++j) {
+    const float yj = ybuf[(size_t)j * (size_t)B + (size_t)chain];
+    const float4* u4 =
+        reinterpret_cast<const float4*>(UT + (size_t)j * n_pad + lo);
+#pragma unroll
+    for (int q = 0; q < RB / 4; ++q) {
+      const float4 u = __ldg(u4 + q);
+      acc[4 * q + 0] = fmaf(u.x, yj, acc[4 * q + 0]);
+      acc[4 * q + 1] = fmaf(u.y, yj, acc[4 * q + 1]);
+      acc[4 * q + 2] = fmaf(u.z, yj, acc[4 * q + 2]);
+      acc[4 * q + 3] = fmaf(u.w, yj, acc[4 * q + 3]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RB; ++r) col[r * THREADS] = acc[r];
+}
+
+// Row lo + r's centre from its centre c0 and the tile after cross_block:
+// c0 - col[r] - sum_{rr>r} U_{i, lo+rr} col[rr], the within-block rows
+// already solved (FP32 FMA, rr = r+1 upward).
+__device__ __forceinline__ float row_centre(float c0,
+                                            const float* __restrict__ Ui,
+                                            const float* col, int r) {
+  float c = __fsub_rn(c0, col[r * THREADS]);
+  for (int rr = r + 1; rr < RB; ++rr)
+    c = fmaf(-__ldg(Ui + rr), col[rr * THREADS], c);
+  return c;
+}
+
 // One Klein draw of this thread's chain into column `chain` of ybuf
 // (n_pad, B); `col` is the thread's column of the shared tile (stride
 // THREADS). Host uniform row of coordinate i is host_row0 + i.
@@ -160,25 +207,7 @@ __device__ double propose(const Operands& op, float* __restrict__ ybuf,
   const int n_pad = op.n_pad;
   double lw = 0.0;
   for (int lo = n_pad - RB; lo >= 0; lo -= RB) {
-    const int hi = lo + RB;
-    float acc[RB];
-#pragma unroll
-    for (int r = 0; r < RB; ++r) acc[r] = 0.0f;
-    for (int j = hi; j < n_pad; ++j) {
-      const float yj = ybuf[(size_t)j * (size_t)B + (size_t)chain];
-      const float4* u4 =
-          reinterpret_cast<const float4*>(op.UT + (size_t)j * n_pad + lo);
-#pragma unroll
-      for (int q = 0; q < RB / 4; ++q) {
-        const float4 u = __ldg(u4 + q);
-        acc[4 * q + 0] = fmaf(u.x, yj, acc[4 * q + 0]);
-        acc[4 * q + 1] = fmaf(u.y, yj, acc[4 * q + 1]);
-        acc[4 * q + 2] = fmaf(u.z, yj, acc[4 * q + 2]);
-        acc[4 * q + 3] = fmaf(u.w, yj, acc[4 * q + 3]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < RB; ++r) col[r * THREADS] = acc[r];
+    cross_block(op.UT, n_pad, lo, ybuf, B, chain, col);
     for (int r = RB - 1; r >= 0; --r) {
       const int i = lo + r;
       const size_t at = (size_t)i * (size_t)B + (size_t)chain;
@@ -190,9 +219,7 @@ __device__ double propose(const Operands& op, float* __restrict__ ybuf,
           coup = fmaf(__ldg(Ui + rr), col[rr * THREADS], coup);
         c = __fsub_rn(ct[at], coup);
       } else {
-        c = __fsub_rn(__ldg(op.cs + i), col[r * THREADS]);
-        for (int rr = r + 1; rr < RB; ++rr)
-          c = fmaf(-__ldg(Ui + rr), col[rr * THREADS], c);
+        c = row_centre(__ldg(op.cs + i), Ui, col, r);
       }
       const float u = un.get(host_row0 + i, chain, chain_id, (uint32_t)i,
                              step, TAG_ROW);

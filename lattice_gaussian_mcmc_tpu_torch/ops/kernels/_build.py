@@ -16,6 +16,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -67,6 +69,9 @@ _SIGNATURES = {
         "imhk_trajectory_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _I, _I, _LL, _I, _I, _U32, _U32,
                                    _U32, _U32, _P],
+        "klein_ring_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
+                              _U32, _U32, _U32, _U32, _P],
+        "babai_decode_launch": [_P, _P, _P, _P, _I, _LL, _P],
     },
     "smk": {
         "smk_steps_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -75,6 +80,9 @@ _SIGNATURES = {
     "peikert": {
         "peikert_rounds_launch": [_P, _P, _F, _P, _P, _P, _P, _I, _LL, _I,
                                   _I, _U32, _U32, _U32, _P],
+    },
+    "zn": {
+        "zn_draw_launch": [_F, _F, _I, _P, _P, _LL, _U32, _U32, _P],
     },
 }
 
@@ -94,6 +102,25 @@ def load(name: str) -> ctypes.CDLL:
     err.restype = ctypes.c_char_p
     _LIBS[name] = lib
     return lib
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check_cuda(name, t, shape, dtype=None):
+    """Raise unless t is a contiguous CUDA tensor of `shape` and `dtype`
+    (float32 by default)."""
+    dtype = torch.float32 if dtype is None else dtype
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def raise_on(name: str, rc: int, what: str):

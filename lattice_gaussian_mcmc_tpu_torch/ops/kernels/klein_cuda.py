@@ -1,11 +1,13 @@
-"""Klein draw (B1), fused IMHK steps (B2) and the IMHK trajectory (B3) on
-Hopper: wrappers of the CUDA kernel in `csrc/klein.cu`, their plain PyTorch
-versions, launch counts, and the operand preparation.
+"""Klein draw (B1) and its ring (B6), fused IMHK steps (B2), the IMHK
+trajectory (B3) and batched Babai decoding (B7) on Hopper: wrappers of the
+CUDA kernels in `csrc/klein.cu`, their plain PyTorch versions, launch
+counts, and the operand preparation.
 
-Replaces the draw, fused-MH and trajectory modes of the Pallas kernel
+Replaces the draw, ring, fused-MH and trajectory modes of the Pallas kernel
 `lattice_gaussian_mcmc_tpu/ops/kernels/klein_pallas.py` `_kernel`
-(`klein_sample_batch_pallas`, `imhk_step_pallas_fused`,
-`imhk_steps_batch_pallas`, `imhk_trajectory_pallas`).
+(`klein_sample_batch_pallas`, `klein_sample_ring_pallas`,
+`imhk_step_pallas_fused`, `imhk_steps_batch_pallas`,
+`imhk_trajectory_pallas`) and `babai_decode_batch_pallas`.
 
 Layout. The kernel layout is chain-minor: the state is y (n_pad, B), so one
 thread per chain reads and writes whole rows coalesced. n_pad is n rounded
@@ -15,7 +17,8 @@ k = round(cs); the kernel's centre absorbs the shift,
 cs_eff = cs - U k, computed once per call outside the kernel.
 
 Uniforms. Either the caller passes them (draw mode: row i = coordinate i,
-shape (n_pad, B); fused mode: n_pad + 8 rows per step, the accept uniform
+shape (n_pad, B); ring mode: n_pad rows per round, round r in rows
+r n_pad ..; fused mode: n_pad + 8 rows per step, the accept uniform
 in row s (n_pad + 8) + n_pad — the Pallas kernel's host-uniform layout;
 trajectory mode as fused mode), or
 the kernel draws Philox4x32-10 uniforms keyed by (seed, chain id, step,
@@ -29,14 +32,19 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import TYPE_CHECKING
 
 import torch
 
 from lattice_gaussian_mcmc_tpu_torch.ops.discrete_gaussian import (
     window_offsets,
 )
-from lattice_gaussian_mcmc_tpu_torch.ops.kernels._build import load, raise_on
-from lattice_gaussian_mcmc_tpu_torch.samplers.klein import KleinPrecomp
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels._build import (
+    check_cuda,
+    load,
+    ptr,
+    raise_on,
+)
 from lattice_gaussian_mcmc_tpu_torch.utils.prng import (
     TAG_ACCEPT,
     TAG_ROW,
@@ -44,6 +52,9 @@ from lattice_gaussian_mcmc_tpu_torch.utils.prng import (
     philox_uniform,
     seed_key,
 )
+
+if TYPE_CHECKING:
+    from lattice_gaussian_mcmc_tpu_torch.samplers.klein import KleinPrecomp
 
 BLOCK = 128        # n is padded to a multiple of this
 ROW_BLOCK = 64     # rows per block of the backward substitution
@@ -181,12 +192,37 @@ def _uniform_rows(ops, B, seed, step, chain_offset, uniforms=None, row0=0):
 
 def klein_draw_plain(ops: KleinOperands, num_chains: int, *, seed: int = 0,
                      step: int = 0, chain_offset: int = 0, uniforms=None):
-    """Plain version of B1: returns (y (n_pad, B), lw (B,))."""
-    y = torch.zeros(ops.n_pad, num_chains, dtype=ops.U.dtype,
-                    device=ops.device)
-    lw = _propose_plain(ops, _uniform_rows(ops, num_chains, seed, step,
-                                           chain_offset, uniforms), y)
-    return y, lw
+    """Plain version of B1 (B6's with one round): returns (y (n_pad, B),
+    lw (B,))."""
+    y, lw = klein_ring_plain(ops, num_chains, 1, seed=seed, step=step,
+                             chain_offset=chain_offset, uniforms=uniforms)
+    return y, lw[0]
+
+
+def klein_ring_plain(ops: KleinOperands, num_chains: int, n_rounds: int, *,
+                     seed: int = 0, step: int = 0, chain_offset: int = 0,
+                     uniforms=None):
+    """Plain version of B6: n_rounds B1 draws per chain, round r at Philox
+    step `step + r` (host uniform rows r n_pad ..). Returns the ring
+    (n_rounds n_pad, B) and the lw ring (n_rounds, B)."""
+    n_pad = ops.n_pad
+    ring = torch.zeros(n_rounds * n_pad, num_chains, dtype=ops.U.dtype,
+                       device=ops.device)
+    lws = torch.empty(n_rounds, num_chains, dtype=ops.U.dtype,
+                      device=ops.device)
+    for r in range(n_rounds):
+        rows = _uniform_rows(ops, num_chains, seed, step + r, chain_offset,
+                             uniforms, r * n_pad)
+        lws[r] = _propose_plain(ops, rows, ring[r * n_pad:(r + 1) * n_pad])
+    return ring, lws
+
+
+def ring_coeffs(ops: KleinOperands, ring: torch.Tensor) -> torch.Tensor:
+    """B6's ring (n_rounds n_pad, B) -> (n_rounds, B, n) integer
+    coefficients."""
+    n_rounds = ring.shape[0] // ops.n_pad
+    y = ring.reshape(n_rounds, ops.n_pad, -1)[:, :ops.n]
+    return (y + ops.shift[None, :ops.n, None]).transpose(1, 2)
 
 
 def imhk_fused_plain(ops: KleinOperands, x, lw, acc, n_steps: int, *,
@@ -258,34 +294,111 @@ def trajectory_coeffs(ops: KleinOperands, tx: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Kernel wrappers.
+# Babai nearest plane (B7): operands, recentring and the plain version.
 # ---------------------------------------------------------------------------
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+@dataclasses.dataclass
+class BabaiOperands:
+    """Operands of batched Babai decoding on one lattice.
+
+      U, UT:  (n_pad, n_pad) unit upper-triangular R / diag(R), padded to
+              128 rows with the identity, and its transpose, in the
+              working dtype (float32 for the kernel).
+      Q:      (n, n) the lattice's Q in float64.
+      U64:    (n, n) R / diag(R) in float64 (the recentring product).
+      r_diag: (n,) diag(R) in float64.
+      n:      the lattice dimension before padding.
+    """
+
+    U: torch.Tensor
+    UT: torch.Tensor
+    Q: torch.Tensor
+    U64: torch.Tensor
+    r_diag: torch.Tensor
+    n: int
+
+    @property
+    def n_pad(self) -> int:
+        return self.U.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.U.device
 
 
-def _check_cuda(name, t, shape, dtype=torch.float32):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def babai_operands(Q, R, dtype=torch.float32) -> BabaiOperands:
+    """B7's operands from a lattice's Q and R (on their device)."""
+    Q64, R64 = Q.to(torch.float64), R.to(torch.float64)
+    n = R64.shape[0]
+    r_diag = torch.diagonal(R64).clone()
+    U64 = R64 / r_diag[:, None]
+    n_pad = -(-n // BLOCK) * BLOCK
+    U = torch.eye(n_pad, dtype=torch.float64, device=R.device)
+    U[:n, :n] = U64
+    U = U.to(dtype).contiguous()
+    return BabaiOperands(U=U, UT=U.T.contiguous(), Q=Q64, U64=U64,
+                         r_diag=r_diag, n=n)
+
+
+def babai_centres(ops: BabaiOperands, targets: torch.Tensor):
+    """Per-target centres of targets (B, n): ct = (t Q) / diag(R) in
+    float64 from the lattice's own Q and R (hazard C7), recentred by
+    `babai_recentre`."""
+    return babai_recentre(ops, (targets.to(torch.float64) @ ops.Q)
+                          / ops.r_diag)
+
+
+def babai_recentre(ops: BabaiOperands, ct: torch.Tensor):
+    """Recentre the centres ct (B, n) in float64, then cast to the working
+    dtype: k = round(ct), ct' = ct - U k. Returns (ct' (n_pad, B)
+    chain-minor, k (B, n) float64)."""
+    ct = ct.to(torch.float64)
+    k = torch.round(ct)
+    centred = torch.zeros(ops.n_pad, ct.shape[0], dtype=ops.U.dtype,
+                          device=ops.device)
+    centred[:ops.n] = (ct - k @ ops.U64.T).T.to(ops.U.dtype)
+    return centred, k
+
+
+def babai_decode_plain(ops: BabaiOperands, ct: torch.Tensor) -> torch.Tensor:
+    """Plain version of B7 on recentred centres ct (n_pad, B): the backward
+    substitution over 64-row blocks with round (half to even) in place of
+    the draw. Returns y (n_pad, B), in the operands' dtype."""
+    y = torch.zeros_like(ct)
+    for lo in range(ops.n_pad - ROW_BLOCK, -1, -ROW_BLOCK):
+        hi = lo + ROW_BLOCK
+        if lo >= ops.n:
+            continue
+        t = ops.U[lo:hi, hi:] @ y[hi:]
+        for r in range(min(ROW_BLOCK, ops.n - lo) - 1, -1, -1):
+            i = lo + r
+            c = ct[i] - t[r] - ops.U[i, i + 1:hi] @ y[i + 1:hi]
+            y[i] = torch.round(c)
+    return y
+
+
+def babai_coeffs(ops: BabaiOperands, targets: torch.Tensor) -> torch.Tensor:
+    """Nearest-plane coefficients (B, n) float64 of targets (B, n): B7 on a
+    card, its plain version in the operands' dtype on the CPU."""
+    centred, k = babai_centres(ops, targets)
+    y = babai_decode(ops, centred)
+    return y[:ops.n].T.to(torch.float64) + k
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers.
+# ---------------------------------------------------------------------------
 
 
 def _check_operands(ops: KleinOperands):
     n_pad = ops.n_pad
     if n_pad % BLOCK:
         raise ValueError(f"n_pad {n_pad} is not a multiple of {BLOCK}")
-    _check_cuda("U", ops.U, (n_pad, n_pad))
-    _check_cuda("UT", ops.UT, (n_pad, n_pad))
+    check_cuda("U", ops.U, (n_pad, n_pad))
+    check_cuda("UT", ops.UT, (n_pad, n_pad))
     for name in ("cs", "isg"):
-        _check_cuda(name, getattr(ops, name), (n_pad,))
+        check_cuda(name, getattr(ops, name), (n_pad,))
     if not 1 <= ops.window <= 1024:
         raise ValueError(f"window {ops.window} outside [1, 1024]")
 
@@ -299,16 +412,16 @@ def klein_draw(ops: KleinOperands, num_chains: int, *, seed: int = 0,
                                 chain_offset=chain_offset, uniforms=uniforms)
     _check_operands(ops)
     if uniforms is not None:
-        _check_cuda("uniforms", uniforms, (ops.n_pad, num_chains))
+        check_cuda("uniforms", uniforms, (ops.n_pad, num_chains))
     lib = load("klein")
     y = torch.empty(ops.n_pad, num_chains, dtype=torch.float32,
                     device=ops.device)
     lw = torch.empty(num_chains, dtype=torch.float32, device=ops.device)
     k0, k1 = seed_key(seed)
     rc = lib.klein_draw_launch(
-        _ptr(ops.U), _ptr(ops.UT), _ptr(ops.cs), _ptr(ops.isg),
-        _ptr(uniforms) if uniforms is not None else None,
-        _ptr(y), _ptr(lw), ops.n_pad, num_chains, ops.window, k0, k1,
+        ptr(ops.U), ptr(ops.UT), ptr(ops.cs), ptr(ops.isg),
+        ptr(uniforms) if uniforms is not None else None,
+        ptr(y), ptr(lw), ops.n_pad, num_chains, ops.window, k0, k1,
         step, chain_offset,
         ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
     raise_on("klein", rc, "klein_draw")
@@ -316,26 +429,81 @@ def klein_draw(ops: KleinOperands, num_chains: int, *, seed: int = 0,
     return y, lw
 
 
+def klein_ring(ops: KleinOperands, num_chains: int, n_rounds: int, *,
+               seed: int = 0, step: int = 0, chain_offset: int = 0,
+               uniforms=None):
+    """B6: n_rounds independent Klein draws per chain in one launch, round r
+    at Philox step `step + r`, written to a ring (n_rounds n_pad, B) of
+    recentred coefficients and a ring (n_rounds, B) of lw. Round 0 is B1's
+    draw on the same uniforms. CPU operands run `klein_ring_plain`."""
+    if ops.device.type == "cpu":
+        return klein_ring_plain(ops, num_chains, n_rounds, seed=seed,
+                                step=step, chain_offset=chain_offset,
+                                uniforms=uniforms)
+    if n_rounds < 1:
+        raise ValueError(f"n_rounds {n_rounds} must be >= 1")
+    _check_operands(ops)
+    if uniforms is not None:
+        check_cuda("uniforms", uniforms, (n_rounds * ops.n_pad, num_chains))
+    lib = load("klein")
+    ring = torch.empty(n_rounds * ops.n_pad, num_chains, dtype=torch.float32,
+                       device=ops.device)
+    lws = torch.empty(n_rounds, num_chains, dtype=torch.float32,
+                      device=ops.device)
+    k0, k1 = seed_key(seed)
+    rc = lib.klein_ring_launch(
+        ptr(ops.U), ptr(ops.UT), ptr(ops.cs), ptr(ops.isg),
+        ptr(uniforms) if uniforms is not None else None,
+        ptr(ring), ptr(lws), ops.n_pad, num_chains, ops.window, n_rounds,
+        k0, k1, step, chain_offset,
+        ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
+    raise_on("klein", rc, "klein_ring")
+    klein_ring.launches += 1
+    return ring, lws
+
+
+def babai_decode(ops: BabaiOperands, ct: torch.Tensor) -> torch.Tensor:
+    """B7: Babai nearest plane for every column of the recentred centres ct
+    (n_pad, B) in one launch; returns y (n_pad, B). CPU operands run
+    `babai_decode_plain`."""
+    if ops.device.type == "cpu":
+        return babai_decode_plain(ops, ct)
+    n_pad, B = ops.n_pad, ct.shape[1]
+    if n_pad % BLOCK:
+        raise ValueError(f"n_pad {n_pad} is not a multiple of {BLOCK}")
+    check_cuda("U", ops.U, (n_pad, n_pad))
+    check_cuda("UT", ops.UT, (n_pad, n_pad))
+    check_cuda("ct", ct, (n_pad, B))
+    lib = load("klein")
+    y = torch.empty_like(ct)
+    rc = lib.babai_decode_launch(
+        ptr(ops.U), ptr(ops.UT), ptr(ct), ptr(y), n_pad, B,
+        ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
+    raise_on("klein", rc, "babai_decode")
+    babai_decode.launches += 1
+    return y
+
+
 def _fused_launch(ops: KleinOperands, x, lw, acc, n_steps: int, seed: int,
                   step: int, chain_offset: int, uniforms, tlw=None, tx=None,
                   thin: int = 1):
     _check_operands(ops)
     B = x.shape[1]
-    _check_cuda("x", x, (ops.n_pad, B))
-    _check_cuda("lw", lw, (B,))
-    _check_cuda("acc", acc, (B,))
+    check_cuda("x", x, (ops.n_pad, B))
+    check_cuda("lw", lw, (B,))
+    check_cuda("acc", acc, (B,))
     if uniforms is not None:
-        _check_cuda("uniforms", uniforms,
+        check_cuda("uniforms", uniforms,
                     (n_steps * (ops.n_pad + ACCEPT_ROWS), B))
     lib = load("klein")
     prop = torch.empty_like(x)
     k0, k1 = seed_key(seed)
     rc = lib.imhk_trajectory_launch(
-        _ptr(ops.U), _ptr(ops.UT), _ptr(ops.cs), _ptr(ops.isg),
-        _ptr(uniforms) if uniforms is not None else None,
-        _ptr(x), _ptr(lw), _ptr(acc), _ptr(prop),
-        _ptr(tlw) if tlw is not None else None,
-        _ptr(tx) if tx is not None else None, thin, ops.n_pad, B,
+        ptr(ops.U), ptr(ops.UT), ptr(ops.cs), ptr(ops.isg),
+        ptr(uniforms) if uniforms is not None else None,
+        ptr(x), ptr(lw), ptr(acc), ptr(prop),
+        ptr(tlw) if tlw is not None else None,
+        ptr(tx) if tx is not None else None, thin, ops.n_pad, B,
         ops.window, n_steps, k0, k1, step, chain_offset,
         ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
     raise_on("klein", rc,
@@ -383,6 +551,8 @@ def imhk_trajectory(ops: KleinOperands, x, lw, acc, n_keep: int,
 
 def reset_launch_counts():
     klein_draw.launches = 0
+    klein_ring.launches = 0
+    babai_decode.launches = 0
     imhk_fused.launches = 0
     imhk_trajectory.launches = 0
 

@@ -39,12 +39,15 @@ import torch
 from lattice_gaussian_mcmc_tpu_torch.ops.discrete_gaussian import (
     window_offsets,
 )
-from lattice_gaussian_mcmc_tpu_torch.ops.kernels._build import load, raise_on
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels._build import (
+    check_cuda,
+    load,
+    ptr,
+    raise_on,
+)
 from lattice_gaussian_mcmc_tpu_torch.ops.kernels.klein_cuda import (
     ROW_BLOCK,
-    _check_cuda,
     _draw_row_plain,
-    _ptr,
 )
 from lattice_gaussian_mcmc_tpu_torch.samplers.klein import (
     MAX_WINDOW,
@@ -184,8 +187,8 @@ def peikert_rounds(ops: PeikertOperands, num_chains: int,
     n_pad = ops.n_pad
     if n_pad % ROW_BLOCK:
         raise ValueError(f"n_pad {n_pad} is not a multiple of {ROW_BLOCK}")
-    _check_cuda("L2T", ops.L2T, (n_pad, n_pad))
-    _check_cuda("cp", ops.cp, (n_pad,))
+    check_cuda("L2T", ops.L2T, (n_pad, n_pad))
+    check_cuda("cp", ops.cp, (n_pad,))
     if not 1 <= ops.window <= MAX_WINDOW:
         raise ValueError(f"window {ops.window} outside [1, {MAX_WINDOW}]")
     if n_rounds < 1:
@@ -193,8 +196,8 @@ def peikert_rounds(ops: PeikertOperands, num_chains: int,
     if (uniforms is None) != (normals is None):
         raise ValueError("pass both host uniforms and normals, or neither")
     if uniforms is not None:
-        _check_cuda("uniforms", uniforms, (n_rounds * n_pad, num_chains))
-        _check_cuda("normals", normals, (n_rounds * n_pad, num_chains))
+        check_cuda("uniforms", uniforms, (n_rounds * n_pad, num_chains))
+        check_cuda("normals", normals, (n_rounds * n_pad, num_chains))
         z = None
     else:
         z = torch.empty(n_pad, num_chains, dtype=torch.float32,
@@ -204,10 +207,10 @@ def peikert_rounds(ops: PeikertOperands, num_chains: int,
                        device=ops.device)
     k0, k1 = seed_key(seed)
     rc = lib.peikert_rounds_launch(
-        _ptr(ops.L2T), _ptr(ops.cp), ops.isg,
-        _ptr(uniforms) if uniforms is not None else None,
-        _ptr(normals) if normals is not None else None,
-        _ptr(z) if z is not None else None, _ptr(ring), n_pad, num_chains,
+        ptr(ops.L2T), ptr(ops.cp), ops.isg,
+        ptr(uniforms) if uniforms is not None else None,
+        ptr(normals) if normals is not None else None,
+        ptr(z) if z is not None else None, ptr(ring), n_pad, num_chains,
         ops.window, n_rounds, k0, k1, chain_offset,
         ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
     raise_on("peikert", rc, "peikert_rounds")

@@ -37,13 +37,16 @@ from lattice_gaussian_mcmc_tpu_torch.ops.discrete_gaussian import (
     window_offsets,
 )
 from lattice_gaussian_mcmc_tpu_torch.ops.kernels import klein_cuda
-from lattice_gaussian_mcmc_tpu_torch.ops.kernels._build import load, raise_on
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels._build import (
+    check_cuda,
+    load,
+    ptr,
+    raise_on,
+)
 from lattice_gaussian_mcmc_tpu_torch.ops.kernels.klein_cuda import (
     ACCEPT_ROWS,
     ROW_BLOCK,
-    _check_cuda,
     _draw_row_plain,
-    _ptr,
     _uniform_rows,
 )
 from lattice_gaussian_mcmc_tpu_torch.samplers.klein import (
@@ -221,10 +224,10 @@ def _check_operands(ops: SMKOperands):
     if n_pad % klein_cuda.BLOCK:
         raise ValueError(f"n_pad {n_pad} is not a multiple of "
                          f"{klein_cuda.BLOCK}")
-    _check_cuda("U", ops.U, (n_pad, n_pad))
-    _check_cuda("UT", ops.UT, (n_pad, n_pad))
+    check_cuda("U", ops.U, (n_pad, n_pad))
+    check_cuda("UT", ops.UT, (n_pad, n_pad))
     for name in ("cse", "isgp", "wqt"):
-        _check_cuda(name, getattr(ops, name), (n_pad,))
+        check_cuda(name, getattr(ops, name), (n_pad,))
     if not 1 <= ops.window <= MAX_WINDOW:
         raise ValueError(f"window {ops.window} outside [1, {MAX_WINDOW}]")
 
@@ -240,12 +243,12 @@ def smk_steps(ops: SMKOperands, x, acc, n_steps: int, *, seed: int = 0,
                                chain_offset=chain_offset, uniforms=uniforms)
     _check_operands(ops)
     B = x.shape[1]
-    _check_cuda("x", x, (ops.n_pad, B))
-    _check_cuda("acc", acc, (B,))
+    check_cuda("x", x, (ops.n_pad, B))
+    check_cuda("acc", acc, (B,))
     if n_steps < 1:
         raise ValueError(f"n_steps {n_steps} must be >= 1")
     if uniforms is not None:
-        _check_cuda("uniforms", uniforms,
+        check_cuda("uniforms", uniforms,
                     (n_steps * (ops.n_pad + ACCEPT_ROWS), B))
     lib = load("smk")
     ct = torch.empty_like(x)
@@ -254,9 +257,9 @@ def smk_steps(ops: SMKOperands, x, acc, n_steps: int, *, seed: int = 0,
     la = torch.empty_like(acc)
     k0, k1 = seed_key(seed)
     rc = lib.smk_steps_launch(
-        _ptr(ops.U), _ptr(ops.UT), _ptr(ops.cse), _ptr(ops.isgp),
-        _ptr(ops.wqt), _ptr(uniforms) if uniforms is not None else None,
-        _ptr(x), _ptr(acc), _ptr(ct), _ptr(prop), _ptr(ctn), _ptr(la),
+        ptr(ops.U), ptr(ops.UT), ptr(ops.cse), ptr(ops.isgp),
+        ptr(ops.wqt), ptr(uniforms) if uniforms is not None else None,
+        ptr(x), ptr(acc), ptr(ct), ptr(prop), ptr(ctn), ptr(la),
         ops.n_pad, B, ops.window, n_steps, k0, k1, step, chain_offset,
         ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
     raise_on("smk", rc, "smk_steps")

@@ -2,6 +2,7 @@
 # imports samplers.klein
 from lattice_gaussian_mcmc_tpu_torch.samplers.klein import (  # noqa: F401
     KleinPrecomp,
+    KleinSampler,
     klein_log_density,
     klein_log_weight,
     klein_points,
@@ -36,4 +37,15 @@ from lattice_gaussian_mcmc_tpu_torch.samplers.peikert import (  # noqa: F401
     peikert_precomp_from_numpy,
     peikert_precompute,
     peikert_sample_batch,
+)
+from lattice_gaussian_mcmc_tpu_torch.samplers.gibbs import (  # noqa: F401
+    annealed_gibbs_decode,
+    gibbs_chain,
+)
+from lattice_gaussian_mcmc_tpu_torch.lattices.identity import (  # noqa: F401
+    identity_lattice,
+    sample_zn,
+)
+from lattice_gaussian_mcmc_tpu_torch.samplers.unified import (  # noqa: F401
+    UnifiedLatticeSampler,
 )

@@ -1,6 +1,6 @@
 """Klein's randomized-rounding sampler: precomputation, window policy,
-log-weights and a plain per-row batched draw (counterpart of the JAX
-package's `samplers/klein.py`).
+log-weights, a plain per-row batched draw and `KleinSampler`, which draws
+through kernel B1 (counterpart of the JAX package's `samplers/klein.py`).
 
 Because sigma_i = sigma / R_ii cancels the quadratic terms, the IMHK
 importance weight of a Klein draw is log w(x) = sum_i log Z_i, the sum of
@@ -23,7 +23,10 @@ from lattice_gaussian_mcmc_tpu_torch.ops.discrete_gaussian import (
     dgauss_logits,
     sample_dgauss_icdf_with_logz,
 )
-from lattice_gaussian_mcmc_tpu_torch.utils.device import resolve_device
+from lattice_gaussian_mcmc_tpu_torch.utils.device import (
+    check_backend,
+    resolve_device,
+)
 from lattice_gaussian_mcmc_tpu_torch.utils.prng import chain_ids, philox_uniform
 
 MAX_WINDOW = 1024
@@ -196,3 +199,82 @@ def klein_log_weight(coeffs, pre: KleinPrecomp):
     c = pre.cs - x @ pre.U.T + x      # c_i = cs_i - sum_{j>i} U_ij x_j
     _, logits = dgauss_logits(c, pre.sigmas.expand_as(c), pre.window)
     return torch.logsumexp(logits, dim=-1).sum(dim=-1)
+
+
+class KleinSampler:
+    """Klein's sampler on one lattice. `sample` draws through kernel B1 on
+    a card and its plain version on the CPU (there is no silent fallback:
+    with no card and no `device="cpu"`, construction raises)."""
+
+    def __init__(self, lattice: Lattice, sigma: float, center=None,
+                 window: Optional[int] = None, device=None):
+        self.device = resolve_device(device)
+        self.lattice = lattice
+        self.sigma = float(sigma)
+        self.pre = klein_precompute(lattice, sigma, center,
+                                    window).to(self.device)
+        self._ops = None
+        self._validate()
+
+    def _validate(self):
+        n = self.lattice.n
+        max_gs = float(torch.max(torch.abs(torch.diagonal(self.lattice.R))))
+        klein_lower = max_gs / math.sqrt(2 * math.log(n + 1))
+        if self.sigma < 0.9 * klein_lower:
+            warnings.warn(
+                f"sigma={self.sigma:.4g} below Klein requirement "
+                f"(~{klein_lower:.4g}); samples may deviate from "
+                f"D_(Lambda,sigma)", stacklevel=2)
+        max_cond = float(torch.max(self.pre.sigmas))
+        if 6.0 * max_cond > self.pre.window / 2:
+            warnings.warn(
+                f"window {self.pre.window} covers only "
+                f"{self.pre.window / 2 / max_cond:.1f} conditional sigmas; "
+                "increase `window`", stacklevel=2)
+
+    @property
+    def operands(self):
+        """Kernel B1's operands (float32)."""
+        if self._ops is None:
+            # imported here: klein_cuda imports this module
+            from lattice_gaussian_mcmc_tpu_torch.ops.kernels import (
+                klein_cuda,
+            )
+            self._ops = klein_cuda.kernel_operands(self.pre)
+        return self._ops
+
+    def sample_with_weights(self, seed: int, num_samples: int,
+                            backend: str = "auto"):
+        """num_samples independent draws (one B1 launch): (coeffs (B, n),
+        log_w (B,)). backend "cuda" raises unless the sampler is on a
+        card."""
+        from lattice_gaussian_mcmc_tpu_torch.ops.kernels import klein_cuda
+        check_backend(backend, self.device)
+        ops = self.operands
+        y, lw = klein_cuda.klein_draw(ops, num_samples, seed=seed, step=0)
+        return klein_cuda.from_kernel_layout(ops, y), lw
+
+    def sample(self, seed: int, num_samples: int = 1,
+               return_coeffs: bool = False, backend: str = "auto"):
+        """num_samples independent draws as lattice points (B, n), or
+        coefficients."""
+        coeffs, _ = self.sample_with_weights(seed, num_samples, backend)
+        if return_coeffs:
+            return coeffs
+        return klein_points(self.pre.basis, coeffs)
+
+    def log_density(self, coeffs):
+        return klein_log_density(coeffs, self.pre)
+
+    def diagnostic_info(self):
+        r = torch.abs(torch.diagonal(self.lattice.R))
+        return {
+            "algorithm": ("Klein, kernel B1" if self.device.type == "cuda"
+                          else "Klein, kernel B1's plain version"),
+            "sigma": self.sigma,
+            "window": self.pre.window,
+            "min_R_diag": float(torch.min(r)),
+            "max_R_diag": float(torch.max(r)),
+            "min_conditional_sigma": float(torch.min(self.pre.sigmas)),
+            "max_conditional_sigma": float(torch.max(self.pre.sigmas)),
+        }

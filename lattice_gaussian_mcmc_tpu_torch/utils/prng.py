@@ -9,8 +9,10 @@ counter layout below and the same mantissa-trick uniform.
 Counter layout: c0 = chain id, c1 = row, c2 = step, c3 = tag (TAG_ROW for
 a coordinate draw, TAG_ACCEPT for a Metropolis accept uniform, TAG_NORMAL
 for a pair of Box-Muller normals, TAG_GUMBEL for the Gumbel-max uniforms of
-the plain Peikert draw); key = (seed mod 2^32, seed >> 32 mod
-2^32). Uniforms use output word 0; a Box-Muller pair uses words 0 and 1.
+the plain Peikert draw, TAG_GIBBS for the Gibbs sweeps); key = (seed mod
+2^32, seed >> 32 mod 2^32). The Z^n draws (TAG_ZN) count draws, not chains
+and rows: c0, c1 = the low and high words of the 64-bit draw index, c2 =
+0. Uniforms use output word 0; a Box-Muller pair uses words 0 and 1.
 
 uint32 arithmetic is carried in int64 tensors: every product is split into
 16-bit halves so that no intermediate leaves the int64 range.
@@ -30,6 +32,8 @@ TAG_ROW = 0
 TAG_ACCEPT = 1
 TAG_NORMAL = 2
 TAG_GUMBEL = 3
+TAG_ZN = 4
+TAG_GIBBS = 5
 
 
 def _mulhilo(m: int, x: torch.Tensor):
@@ -94,3 +98,14 @@ def chain_ids(num_chains: int, chain_offset: int = 0,
     """Global chain ids [offset, offset + num_chains) as int64."""
     return torch.arange(chain_offset, chain_offset + num_chains,
                         dtype=torch.int64, device=device)
+
+
+def draw_uniforms(seed: int, num: int, device=None) -> torch.Tensor:
+    """float32 uniforms of the Z^n draws 0 .. num-1: the uniform of counter
+    (index low word, index high word, 0, TAG_ZN) under `seed`."""
+    idx = torch.arange(num, dtype=torch.int64, device=device)
+    k0, k1 = seed_key(seed)
+    c2 = torch.zeros((1,), dtype=torch.int64, device=device)
+    c3 = torch.full((1,), TAG_ZN, dtype=torch.int64, device=device)
+    return mantissa_uniform(philox4x32(idx & MASK32, idx >> 32, c2, c3,
+                                       k0, k1)[0])

@@ -44,6 +44,16 @@ MUTANTS = {
     "tf32_peikert": ("peikert.cu", "const float4 l = __ldg(l4 + q);",
                      "float4 l = __ldg(l4 + q); "
                      + " ".join(_tf32("l", c) for c in "xyzw")),
+    # B7 rounds half away from zero (hazard C3)
+    "babai_roundf": ("klein.cu", "const float yi = rintf(c);",
+                     "const float yi = roundf(c);"),
+    # B6 draws every round on step 0's Philox counters
+    "ring_one_step": ("klein.cu",
+                      "const uint32_t step_r = step + (uint32_t)r;",
+                      "const uint32_t step_r = step;"),
+    # B8 counts cdf_k <= u total
+    "zn_le": ("zn.cu", "if (cdf[mid] < target) lo = mid + 1;",
+              "if (cdf[mid] <= target) lo = mid + 1;"),
 }
 
 

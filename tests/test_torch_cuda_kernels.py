@@ -1,6 +1,7 @@
 """The CUDA kernels B1 (Klein draw), B2 (fused IMHK), B3 (IMHK trajectory),
-B4 (fused SMK) and B5 (Peikert) against their plain PyTorch versions on the
-card. These need a CUDA device and skip without
+B4 (fused SMK), B5 (Peikert), B6 (Klein ring), B7 (Babai) and B8 (Z^n)
+against their plain PyTorch versions on the card, and the entry points that
+must reach them. These need a CUDA device and skip without
 one; they import nothing of JAX, so on a machine with a card and no JAX run
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest
@@ -12,16 +13,22 @@ import pytest
 import torch
 
 from lattice_gaussian_mcmc_tpu_torch.lattices import lattice_from_basis
+from lattice_gaussian_mcmc_tpu_torch.ops import linalg
 from lattice_gaussian_mcmc_tpu_torch.ops.kernels import (
     klein_cuda,
     peikert_cuda,
     smk_cuda,
+    zn_cuda,
 )
 from lattice_gaussian_mcmc_tpu_torch.samplers import (
     IMHKSampler,
+    KleinSampler,
     PeikertSampler,
     SMKSampler,
+    UnifiedLatticeSampler,
+    identity_lattice,
     klein_precompute,
+    sample_zn,
 )
 
 N, B = 136, 2048
@@ -181,3 +188,83 @@ def test_b5_matches_plain_on_host_normals():
         assert diff.float().mean().item() <= 1e-3
         assert bool(((ring - ringp).abs()[diff] == 1).all())
         assert bool(torch.isfinite(ring).all())
+
+
+@pytest.mark.cuda
+def test_b6_rounds_are_b1_draws(ops):
+    """One code path: round r of the ring is B1's draw at step `step + r`,
+    bit for bit; against the plain version up to ties."""
+    ring, lw = klein_cuda.klein_ring(ops, B, 3, seed=5, step=1)
+    n_pad = ops.n_pad
+    for r in range(3):
+        y, l1 = klein_cuda.klein_draw(ops, B, seed=5, step=1 + r)
+        assert torch.equal(ring[r * n_pad:(r + 1) * n_pad], y)
+        assert torch.equal(lw[r], l1)
+    ringp, lwp = klein_cuda.klein_ring_plain(ops, B, 3, seed=5, step=1)
+    for r in range(3):
+        sl = slice(r * n_pad, (r + 1) * n_pad)
+        _agree(ring[sl], ringp[sl], lw[r], lwp[r])
+    assert not torch.equal(ring[:n_pad], ring[n_pad:2 * n_pad])
+
+
+@pytest.mark.cuda
+def test_b7_matches_float64_and_counts():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(136)
+    basis = (np.triu(rng.uniform(-0.5, 0.5, (N, N)), 1)
+             + np.diag(rng.uniform(1.0, 2.0, N)))
+    lat = lattice_from_basis(basis, device="cuda")
+    xs = torch.tensor(rng.integers(-2, 3, (B, N)), dtype=torch.float64,
+                      device="cuda")
+    t = xs @ lat.basis.T + 0.1 * torch.randn(B, N, dtype=torch.float64,
+                                             device="cuda")
+    klein_cuda.reset_launch_counts()
+    X = lat.nearest_plane(t)
+    assert klein_cuda.babai_decode.launches == 1
+    assert torch.equal(X, xs)
+    assert torch.equal(X, linalg.babai_nearest_plane(lat.Q, lat.R, t))
+    # half-integer targets in 2D: decision for decision (rintf, C3)
+    lat2 = lattice_from_basis(np.array([[1.0, 0.5], [0.0, 1.0]]),
+                              device="cuda")
+    h = torch.randint(-40, 41, (B, 2), device="cuda").double() / 2
+    ops2 = klein_cuda.babai_operands(lat2.Q, lat2.R)
+    ct, _ = klein_cuda.babai_centres(ops2, h)
+    assert torch.equal(klein_cuda.babai_decode(ops2, ct),
+                       klein_cuda.babai_decode_plain(ops2, ct))
+
+
+@pytest.mark.cuda
+def test_b8_matches_plain_and_sample_zn_launches():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    num = 1 << 20
+    u = torch.rand(num, device="cuda")
+    for kw in ({"uniforms": u}, {"seed": 3, "device": "cuda"}):
+        z = zn_cuda.sample_zn_draws(num, 2.5, 0.5, 32, **kw)
+        zp = zn_cuda.sample_zn_draws_plain(num, 2.5, 0.5, 32, **kw)
+        diff = z != zp
+        assert diff.float().mean().item() <= 1e-3
+        assert bool(((z - zp).abs()[diff] == 1).all())
+    zn_cuda.reset_launch_counts()
+    Z = sample_zn(1, 64, 3.0, shape=(1000,), device="cuda")
+    assert Z.shape == (1000, 64) and zn_cuda.sample_zn_draws.launches == 1
+    s = UnifiedLatticeSampler(identity_lattice(16, device="cuda"), sigma=2.0)
+    s.sample(2, 100)
+    assert zn_cuda.sample_zn_draws.launches == 2
+
+
+@pytest.mark.cuda
+def test_klein_sampler_and_gibbs_reach_the_kernels():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lat = lattice_from_basis(np.array([[1.0, 0.5], [0.0, 1.0]]),
+                             device="cuda")
+    klein_cuda.reset_launch_counts()
+    X = KleinSampler(lat, 2.0).sample(1, 4096, return_coeffs=True,
+                                      backend="cuda")
+    assert X.shape == (4096, 2) and klein_cuda.klein_draw.launches == 1
+    s = UnifiedLatticeSampler(lat, sigma=1.0)
+    s.decode(2, torch.tensor([[0.3, 0.7], [1.2, -2.6]], device="cuda"),
+             n_chains=4, n_sweeps=3)
+    assert klein_cuda.babai_decode.launches == 1
