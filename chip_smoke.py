@@ -14,8 +14,9 @@ decoding. Phases, one JSON line each:
   kernel_vs_plain  each kernel against its plain PyTorch version on the
                    card, on the caller's random numbers: B1 (Klein draw),
                    B2 (fused IMHK) with the f32 conditional-centre error
-                   against float64 and B2 in the 2D hard regime, where it
-                   rejects; B3 (IMHK trajectory) bit for bit against B2 and
+                   against float64, of the plain version's centres and of
+                   the kernel's own (its debug instantiation), and B2 in
+                   the 2D hard regime, where it rejects; B3 (IMHK trajectory) bit for bit against B2 and
                    against its plain version; B4 (fused SMK) at the SMK
                    row's operands and decision by decision in the 2D hard
                    regime; B5 (Peikert) at the Peikert row's operands; B6
@@ -75,6 +76,10 @@ FALCON_SIGMA = 165.7
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 on the CUDA cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+# B2/B3's design floor: dense bf16 on the tensor cores, and the special
+# function units' exps (16 a clock per SM, 132 SMs, 1.98 GHz boost clock)
+PEAK_BF16_S = 989e12
+PEAK_SFU_S = 16 * 132 * 1.98e9
 # Gates, kernel against its plain version on the same uniforms. The two sum
 # the coupling in another order, so a CDF-boundary tie now and then flips a
 # draw by one; every later row of that chain is then drawn around other
@@ -310,6 +315,18 @@ def bound_ms(flop, nbytes):
                                        else "bytes")
 
 
+def tc_floor_ms(n, window, proposals):
+    """B2/B3's design floor for `proposals` Klein proposals: the coupling's
+    n(n-1) FLOP three times (one bf16 pass per part of U) at the tensor
+    cores' bf16 rate, and the n W exps at the SFU rate; the two units run
+    side by side, so the floor is the larger."""
+    coupling = 1e3 * 3 * n * (n - 1) * proposals / PEAK_BF16_S
+    exps = 1e3 * n * window * proposals / PEAK_SFU_S
+    return {"design_floor_ms": max(coupling, exps),
+            "design_floor_coupling_ms": coupling,
+            "design_floor_exps_ms": exps}
+
+
 def klein_flop(n, window):
     # coupling: n(n-1)/2 FMAs (2 FLOP each); per row and window entry two
     # multiplies, an add, the exp, the CDF add and the compare
@@ -494,16 +511,21 @@ def phase_toolchain(s: Smoke):
     t0 = time.perf_counter()
     built = _build.build_all()
     build_s = time.perf_counter() - t0
-    for name in ("klein", "smk", "peikert", "zn"):
+    for name in ("klein", "imhk_tc", "smk", "peikert", "zn"):
         _build.load(name)
     ptxas = {name: [ln.strip() for ln in info["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln][:12]
              for name, info in _build.BUILD_INFO.items()}
+    # B2/B3's kernel at n_pad 1024 for the paths' windows: registers,
+    # spills, shared memory and blocks resident per SM
+    imhk_tc = {f"window_{w}": s.kc.imhk_tc_resources(1024, w)
+               for w in (16, 8, 24)}
     emit({"phase": "toolchain", "ok": True, "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc.strip().splitlines()[-1] if nvcc else None,
           "triton": has_triton, "card": s.card, "build_s": build_s,
-          "build_s_each": built, "ptxas": ptxas})
+          "build_s_each": built, "ptxas": ptxas,
+          "imhk_tc_resources": imhk_tc})
 
 
 # ---------------------------------------------------------- kernel_vs_plain
@@ -680,6 +702,16 @@ def phase_kernel_vs_plain(s: Smoke):
     c64 = pre.cs[:, None] - pre.U @ x64 + x64
     centre = float(((c32.double() + ops.shift.double()[:, None] - c64).abs()
                     / pre.sigmas[:, None]).max())
+    # ... and the kernel's own: B2's debug instantiation writes the
+    # conditional centres of one proposal (its three-pass bf16 coupling,
+    # hazard C2) beside the proposal, held to float64 from that proposal
+    xc, lc = y.clone(), lw.clone()
+    ck, yk = kc.imhk_centres(ops, xc, lc, seed=13, step=1)
+    xk64 = (yk + ops.shift[:, None]).double()
+    ck64 = pre.cs[:, None] - pre.U @ xk64 + xk64
+    centre_kernel = float(((ck.double() + ops.shift.double()[:, None]
+                            - ck64).abs() / pre.sigmas[:, None]).max())
+    del xc, lc, ck, yk, xk64, ck64
     # B2 where it rejects: the 2D hard regime (~1% of proposals rejected),
     # the operands of the law phase below, caller's uniforms
     basis2 = [[1.0, 0.5], [0.0, 1.0]]
@@ -690,6 +722,7 @@ def phase_kernel_vs_plain(s: Smoke):
     y2, lw2 = kc.klein_draw(ops2, HARD_CHECK_CHAINS, uniforms=u0)
     b2_hard = fused_vs_plain(ops2, y2, lw2, HARD_CHECK_STEPS, gen)
     b2_ok = (draws_ok(b1) and draws_ok(b2) and centre < MAX_CENTRE_ERR
+             and centre_kernel < MAX_CENTRE_ERR
              and b2["accept_differing"] <= MAX_ACCEPT_SHARE
              and b2["accept_differing_agreeing"] == 0
              and hard_decisions_ok(b2_hard, HARD_CHECK_CHAINS))
@@ -824,6 +857,7 @@ def phase_kernel_vs_plain(s: Smoke):
     emit({"phase": "kernel_vs_plain", "ok": ok, "chains": B, "dim": n,
           "window": W, "plain_allow_tf32": False, "b1": b1, "b2_2steps": b2,
           "max_centre_err_over_sigma": centre,
+          "max_kernel_centre_err_over_sigma": centre_kernel,
           "b2_hard_regime": dict(b2_hard, chains=HARD_CHECK_CHAINS,
                                  steps=HARD_CHECK_STEPS, sigma=HARD_SIGMA,
                                  window=ops2.window),
@@ -958,7 +992,9 @@ def phase_flagship(s: Smoke):
           "samples_per_s": len(rates) / sum(1 / r for r in rates),
           "rep_samples_per_s": rates, "acceptance": acc,
           "burn_in": sampler.burn_in, "launches": launches,
-          "expected_launches": expected, "peak_allocated_bytes": peak,
+          "expected_launches": expected,
+          "b2_max_abs_y": s.kc.imhk_fused.max_abs_y,
+          "peak_allocated_bytes": peak,
           "finite": finite, "integral": integral,
           "norm2_over_dim_sigma2": norm_ratio, "card": s.card})
     if not ok:
@@ -1038,7 +1074,10 @@ def phase_hard_regime(s: Smoke):
                                             "imhk_trajectory")))
     emit({"phase": "hard_regime", "ok": ok, "dim": n, "sigma": s.sigma_row,
           "sigma_over_max_gs": ROW_SIGMA_OVER_MAX_GS, "window": W,
-          "window_path": "compiled" if W == 16 else "runtime",
+          # B1 compiles window 16 alone, B2/B3 windows 8, 16 and 24
+          "window_path": {"b1": "compiled" if W == 16 else "runtime",
+                          "b2_b3": "compiled" if W in (8, 16, 24)
+                          else "runtime"},
           "chains": Bh, "traj_steps": T, "burn_in": sampler.burn_in,
           "samples_per_s": sps, "acceptance": a_h,
           "expected_acceptance": HARD_ROW_ACCEPTANCE,
@@ -1046,9 +1085,11 @@ def phase_hard_regime(s: Smoke):
           "ess_per_s": sps * ess_per_sample,
           "ess_per_s_independence_formula": sps * a_h / (2.0 - a_h),
           "samples_per_s_ring_plus_acf": Bh * T / dt_traj,
-          "b3_ms": b3_ms, "pooled_acf": [float(r) for r in rho[:8]],
+          "b3_ms": b3_ms, "b3_design_floor": tc_floor_ms(n, W, Bh * T),
+          "pooled_acf": [float(r) for r in rho[:8]],
           "entry_sample_acceptance": entry_acc, "launches": launches,
-          "card": s.card})
+          "b2_max_abs_y": kc.imhk_fused.max_abs_y,
+          "b3_max_abs_y": kc.imhk_trajectory.max_abs_y, "card": s.card})
     if not ok:
         fail("hard_regime", "hard-regime row failed its checks")
 
@@ -1208,7 +1249,7 @@ def phase_suite(s: Smoke):
           "direct_dims": list(SUITE_DIRECT_DIMS),
           "klein_1024_norm2_over_dim_sigma2": klein["norm2_over_dim_sigma2"],
           "not_run": payload["not_run"], "launches": launches,
-          "card": s.card})
+          "b2_max_abs_y": s.kc.imhk_fused.max_abs_y, "card": s.card})
     if not ok:
         fail("suite", "benchmark suite rows failed their checks")
     return rows
@@ -1439,6 +1480,7 @@ def phase_timing(s: Smoke, sampler):
     time_b6_b7_b8(s)
     emit({"phase": "timing", "ok": ok, "chains": Bf, "b1_vs_plain": cmp_b1,
           "b2_vs_plain": cmp_b2,
+          "b2_design_floor": tc_floor_ms(n, W, Bf * STEPS_PER_LAUNCH),
           "b3_to_b8": {k: s.k[k] for k in ("B3", "B4", "B5", "B6", "B7",
                                            "B8")},
           "card": s.card})
@@ -1451,9 +1493,9 @@ KERNELS = [
     # (key, name, source, replaces, launch counter)
     ("B1", "klein_draw (B1)", "klein.cu", "klein_pallas.py:642",
      "klein_draw"),
-    ("B2", "imhk_fused (B2)", "klein.cu", "klein_pallas.py:798",
+    ("B2", "imhk_fused (B2)", "imhk_tc.cu", "klein_pallas.py:798",
      "imhk_fused"),
-    ("B3", "imhk_trajectory (B3)", "klein.cu", "klein_pallas.py:890",
+    ("B3", "imhk_trajectory (B3)", "imhk_tc.cu", "klein_pallas.py:890",
      "imhk_trajectory"),
     ("B4", "smk_steps (B4)", "smk.cu", "smk_pallas.py:439", "smk_steps"),
     ("B5", "peikert_rounds (B5)", "peikert.cu", "peikert_pallas.py:287",

@@ -1,0 +1,591 @@
+// Fused IMHK steps (B2) and the IMHK trajectory (B3) on Hopper (sm_90a),
+// with the Klein coupling on the tensor cores and the proposal kept in
+// shared memory.
+//
+// Replaces the fused Metropolis-Hastings mode of the Pallas TPU kernel
+// lattice_gaussian_mcmc_tpu/ops/kernels/klein_pallas.py `_kernel`
+// (imhk_step_pallas_fused / imhk_steps_batch_pallas, B2) and its trajectory
+// mode (imhk_trajectory_pallas, B3). B2 and B3 are one code path (null ring
+// pointers for B2), so the ring cannot change the chain.
+//
+// What it computes, per chain and step, for rows i = n_pad-1 down to 0:
+//   c_i   = cs_i - sum_{j>i} U_ij y_j
+//   y_i   = the windowed inverse-CDF draw of klein_common.cuh `draw_row`
+//           around c_i (rintf, hazard C3), log Z_i its log-normaliser
+// lw' = sum_i log Z_i in double (hazard C4); accept iff
+// log max(u, 1e-30) < lw' - lw; x, lw and acc in place. B3 writes lw and,
+// when asked, the state after every thin-th step to its rings.
+//
+// Bound. Per proposal and chain the coupling is n(n-1) FLOP (1.05e6 at
+// n = 1024) and the draw n W exps (16,384 at W = 16). Over the flagship's
+// launch (524,288 chains x 64 steps) that is 3.5e13 FLOP, ~107 ms at the
+// bf16 tensor-core rate with the three passes below, and 5.5e11 exps,
+// ~131 ms at the SFU rate; device memory moves only the accepted
+// proposals into x (4 KB per chain and step, ~0.6 ms per step).
+//
+// Design.
+// - A thread block owns NC = 32 chains for all n_steps steps. Their
+//   proposal lives in shared memory as bf16, (n_pad, 32) chain-minor with
+//   the 16-byte chunks of a row XOR-swizzled by (row / 2) mod 4, so that
+//   ldmatrix reads eight rows without bank conflicts: 64 bytes per row,
+//   64 KB at n_pad = 1024. Rows already drawn are never read back from
+//   device memory.
+// - Hazard C2: U = U1 + U2 + U3, three bf16 parts split on the host (exact
+//   for a float32 U), packed in mma.sync m16n8k16 A-fragment order (one
+//   16-byte load per lane, part and 16 x 16 tile), three passes over Y. Y
+//   holds integers, exact in bf16 for |y| <= 256 (hazard C8: a drawn
+//   |y| > 256 is counted into bad[0] and the wrapper raises; bad[1] keeps
+//   the largest |y| drawn).
+// - For a 64-row block [lo, lo+64), its coupling to the rows j >= lo+64 is
+//   C = U[lo:lo+64, lo+64:] Y, a 64 x 32 x K product on mma.sync with FP32
+//   accumulation: each warp takes 32 rows, U's fragments stream from L2
+//   through a ring of four 16-column steps in registers (6 MB of parts at
+//   n = 1024, 2.9 MB read per block of chains and proposal), and each pair
+//   of steps sums into a zeroed partial accumulator that is then added in
+//   IEEE FP32, so the tensor cores' own rounding acts on short sums only.
+// - The block's rows go in four sub-blocks of 16. Once a sub-block is
+//   drawn, its coupling to the rows below it in the block is one more
+//   small product on the tensor cores (16 sb x 32 x 16, three passes);
+//   within a sub-block, after y_r the pair adds U[rr, r] y_r (FP32, float4
+//   quads split by parity) into the coupling of its rows rr < r in a
+//   (32, 72)-float tile, so the next row's centre is one shared load away.
+// - Each row is drawn by two threads per chain: each computes half of the
+//   window's weights; the CDF is the same sequential sum as draw_row's (the
+//   low half's sum is shuffled up), so the draw is draw_row's bit for bit.
+//   Each thread draws the Philox uniform of one row of a pair, one pair
+//   ahead of the draws.
+// - 64 threads and 64 n_pad + 9,344 bytes of shared memory a block (74,880
+//   at n_pad = 1024): three blocks (six warps, 96 chains) per SM there, one
+//   (32 chains) at n_pad = 2048; the proposal tiles bound it. The 227 KB a
+//   block of sm_90 may take set the largest n_pad, 3,456 (klein_cuda.py
+//   IMHK_TC_MAX_N_PAD; its wrapper raises above it).
+//   ~255 registers a thread (ptxas spills a few bytes at the coupling's
+//   register ring). The draws are latency-bound (~0.8 of a launch), the
+//   coupling L2-bound (~0.25); see PERF.md.
+//
+// Randomness: host uniforms (n_pad + 8 rows a step, the accept uniform in
+// row n_pad) or Philox4x32-10 with counter (chain id, row, step, tag), the
+// function of lattice_gaussian_mcmc_tpu_torch/utils/prng.py, bit for bit.
+
+#include "klein_common.cuh"
+
+using namespace lgk;
+
+namespace {
+
+constexpr int NC = 32;              // chains per thread block
+constexpr int TPB = 2 * NC;         // two threads per chain
+constexpr int CT_STRIDE = 72;       // floats per chain of the coupling tile
+constexpr int Y_ROW = 2 * NC;       // bytes per proposal row (bf16)
+constexpr int SB = 16;              // rows per sub-block of a 64-row block
+constexpr int PARTS = 3;            // bf16 parts of U
+constexpr int PASSES = PARTS;       // bf16 passes of the coupling (all)
+constexpr float EXACT_Y = 256.0f;   // |y| exact in bf16
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+struct TcOperands {
+  const uint4* Ufrag;  // (n_pad/16, n_pad/16, 3, 32) A fragments
+  const float* UT;     // float32 U transposed: the within-block triangle
+  const float* cs;
+  const float* isg;
+  int n_pad;
+  int window;
+};
+
+inline size_t smem_bytes(int n_pad) {
+  return (size_t)n_pad * Y_ROW + (size_t)NC * CT_STRIDE * sizeof(float) +
+         (size_t)NC * sizeof(int);
+}
+
+// byte offset of (row, chain) in the swizzled proposal tile
+__device__ __forceinline__ int y_off(int row, int chain) {
+  return row * Y_ROW +
+         ((((chain >> 3) ^ ((row >> 1) & 3)) << 4) | ((chain & 7) << 1));
+}
+
+__device__ __forceinline__ unsigned short to_bf16_bits(float y) {
+  return (unsigned short)(__float_as_uint(y) >> 16);  // exact: |y| <= 256
+}
+
+__device__ __forceinline__ float from_bf16_bits(unsigned short v) {
+  return __uint_as_float((uint32_t)v << 16);
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0,
+                                          uint32_t& r1, uint32_t& r2,
+                                          uint32_t& r3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, const uint4& a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void load_a(uint4 (&a)[2][PARTS],
+                                       const uint4* __restrict__ Ufrag,
+                                       int mt0, int kt, int KT, int lane) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int p = 0; p < PARTS; ++p)
+      a[m][p] = __ldg(Ufrag +
+                      (((size_t)(mt0 + m) * KT + kt) * PARTS + p) * 32 +
+                      lane);
+}
+
+__device__ __forceinline__ void zero(float (&acc)[2][4][4]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.0f;
+}
+
+// acc = U[rows, lo+64 ..] Y[lo+64 .., chains], block lo's coupling to the
+// rows drawn, for the rows lo + 32 warp .. +31 (two m16 tiles) and all 32
+// chains (four n8 tiles). U's fragments stream from L2 into a ring of PF
+// 16-column steps in registers, each slot refilled PF steps ahead as it is
+// consumed (the step count is a multiple of 4). Each pair of steps sums
+// into a zeroed partial accumulator, then into acc in IEEE FP32.
+constexpr int PF = 4;
+__device__ void couple(const TcOperands& op, uint32_t ysm,
+                       float (&acc)[2][4][4], int lo, int warp, int lane) {
+  const int KT = op.n_pad >> 4;
+  const int kt0 = (lo + RB) >> 4, kt1 = KT;
+  const int mi = lane >> 3, rin = lane & 7;   // ldmatrix: matrix, its row
+  const int mt0 = (lo >> 4) + 2 * warp;
+  zero(acc);
+  uint4 a[PF][2][PARTS];
+#pragma unroll
+  for (int j = 0; j < PF; ++j)
+    if (kt0 + j < kt1) load_a(a[j], op.Ufrag, mt0, kt0 + j, KT, lane);
+  for (int kt = kt0; kt < kt1; kt += PF) {
+#pragma unroll
+    for (int half = 0; half < PF / 2; ++half) {
+      float part[2][4][4];
+      zero(part);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const int j = 2 * half + kk;
+        const int k = kt + j;
+        uint32_t b[4][2];
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          const int row = 16 * k + ((mi & 1) << 3) + rin;
+          const int nt = 2 * np + (mi >> 1);
+          ldsm_x4_t(ysm + row * Y_ROW + ((nt ^ ((row >> 1) & 3)) << 4),
+                    b[2 * np][0], b[2 * np][1], b[2 * np + 1][0],
+                    b[2 * np + 1][1]);
+        }
+#pragma unroll
+        for (int p = PASSES - 1; p >= 0; --p)
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+              mma_bf16(part[m][n], a[j][m][p], b[n][0], b[n][1]);
+        if (k + PF < kt1) load_a(a[j], op.Ufrag, mt0, k + PF, KT, lane);
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[m][n][e] = __fadd_rn(acc[m][n][e], part[m][n][e]);
+    }
+  }
+}
+
+// acc (rows 32 warp .. +31 of the block) into the coupling tile
+// ct[chain * CT_STRIDE + row]
+__device__ __forceinline__ void store_ct(const float (&acc)[2][4][4],
+                                         float* ct, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int r = 32 * warp + 16 * m + g;
+      const int c = 8 * n + 2 * t;
+      ct[c * CT_STRIDE + r] = acc[m][n][0];
+      ct[(c + 1) * CT_STRIDE + r] = acc[m][n][1];
+      ct[c * CT_STRIDE + r + 8] = acc[m][n][2];
+      ct[(c + 1) * CT_STRIDE + r + 8] = acc[m][n][3];
+    }
+}
+
+// A fragments of U[lo : lo + 16 sb, lo + 16 sb : +16] (m16 tiles m < sb):
+// the columns of sub-block sb in the rows below it.
+__device__ __forceinline__ void load_diag(uint4 (&a)[RB / SB - 1][PARTS],
+                                          const uint4* __restrict__ Ufrag,
+                                          int lo, int sb, int KT, int lane) {
+  const int kt = (lo >> 4) + sb;
+#pragma unroll
+  for (int m = 0; m < RB / SB - 1; ++m)
+    if (m < sb) {
+#pragma unroll
+      for (int p = 0; p < PARTS; ++p)
+        a[m][p] = __ldg(Ufrag +
+                        (((size_t)((lo >> 4) + m) * KT + kt) * PARTS + p) *
+                            32 +
+                        lane);
+    }
+}
+
+// Sub-block sb of block lo is drawn: add its coupling to the rows below it,
+// ct[rows 0 .. 16 sb) += U[.., sub-block] Y[sub-block], on the tensor
+// cores. Warp w takes chains 16w .. 16w + 15 (two n8 tiles).
+__device__ void sub_update(const uint4 (&a)[RB / SB - 1][PARTS],
+                           uint32_t ysm, float* ct, int lo, int sb, int warp,
+                           int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int mi = lane >> 3, rin = lane & 7;
+  const int row = lo + SB * sb + ((mi & 1) << 3) + rin;
+  const int nt = 2 * warp + (mi >> 1);
+  uint32_t b[2][2];
+  ldsm_x4_t(ysm + row * Y_ROW + ((nt ^ ((row >> 1) & 3)) << 4), b[0][0],
+            b[0][1], b[1][0], b[1][1]);
+#pragma unroll
+  for (int m = 0; m < RB / SB - 1; ++m)
+    if (m < sb) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int p = PASSES - 1; p >= 0; --p)
+          mma_bf16(d, a[m][p], b[n][0], b[n][1]);
+        const int r = 16 * m + g;
+        float* c0 = ct + (16 * warp + 8 * n + 2 * t) * CT_STRIDE + r;
+        float* c1 = c0 + CT_STRIDE;
+        c0[0] = __fadd_rn(c0[0], d[0]);
+        c1[0] = __fadd_rn(c1[0], d[1]);
+        c0[8] = __fadd_rn(c0[8], d[2]);
+        c1[8] = __fadd_rn(c1[8], d[3]);
+      }
+    }
+}
+
+// draw_row<W> by the two threads of a chain (h = 0, 1), bit for bit: each
+// computes W/2 of the weights, the low half's sum is shuffled up, and the
+// CDF is the same sequential sum. W == 0: draw_row's runtime window, run
+// by both threads alike.
+template <int W>
+__device__ __forceinline__ float draw_pair(float c, float isg, float u,
+                                           int window, int h, int lane,
+                                           float& logz) {
+  if constexpr (W == 0) {
+    return draw_row<0>(c, isg, u, window, logz);
+  } else {
+    constexpr int H = W / 2;
+    const float base = rintf(c);
+    const float delta = __fsub_rn(base, c);
+    const float a = __fmul_rn(isg, isg);
+    const float nad = __fmul_rn(-a, delta);
+    const float m = __fmul_rn(__fmul_rn(-0.5f, a), __fmul_rn(delta, delta));
+    float w[H];
+#pragma unroll
+    for (int j = 0; j < H; ++j) w[j] = window_weight(h * H + j, H, nad, a);
+    float s = 0.0f;
+#pragma unroll
+    for (int j = 0; j < H; ++j) s = __fadd_rn(s, w[j]);
+    const float low = __shfl_xor_sync(FULL, s, 1);
+    float run = h ? low : 0.0f;
+    float cdf[H];
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      run = __fadd_rn(run, w[j]);
+      cdf[j] = run;
+    }
+    const float total = __shfl_sync(FULL, run, lane | 1);
+    const float target = __fmul_rn(u, total);
+    int cnt = 0;
+#pragma unroll
+    for (int j = 0; j < H; ++j) cnt += cdf[j] < target ? 1 : 0;
+    const int idx = min(cnt + __shfl_xor_sync(FULL, cnt, 1), W - 1);
+    logz = __fadd_rn(m, logf(total));
+    return __fadd_rn(base, (float)(idx - H));
+  }
+}
+
+// DBG: step 0 also writes each row's centre to dbg[i, chain] and its draw
+// to dbg[n_pad + i, chain].
+template <int W, bool DBG>
+__global__ void __launch_bounds__(TPB, 3)
+    imhk_tc_kernel(TcOperands op, Uniforms un, float* __restrict__ x,
+                   float* __restrict__ lw_state, float* __restrict__ acc,
+                   float* __restrict__ tlw, float* __restrict__ tx,
+                   float* __restrict__ dbg, int* __restrict__ bad, int thin,
+                   long long B, int n_steps, uint32_t step0,
+                   uint32_t chain_offset) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n_pad = op.n_pad;
+  unsigned char* ytile = smem;
+  float* ct = reinterpret_cast<float*>(smem + (size_t)n_pad * Y_ROW);
+  int* accepted = reinterpret_cast<int*>(ct + NC * CT_STRIDE);
+  const uint32_t ysm = (uint32_t)__cvta_generic_to_shared(ytile);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cl = tid >> 1, h = tid & 1;   // chain of the block, half
+  const long long chain0 = (long long)blockIdx.x * NC;
+  const long long chain = chain0 + cl;
+  const bool valid = chain < B;
+  const uint32_t chain_id = chain_offset + (uint32_t)chain;
+  float* crow = ct + cl * CT_STRIDE;
+
+  float lw = valid ? lw_state[chain] : 0.0f;
+  float a_cnt = valid ? acc[chain] : 0.0f;
+  float ymax = 0.0f;
+  for (int s = 0; s < n_steps; ++s) {
+    const uint32_t step = step0 + (uint32_t)s;
+    const long long row0 = (long long)s * (n_pad + ACCEPT_ROWS);
+    double lwp = 0.0;
+    for (int lo = n_pad - RB; lo >= 0; lo -= RB) {
+      __syncthreads();   // rows >= lo + 64 drawn; the tile is free
+      {
+        // the block's coupling to the rows drawn (rows >= lo + 64): warp w
+        // takes its rows lo + 32w .. +31
+        float cacc[2][4][4];
+        couple(op, ysm, cacc, lo, warp, lane);
+        store_ct(cacc, ct, warp, lane);
+      }
+      __syncthreads();
+      for (int sb = RB / SB - 1; sb >= 0; --sb) {
+        const int rlo = SB * sb;
+        uint4 ad[RB / SB - 1][PARTS];
+        load_diag(ad, op.Ufrag, lo, sb, n_pad >> 4, lane);
+        // uniforms of rows r2 (thread 0) and r2 - 1 (thread 1), one pair
+        // ahead of the draws
+        int ih = lo + rlo + SB - 1 - h;
+        float uh = valid ? un.get(row0 + ih, chain, chain_id, (uint32_t)ih,
+                                  step, TAG_ROW)
+                         : 0.5f;
+        for (int r2 = rlo + SB - 1; r2 > rlo; r2 -= 2) {
+          const float upair[2] = {__shfl_sync(FULL, uh, lane & ~1),
+                                  __shfl_sync(FULL, uh, lane | 1)};
+          if (r2 - 2 > rlo) {
+            ih -= 2;
+            uh = valid ? un.get(row0 + ih, chain, chain_id, (uint32_t)ih,
+                                step, TAG_ROW)
+                       : 0.5f;
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int r = r2 - e;
+            const int i = lo + r;
+            // U[rr, i] for the sub-block's rows rr < r, by quads split by
+            // parity between the two threads, loaded before the draw
+            const float4* ucol = reinterpret_cast<const float4*>(
+                op.UT + (size_t)i * n_pad + lo);
+            float4 uq[2];
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int q = (rlo >> 2) + h + 2 * j;
+              if (4 * q < r) uq[j] = __ldg(ucol + q);
+            }
+            const float c = __fsub_rn(__ldg(op.cs + i), crow[r]);
+            float logz;
+            const float y = draw_pair<W>(c, __ldg(op.isg + i), upair[e],
+                                         op.window, h, lane, logz);
+            lwp += (double)logz;
+            if (h == 0) {
+              *reinterpret_cast<unsigned short*>(ytile + y_off(i, cl)) =
+                  to_bf16_bits(y);
+              if (valid) {
+                ymax = fmaxf(ymax, fabsf(y));
+                if (fabsf(y) > EXACT_Y) atomicAdd(bad, 1);
+              }
+              if constexpr (DBG) {
+                if (s == 0 && valid) {
+                  dbg[(size_t)i * (size_t)B + (size_t)chain] = c;
+                  dbg[(size_t)(n_pad + i) * (size_t)B + (size_t)chain] = y;
+                }
+              }
+            }
+            // the sub-block's rows rr < r: coupling += U[rr, r] y_r
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int q = (rlo >> 2) + h + 2 * j;
+              if (4 * q < r) {
+                float4 cq = *reinterpret_cast<float4*>(crow + 4 * q);
+                cq.x = fmaf(uq[j].x, y, cq.x);
+                cq.y = fmaf(uq[j].y, y, cq.y);
+                cq.z = fmaf(uq[j].z, y, cq.z);
+                cq.w = fmaf(uq[j].w, y, cq.w);
+                *reinterpret_cast<float4*>(crow + 4 * q) = cq;
+              }
+            }
+            __syncwarp();
+          }
+        }
+        if (sb > 0) {
+          __syncthreads();   // the sub-block's rows and centres written
+          sub_update(ad, ysm, ct, lo, sb, warp, lane);
+          __syncthreads();
+        }
+      }
+    }
+    // accept or keep, per chain
+    const float lwpf = (float)lwp;
+    float u = valid ? un.get(row0 + n_pad, chain, chain_id, 0u, step,
+                             TAG_ACCEPT)
+                    : 1.0f;
+    u = fmaxf(u, 1e-30f);
+    const bool take = logf(u) < __fsub_rn(lwpf, lw);
+    if (take) {
+      lw = lwpf;
+      a_cnt = __fadd_rn(a_cnt, 1.0f);
+    }
+    if (h == 0) accepted[cl] = take ? 1 : 0;
+    const bool keep = tlw != nullptr && (s + 1) % thin == 0;
+    const size_t k = keep ? (size_t)((s + 1) / thin - 1) : 0;
+    if (keep && h == 0 && valid) tlw[k * (size_t)B + (size_t)chain] = lw;
+    __syncthreads();
+    // accepted proposals into x (and the state into the coefficient ring):
+    // a warp writes whole rows of the block's 32 chains
+    {
+      const int cc = tid & (NC - 1);
+      const long long ch = chain0 + cc;
+      if (ch < B) {
+        const bool took = accepted[cc] != 0;
+        for (int i = tid / NC; i < n_pad; i += TPB / NC) {
+          const size_t at = (size_t)i * (size_t)B + (size_t)ch;
+          float v = 0.0f;
+          if (took) {
+            v = from_bf16_bits(
+                *reinterpret_cast<const unsigned short*>(ytile + y_off(i, cc)));
+            x[at] = v;
+          }
+          if (keep && tx != nullptr) {
+            if (!took) v = x[at];
+            tx[(k * n_pad + i) * (size_t)B + (size_t)ch] = v;
+          }
+        }
+      }
+    }
+  }
+  if (h == 0 && valid) {
+    lw_state[chain] = lw;
+    acc[chain] = a_cnt;
+    atomicMax(bad + 1, (int)ymax);
+  }
+}
+
+template <int W, bool DBG>
+int launch(const TcOperands& op, const Uniforms& un, float* x, float* lw,
+           float* acc, float* tlw, float* tx, float* dbg, int* bad, int thin,
+           long long B, int n_steps, uint32_t step, uint32_t chain_offset,
+           cudaStream_t stream) {
+  const size_t smem = smem_bytes(op.n_pad);
+  cudaError_t e = cudaFuncSetAttribute(
+      imhk_tc_kernel<W, DBG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((B + NC - 1) / NC));
+  imhk_tc_kernel<W, DBG><<<grid, TPB, smem, stream>>>(
+      op, un, x, lw, acc, tlw, tx, dbg, bad, thin, B, n_steps, step,
+      chain_offset);
+  return (int)cudaGetLastError();
+}
+
+template <bool DBG>
+int launch_by_window(const TcOperands& op, const Uniforms& un, float* x,
+                     float* lw, float* acc, float* tlw, float* tx,
+                     float* dbg, int* bad, int thin, long long B,
+                     int n_steps, uint32_t step, uint32_t chain_offset,
+                     cudaStream_t st) {
+#define CALL(W)                                                            \
+  launch<W, DBG>(op, un, x, lw, acc, tlw, tx, dbg, bad, thin, B, n_steps, \
+                 step, chain_offset, st)
+  switch (op.window) {
+    case 8: return CALL(8);
+    case 16: return CALL(16);
+    case 24: return CALL(24);
+    default: return CALL(0);
+  }
+#undef CALL
+}
+
+template <int W>
+int info(int n_pad, int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, imhk_tc_kernel<W, false>);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = smem_bytes(n_pad);
+  e = cudaFuncSetAttribute(imhk_tc_kernel<W, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, imhk_tc_kernel<W, false>, TPB, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  out[4] = TPB;
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// B2 (tlw null) and B3: n_steps fused IMHK steps; x (n_pad, B), lw (B,),
+// acc (B,) in place. Ufrag: the three bf16 parts of U in A-fragment order
+// ((n_pad/16)^2 * 3 * 32 16-byte entries), UT float32. unif:
+// (n_steps * (n_pad + 8), B) or null. B3 writes lw every thin-th step to
+// tlw (n_steps / thin, B) and, when tx is not null, the state to tx
+// (n_steps / thin * n_pad, B). bad: two ints, bad[0] incremented per drawn
+// |y| > 256, bad[1] raised to the largest drawn |y|. dbg: null, or (2 n_pad, B) for step 0's centres and draws.
+int imhk_tc_launch(const void* Ufrag, const float* UT, const float* cs,
+                   const float* isg, const float* unif, float* x, float* lw,
+                   float* acc, float* tlw, float* tx, float* dbg, int* bad,
+                   int thin, int n_pad, long long B, int window, int n_steps,
+                   uint32_t seed_lo, uint32_t seed_hi, uint32_t step,
+                   uint32_t chain_offset, void* stream) {
+  if (n_pad <= 0 || n_pad % RB != 0 || B <= 0 || window <= 0 ||
+      n_steps <= 0 || thin <= 0 || bad == nullptr ||
+      (tx != nullptr && tlw == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const TcOperands op{static_cast<const uint4*>(Ufrag), UT, cs, isg, n_pad,
+                      window};
+  const Uniforms un{unif, B, seed_lo, seed_hi};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dbg != nullptr)
+    return launch_by_window<true>(op, un, x, lw, acc, tlw, tx, dbg, bad,
+                                  thin, B, n_steps, step, chain_offset, st);
+  return launch_by_window<false>(op, un, x, lw, acc, tlw, tx, dbg, bad, thin,
+                                 B, n_steps, step, chain_offset, st);
+}
+
+// The kernel's resources for a window at n_pad: out[0] registers a thread,
+// out[1] local (spill) bytes a thread, out[2] dynamic shared memory a
+// block, out[3] blocks per SM, out[4] threads a block.
+int imhk_tc_info(int n_pad, int window, int* out) {
+  switch (window) {
+    case 8: return info<8>(n_pad, out);
+    case 16: return info<16>(n_pad, out);
+    case 24: return info<24>(n_pad, out);
+    default: return info<0>(n_pad, out);
+  }
+}
+
+const char* imhk_tc_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

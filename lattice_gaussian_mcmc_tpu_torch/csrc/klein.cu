@@ -1,15 +1,15 @@
-// Klein draw and its ring, fused IMHK steps, the IMHK trajectory and batched
-// Babai decoding on Hopper (sm_90a), one thread per chain (or target).
+// Klein draw and its ring and batched Babai decoding on Hopper (sm_90a), one
+// thread per chain (or target).
 //
 // Replaces the Pallas TPU kernel
 // lattice_gaussian_mcmc_tpu/ops/kernels/klein_pallas.py `_kernel` in its
-// draw mode (klein_sample_batch_pallas, B1), its ring mode
-// (klein_sample_ring_pallas, B6), its fused Metropolis-Hastings mode
-// (imhk_step_pallas_fused / imhk_steps_batch_pallas, B2) and its trajectory
-// mode (imhk_trajectory_pallas, B3), and the inner kernel of
-// babai_decode_batch_pallas (B7). The law is the same; the TPU layout
-// devices (bf16 split of U, CDF as a triangular matrix product, (8, 128) row
-// groups, the 8-row DMA staging of the rings) are not carried over.
+// draw mode (klein_sample_batch_pallas, B1) and its ring mode
+// (klein_sample_ring_pallas, B6), and the inner kernel of
+// babai_decode_batch_pallas (B7). Its fused Metropolis-Hastings and
+// trajectory modes (B2, B3) are imhk_tc.cu. The law is the same; the TPU
+// layout devices (bf16 split of U, CDF as a triangular matrix product,
+// (8, 128) row groups, the 8-row DMA staging of the rings) are not carried
+// over.
 //
 // What it computes, per chain, for rows i = n_pad-1 down to 0:
 //   c_i   = cs_i - sum_{j>i} U_ij y_j          (FP32 FMA on the CUDA cores)
@@ -17,13 +17,7 @@
 //   w_k   = exp(-a (off_k^2 / 2 + delta off_k)), off_k in [-W/2, W/2 - 1]
 //   idx   = #{k : cdf_k < u total} clipped to W-1, cdf a sequential sum
 //   y_i   = base + idx - W/2,  log Z_i = -a delta^2 / 2 + log(total)
-// and lw = sum_i log Z_i accumulated in double. Fused mode then accepts
-// iff log max(u, 1e-30) < lw_prop - lw, per chain, n_steps times. Trajectory
-// mode is fused mode plus a ring in device memory: after step s with
-// (s + 1) % thin == 0 the chain writes its lw to tlw[k, chain] and, when a
-// coefficient ring is given, its column to rows k n_pad .. of tx, with
-// k = (s + 1) / thin - 1. B2 and B3 are one code path (null ring pointers
-// for B2), so the ring cannot change the chain.
+// and lw = sum_i log Z_i accumulated in double.
 //
 // Ring mode (B6) is the draw kernel run n_rounds times per chain: round r
 // uses Philox step `step + r` (host uniform rows r n_pad ..) and writes its
@@ -58,13 +52,12 @@
 //
 // Bound (n = 1024, W = 16): per proposal per chain about n^2/2 = 5.2e5 FMAs
 // of coupling (1.05e6 FLOP) plus n W = 16,384 exps; at 524,288 chains that
-// is ~5.5e11 FLOP per IMHK step against 67 TFLOP/s of FP32 on the CUDA
-// cores (8.2 ms). Device-memory traffic per step: the proposal is written
-// once and each 64-row block re-reads the rows below it (~30 KB per chain,
-// ~16 GB per step), plus the accept copy of 4 KB per chain: about 5-7 ms at
-// 3.35 TB/s. So the kernel sits near the balance point of both; this
-// version aims to be right and simple, not at either roof. The trajectory
-// ring adds 4 bytes (lw) or 4 (n_pad + 1) bytes per chain and kept step.
+// is ~5.5e11 FLOP per draw against 67 TFLOP/s of FP32 on the CUDA
+// cores (8.2 ms). Device-memory traffic per draw: the draw is written once
+// and each 64-row block re-reads the rows below it (~30 KB per chain,
+// ~16 GB): about 5 ms at 3.35 TB/s. So the kernel sits near the balance
+// point of both; this version aims to be right and simple, not at either
+// roof.
 //
 // Randomness: host uniforms (tests and kernel-vs-plain checks) or
 // Philox4x32-10 with counter (chain id, row, step, tag) and key (seed lo,
@@ -124,49 +117,6 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <int W>
-__global__ void __launch_bounds__(THREADS)
-    imhk_fused_kernel(Operands op, Uniforms un, float* __restrict__ x,
-                      float* __restrict__ lw_state, float* __restrict__ acc,
-                      float* __restrict__ prop, float* __restrict__ tlw,
-                      float* __restrict__ tx, int thin, long long B,
-                      int n_steps, uint32_t step0, uint32_t chain_offset) {
-  extern __shared__ float tile[];
-  const long long chain = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (chain >= B) return;
-  const uint32_t chain_id = chain_offset + (uint32_t)chain;
-  const int n_pad = op.n_pad;
-  float lw = lw_state[chain];
-  float a = acc[chain];
-  for (int s = 0; s < n_steps; ++s) {
-    const uint32_t step = step0 + (uint32_t)s;
-    const long long row0 = (long long)s * (n_pad + ACCEPT_ROWS);
-    const float lwp = (float)propose<W>(op, prop, B, chain, chain_id,
-                                        tile + threadIdx.x, un, row0, step);
-    float u = un.get(row0 + n_pad, chain, chain_id, 0u, step, TAG_ACCEPT);
-    u = fmaxf(u, 1e-30f);
-    if (logf(u) < __fsub_rn(lwp, lw)) {
-      for (int i = 0; i < n_pad; ++i) {
-        const size_t at = (size_t)i * (size_t)B + (size_t)chain;
-        x[at] = prop[at];
-      }
-      lw = lwp;
-      a = __fadd_rn(a, 1.0f);
-    }
-    if (tlw != nullptr && (s + 1) % thin == 0) {
-      const size_t k = (size_t)((s + 1) / thin - 1);
-      tlw[k * (size_t)B + (size_t)chain] = lw;
-      if (tx != nullptr) {
-        for (int i = 0; i < n_pad; ++i)
-          tx[(k * n_pad + i) * (size_t)B + (size_t)chain] =
-              x[(size_t)i * (size_t)B + (size_t)chain];
-      }
-    }
-  }
-  lw_state[chain] = lw;
-  acc[chain] = a;
-}
-
-template <int W>
 int launch_draw(const Operands& op, const Uniforms& un, float* y, float* lw,
                 long long B, int n_rounds, uint32_t step,
                 uint32_t chain_offset, cudaStream_t stream) {
@@ -176,17 +126,6 @@ int launch_draw(const Operands& op, const Uniforms& un, float* y, float* lw,
   else
     klein_draw_kernel<W, true><<<grid_for(B), THREADS, kSmem, stream>>>(
         op, un, y, lw, B, n_rounds, step, chain_offset);
-  return (int)cudaGetLastError();
-}
-
-template <int W>
-int launch_fused(const Operands& op, const Uniforms& un, float* x, float* lw,
-                 float* acc, float* prop, float* tlw, float* tx, int thin,
-                 long long B, int n_steps, uint32_t step,
-                 uint32_t chain_offset, cudaStream_t stream) {
-  imhk_fused_kernel<W><<<grid_for(B), THREADS, kSmem, stream>>>(
-      op, un, x, lw, acc, prop, tlw, tx, thin, B, n_steps, step,
-      chain_offset);
   return (int)cudaGetLastError();
 }
 
@@ -234,30 +173,6 @@ int babai_decode_launch(const float* U, const float* UT, const float* ct,
   babai_kernel<<<grid_for(B), THREADS, kSmem,
                  static_cast<cudaStream_t>(stream)>>>(U, UT, ct, y, n_pad, B);
   return (int)cudaGetLastError();
-}
-
-// B2 (tlw null) and B3: n_steps fused IMHK steps; x (n_pad, B), lw (B,),
-// acc (B,) in place, prop (n_pad, B) scratch. unif: (n_steps * (n_pad + 8),
-// B) or null. B3 writes lw every thin-th step to tlw (n_steps / thin, B)
-// and, when tx is not null, the state to tx (n_steps / thin * n_pad, B).
-int imhk_trajectory_launch(const float* U, const float* UT, const float* cs,
-                           const float* isg, const float* unif, float* x,
-                           float* lw, float* acc, float* prop, float* tlw,
-                           float* tx, int thin, int n_pad, long long B,
-                           int window, int n_steps, uint32_t seed_lo,
-                           uint32_t seed_hi, uint32_t step,
-                           uint32_t chain_offset, void* stream) {
-  if (n_pad <= 0 || n_pad % RB != 0 || B <= 0 || window <= 0 ||
-      n_steps <= 0 || thin <= 0 || (tx != nullptr && tlw == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const Operands op{U, UT, cs, isg, n_pad, window};
-  const Uniforms un{unif, B, seed_lo, seed_hi};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CALL(W)                                                             \
-  launch_fused<W>(op, un, x, lw, acc, prop, tlw, tx, thin, B, n_steps, step, \
-                  chain_offset, st)
-  KLEIN_BY_WINDOW(window, CALL)
-#undef CALL
 }
 
 const char* klein_error_string(int code) {

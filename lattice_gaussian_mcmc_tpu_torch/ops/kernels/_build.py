@@ -4,7 +4,10 @@ Each source in `csrc/` compiles to `_build/lib<name>-<hash>.so` inside the
 package (the hash covers the source, the shared headers `csrc/*.cuh` and
 the flags, so an edited source rebuilds), with a plain C interface and no
 PyTorch headers. Builds happen in the process that first launches a
-kernel, never at import.
+kernel, never at import. `edited_sources` and `load(name, csrc)` build a
+deliberately changed copy of a source beside the real one, for the tools
+that check or time such copies (`smoke_mutants.py`,
+`tools/imhk_split.py`).
 """
 
 from __future__ import annotations
@@ -41,21 +44,38 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def library_path(name: str) -> str:
+def library_path(name: str, csrc: str = CSRC) -> str:
     """The library's path; its hash covers the source, the shared headers
-    of csrc/ and the flags."""
+    of the source directory and the flags."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    headers = sorted(f for f in os.listdir(csrc) if f.endswith(".cuh"))
     for fname in [f"{name}.cu", *headers]:
-        with open(os.path.join(CSRC, fname), "rb") as f:
+        with open(os.path.join(csrc, fname), "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu unless its library exists; return its path."""
-    build_all((name,))
-    return library_path(name)
+def build(name: str, csrc: str = CSRC) -> str:
+    """Compile <csrc>/<name>.cu unless its library exists; return its
+    path."""
+    build_all((name,), csrc)
+    return library_path(name, csrc)
+
+
+def edited_sources(dest: str, fname: str, edits) -> str:
+    """Copy csrc/ to `dest` and make the (old, new) `edits` in its file
+    `fname`, each old string found there exactly once; return `dest`."""
+    shutil.copytree(CSRC, dest, dirs_exist_ok=True)
+    path = os.path.join(dest, fname)
+    with open(path) as f:
+        src = f.read()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise ValueError(f"edit site not found once in {fname}: {old!r}")
+        src = src.replace(old, new)
+    with open(path, "w") as f:
+        f.write(src)
+    return dest
 
 
 _P, _I, _LL, _U32, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -66,12 +86,14 @@ _SIGNATURES = {
     "klein": {
         "klein_draw_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I,
                               _U32, _U32, _U32, _U32, _P],
-        "imhk_trajectory_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _P, _I, _I, _LL, _I, _I, _U32, _U32,
-                                   _U32, _U32, _P],
         "klein_ring_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
                               _U32, _U32, _U32, _U32, _P],
         "babai_decode_launch": [_P, _P, _P, _P, _I, _LL, _P],
+    },
+    "imhk_tc": {
+        "imhk_tc_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _LL, _I, _I, _U32, _U32, _U32, _U32, _P],
+        "imhk_tc_info": [_I, _I, _P],
     },
     "smk": {
         "smk_steps_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -87,20 +109,20 @@ _SIGNATURES = {
 }
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The kernel library csrc/<name>.cu, built at first use, with its C
-    signatures declared."""
-    lib = _LIBS.get(name)
+def load(name: str, csrc: str = CSRC) -> ctypes.CDLL:
+    """The kernel library <csrc>/<name>.cu (csrc/ of the package unless
+    given), built at first use, with its C signatures declared."""
+    lib = _LIBS.get((name, csrc))
     if lib is not None:
         return lib
-    lib = ctypes.CDLL(build(name))
+    lib = ctypes.CDLL(build(name, csrc))
     for fn, argtypes in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = _I
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [_I]
     err.restype = ctypes.c_char_p
-    _LIBS[name] = lib
+    _LIBS[(name, csrc)] = lib
     return lib
 
 
@@ -130,16 +152,16 @@ def raise_on(name: str, rc: int, what: str):
         raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
 
 
-def build_all(names=tuple(_SIGNATURES)) -> dict:
+def build_all(names=tuple(_SIGNATURES), csrc: str = CSRC) -> dict:
     """Compile the named libraries at once, one nvcc process per source, all
     started together; returns {name: seconds} for those built here."""
-    todo = [n for n in names if not os.path.exists(library_path(n))]
+    todo = [n for n in names if not os.path.exists(library_path(n, csrc))]
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for n in todo:
-        tmp = f"{library_path(n)}.{os.getpid()}.tmp"
+        tmp = f"{library_path(n, csrc)}.{os.getpid()}.tmp"
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC, f"{n}.cu")]
+               os.path.join(csrc, f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.PIPE, text=True),
                     tmp, time.perf_counter())
@@ -149,7 +171,7 @@ def build_all(names=tuple(_SIGNATURES)) -> dict:
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {n}.cu:\n{err[-4000:]}")
             continue
-        os.replace(tmp, library_path(n))
+        os.replace(tmp, library_path(n, csrc))
         BUILD_INFO[n] = {"seconds": time.perf_counter() - t0,
                          "ptxas": err[-4000:]}
     if failed:

@@ -1,7 +1,8 @@
 """Klein draw (B1) and its ring (B6), fused IMHK steps (B2), the IMHK
 trajectory (B3) and batched Babai decoding (B7) on Hopper: wrappers of the
-CUDA kernels in `csrc/klein.cu`, their plain PyTorch versions, launch
-counts, and the operand preparation.
+CUDA kernels in `csrc/klein.cu` (B1, B6, B7) and `csrc/imhk_tc.cu` (B2,
+B3), their plain PyTorch versions, launch counts, and the operand
+preparation.
 
 Replaces the draw, ring, fused-MH and trajectory modes of the Pallas kernel
 `lattice_gaussian_mcmc_tpu/ops/kernels/klein_pallas.py` `_kernel`
@@ -15,6 +16,14 @@ up to 128 (padded rows: U = I, sigma = 1e-6, cs = 0, so they draw 0 with
 log Z = 0). The chain state is the recentered integer vector y = x - k with
 k = round(cs); the kernel's centre absorbs the shift,
 cs_eff = cs - U k, computed once per call outside the kernel.
+
+B2 and B3 form the coupling on the tensor cores from an exact bf16 split of
+the float32 U (U = U1 + U2 + U3, `split_bf16`), packed in the mma
+A-fragment order (`tc_fragments`). Their products are exact only while the
+proposal's recentred coefficients are: |y| <= 256 (hazard C8). The kernel
+counts the draws beyond that into an `exact_guard`; the wrapper, or the
+entry point that passed it one, raises before it returns. They keep the
+proposal in shared memory, which bounds n_pad by `IMHK_TC_MAX_N_PAD`.
 
 Uniforms. Either the caller passes them (draw mode: row i = coordinate i,
 shape (n_pad, B); ring mode: n_pad rows per round, round r in rows
@@ -91,6 +100,56 @@ class KleinOperands:
         return self.U.device
 
 
+def split_bf16(U: torch.Tensor):
+    """(U1, U2, U3) in bfloat16 with U1 + U2 + U3 = U: U1 = bf16(U),
+    U2 = bf16(U - U1), U3 = bf16(U - U1 - U2), the residuals formed in
+    float64. For a float32 U the sum is exact (24 bits in three 8-bit
+    parts)."""
+    r = U.to(torch.float64)
+    parts = []
+    for _ in range(3):
+        p = r.to(torch.bfloat16)
+        parts.append(p)
+        r = r - p.to(torch.float64)
+    return tuple(parts)
+
+
+def _fragment_index(device):
+    """Rows and columns (32, 8) of a 16 x 16 tile that lane l holds as
+    registers a0..a7 of mma.sync m16n8k16's A operand: g = l / 4,
+    t = l % 4, (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1), then the same
+    at columns + 8."""
+    lane = torch.arange(32, device=device)
+    g, t = lane // 4, 2 * (lane % 4)
+    rows = torch.stack([g, g, g + 8, g + 8] * 2, dim=1)
+    cols = torch.stack([t, t + 1, t, t + 1, t + 8, t + 9, t + 8, t + 9],
+                       dim=1)
+    return rows, cols
+
+
+def fragment_pack(parts) -> torch.Tensor:
+    """(n_pad, n_pad) bf16 parts -> (n_pad/16, n_pad/16, len(parts), 32, 8):
+    entry [mt, kt, p, lane] is lane's A fragment of part p's tile (rows
+    16 mt .., columns 16 kt ..), one 16-byte load per lane."""
+    n_pad = parts[0].shape[0]
+    mt = n_pad // 16
+    rows, cols = _fragment_index(parts[0].device)
+    tiles = [p.reshape(mt, 16, mt, 16).permute(0, 2, 1, 3)[:, :, rows, cols]
+             for p in parts]
+    return torch.stack(tiles, dim=2).contiguous()
+
+
+def tc_fragments(ops: KleinOperands) -> torch.Tensor:
+    """B2/B3's coupling operand, (n_pad/16, n_pad/16, 3, 32, 8) bfloat16:
+    `fragment_pack(split_bf16(ops.U))`, built at the first call and kept on
+    `ops` (no other kernel reads it)."""
+    frag = getattr(ops, "_tc_fragments", None)
+    if frag is None:
+        frag = fragment_pack(split_bf16(ops.U))
+        ops._tc_fragments = frag
+    return frag
+
+
 def kernel_operands(pre: KleinPrecomp, dtype=torch.float32) -> KleinOperands:
     """Pad to 128 rows and recenter: k = round(cs) (half to even),
     cs_eff = cs - U k in float64 then cast, isg = 1 / sigma_i."""
@@ -148,11 +207,13 @@ def _draw_row_plain(c, isg, u, window, offs, offs_half):
     return z, m + torch.log(run)
 
 
-def _propose_plain(ops: KleinOperands, rows, out: torch.Tensor) -> torch.Tensor:
+def _propose_plain(ops: KleinOperands, rows, out: torch.Tensor,
+                   centres=None) -> torch.Tensor:
     """One Klein draw into out (n_pad, B): backward substitution over 64-row
     blocks (cross-block product, then rows in descending order); rows(lo, hi)
     gives the uniforms of coordinates lo..hi-1. Returns lw (B,), summed in
-    float64.
+    float64. With `centres` (n_pad, B), row i's conditional centre goes to
+    centres[i].
 
     The padded rows i >= n are left at the 0 that `out` holds: in the
     kernel their centre is exactly 0 and their width 1e-6, so they draw 0
@@ -172,6 +233,8 @@ def _propose_plain(ops: KleinOperands, rows, out: torch.Tensor) -> torch.Tensor:
         for r in range(min(ROW_BLOCK, ops.n - lo) - 1, -1, -1):
             i = lo + r
             c = ops.cs[i] - t[r] - ops.U[i, i + 1:hi] @ out[i + 1:hi]
+            if centres is not None:
+                centres[i] = c
             z, logz = _draw_row_plain(c, ops.isg[i], u[r], ops.window,
                                       offs, offs_half)
             out[i] = z
@@ -227,16 +290,19 @@ def ring_coeffs(ops: KleinOperands, ring: torch.Tensor) -> torch.Tensor:
 
 def imhk_fused_plain(ops: KleinOperands, x, lw, acc, n_steps: int, *,
                      seed: int = 0, step: int = 0, chain_offset: int = 0,
-                     uniforms=None, tlw=None, tx=None, thin: int = 1):
+                     uniforms=None, tlw=None, tx=None, thin: int = 1,
+                     centres=None, proposal=None):
     """Plain version of B2: n_steps IMHK steps updating the chain-minor
     state x (n_pad, B), lw (B,) and the acceptance count acc (B,) in place.
     Step s uses Philox step `step + s`. With a ring (B3's plain version,
     `imhk_trajectory_plain`), after step s with (s + 1) % thin == 0 the lw
     goes to tlw[(s + 1) / thin - 1] and, when tx is given, the state to
-    that keep's n_pad rows of tx. Returns (x, lw, acc)."""
+    that keep's n_pad rows of tx. With `centres` and `proposal` (n_pad, B),
+    the last step's conditional centres and proposal go there. Returns
+    (x, lw, acc)."""
     n_pad, B = x.shape
     dt, dev = ops.U.dtype, ops.device
-    prop = torch.zeros_like(x)
+    prop = torch.zeros_like(x) if proposal is None else proposal
     rows_per_step = n_pad + ACCEPT_ROWS
     for s in range(n_steps):
         rows = _uniform_rows(ops, B, seed, step + s, chain_offset, uniforms,
@@ -247,7 +313,7 @@ def imhk_fused_plain(ops: KleinOperands, x, lw, acc, n_steps: int, *,
             ua = philox_uniform(seed, chain_ids(B, chain_offset, dev),
                                 step + s, torch.zeros(1, device=dev),
                                 TAG_ACCEPT)[0]
-        lwp = _propose_plain(ops, rows, prop)
+        lwp = _propose_plain(ops, rows, prop, centres)
         ua = torch.clamp(ua.to(dt), min=1e-30)
         accept = torch.log(ua) < (lwp - lw)
         x.copy_(torch.where(accept[None, :], prop, x))
@@ -484,57 +550,101 @@ def babai_decode(ops: BabaiOperands, ct: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _fused_launch(ops: KleinOperands, x, lw, acc, n_steps: int, seed: int,
-                  step: int, chain_offset: int, uniforms, tlw=None, tx=None,
-                  thin: int = 1):
+EXACT_Y = 256   # |y| up to which the bf16 proposal is exact (hazard C8)
+# the largest n_pad whose proposal tile fits one block's shared memory:
+# imhk_tc.cu's smem_bytes, 64 n_pad + 9,344 bytes, within the 227 KB
+# (232,448 bytes) a block of sm_90 may take, rounded down to a multiple of 128
+IMHK_TC_MAX_N_PAD = 3456
+
+
+def exact_guard(device) -> torch.Tensor:
+    """Hazard C8's device counters for one entry-point call, (2, 2) int32:
+    row 0 for its B2 launches, row 1 for its B3 launches, each [draws with
+    |y| > 256, largest |y| drawn]. Pass it to every launch of the call, then
+    read it once with `check_exact` before the call returns."""
+    return torch.zeros(2, 2, dtype=torch.int32, device=device)
+
+
+def check_exact(guard: torch.Tensor, what: str):
+    """Read an `exact_guard` (one synchronisation): keep the largest |y| in
+    `imhk_fused.max_abs_y` / `imhk_trajectory.max_abs_y`, and raise if any
+    draw left the range where the bf16 coupling is exact."""
+    (bad2, max2), (bad3, max3) = guard.tolist()
+    imhk_fused.max_abs_y = max(imhk_fused.max_abs_y, max2)
+    imhk_trajectory.max_abs_y = max(imhk_trajectory.max_abs_y, max3)
+    if bad2 + bad3:
+        raise RuntimeError(
+            f"{what}: {bad2 + bad3} drawn coefficients have |y| > {EXACT_Y}, "
+            "where the bf16 coupling is no longer exact (hazard C8)")
+
+
+def _imhk_tc_launch(ops: KleinOperands, x, lw, acc, n_steps: int, seed: int,
+                    step: int, chain_offset: int, uniforms, what: str,
+                    bad: torch.Tensor, tlw=None, tx=None, thin: int = 1,
+                    dbg=None):
+    """Launch imhk_tc.cu's kernel on x (n_pad, B), lw, acc in place, its C8
+    counters into bad (one row of an `exact_guard`); raise on a launch
+    error. Does not wait for the kernel."""
     _check_operands(ops)
+    if ops.n_pad > IMHK_TC_MAX_N_PAD:
+        raise ValueError(
+            f"{what}: n_pad {ops.n_pad} is above {IMHK_TC_MAX_N_PAD}, the "
+            "largest whose proposal tile fits a block's shared memory")
     B = x.shape[1]
     check_cuda("x", x, (ops.n_pad, B))
     check_cuda("lw", lw, (B,))
     check_cuda("acc", acc, (B,))
+    check_cuda("bad", bad, (2,), torch.int32)
     if uniforms is not None:
         check_cuda("uniforms", uniforms,
-                    (n_steps * (ops.n_pad + ACCEPT_ROWS), B))
-    lib = load("klein")
-    prop = torch.empty_like(x)
+                   (n_steps * (ops.n_pad + ACCEPT_ROWS), B))
+    lib = load("imhk_tc")
     k0, k1 = seed_key(seed)
-    rc = lib.imhk_trajectory_launch(
-        ptr(ops.U), ptr(ops.UT), ptr(ops.cs), ptr(ops.isg),
+    rc = lib.imhk_tc_launch(
+        ptr(tc_fragments(ops)), ptr(ops.UT), ptr(ops.cs), ptr(ops.isg),
         ptr(uniforms) if uniforms is not None else None,
-        ptr(x), ptr(lw), ptr(acc), ptr(prop),
+        ptr(x), ptr(lw), ptr(acc),
         ptr(tlw) if tlw is not None else None,
-        ptr(tx) if tx is not None else None, thin, ops.n_pad, B,
+        ptr(tx) if tx is not None else None,
+        ptr(dbg) if dbg is not None else None, ptr(bad), thin, ops.n_pad, B,
         ops.window, n_steps, k0, k1, step, chain_offset,
         ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
-    raise_on("klein", rc,
-             "imhk_trajectory" if tlw is not None else "imhk_fused")
+    raise_on("imhk_tc", rc, what)
 
 
 def imhk_fused(ops: KleinOperands, x, lw, acc, n_steps: int, *,
                seed: int = 0, step: int = 0, chain_offset: int = 0,
-               uniforms=None):
+               uniforms=None, guard=None):
     """B2: n_steps fused IMHK steps in one launch, updating x (n_pad, B),
     lw (B,) and acc (B,) (float32 acceptance counts) in place. The proposal
-    goes to its own scratch. CPU operands run `imhk_fused_plain`."""
+    stays in the kernel's shared memory. With `guard` (an `exact_guard`)
+    the caller reads the C8 counters with `check_exact`; without one the
+    wrapper reads its own after the launch. CPU operands run
+    `imhk_fused_plain`."""
     if ops.device.type == "cpu":
         return imhk_fused_plain(ops, x, lw, acc, n_steps, seed=seed,
                                 step=step, chain_offset=chain_offset,
                                 uniforms=uniforms)
-    _fused_launch(ops, x, lw, acc, n_steps, seed, step, chain_offset,
-                  uniforms)
+    own = guard is None
+    if own:
+        guard = exact_guard(ops.device)
+    _imhk_tc_launch(ops, x, lw, acc, n_steps, seed, step, chain_offset,
+                    uniforms, "imhk_fused", guard[0])
     imhk_fused.launches += 1
+    if own:
+        check_exact(guard, "imhk_fused")
     return x, lw, acc
 
 
 def imhk_trajectory(ops: KleinOperands, x, lw, acc, n_keep: int,
                     thin: int = 1, *, seed: int = 0, step: int = 0,
                     chain_offset: int = 0, uniforms=None,
-                    coeffs: bool = False):
+                    coeffs: bool = False, guard=None):
     """B3: n_keep * thin fused IMHK steps in one launch (B2, state in
     place), writing the lw of every thin-th state to a ring tlw
     (n_keep, B) and, with `coeffs`, the state to tx (n_keep * n_pad, B).
-    Returns (x, lw, acc, tx or None, tlw). CPU operands run
-    `imhk_trajectory_plain`."""
+    Returns (x, lw, acc, tx or None, tlw). `guard` as for `imhk_fused`.
+    CPU operands run `imhk_trajectory_plain`."""
     if ops.device.type == "cpu":
         return imhk_trajectory_plain(ops, x, lw, acc, n_keep, thin,
                                      seed=seed, step=step,
@@ -542,11 +652,60 @@ def imhk_trajectory(ops: KleinOperands, x, lw, acc, n_keep: int,
                                      uniforms=uniforms, coeffs=coeffs)
     if n_keep < 1 or thin < 1:
         raise ValueError(f"n_keep {n_keep} and thin {thin} must be >= 1")
+    own = guard is None
+    if own:
+        guard = exact_guard(ops.device)
     tlw, tx = _trajectory_ring(x, n_keep, coeffs)
-    _fused_launch(ops, x, lw, acc, n_keep * thin, seed, step, chain_offset,
-                  uniforms, tlw=tlw, tx=tx, thin=thin)
+    _imhk_tc_launch(ops, x, lw, acc, n_keep * thin, seed, step, chain_offset,
+                    uniforms, "imhk_trajectory", guard[1], tlw=tlw, tx=tx,
+                    thin=thin)
     imhk_trajectory.launches += 1
+    if own:
+        check_exact(guard, "imhk_trajectory")
     return x, lw, acc, tx, tlw
+
+
+def imhk_centres_plain(ops: KleinOperands, x, lw, *, seed: int = 0,
+                       step: int = 0, chain_offset: int = 0):
+    """Plain version of `imhk_centres`: one IMHK step (B2's plain version,
+    state in place) that also returns its proposal's conditional centres
+    and the proposal, each (n_pad, B)."""
+    centres, prop = torch.zeros_like(x), torch.zeros_like(x)
+    imhk_fused_plain(ops, x, lw, torch.zeros_like(lw), 1, seed=seed,
+                     step=step, chain_offset=chain_offset, centres=centres,
+                     proposal=prop)
+    return centres, prop
+
+
+def imhk_centres(ops: KleinOperands, x, lw, *, seed: int = 0,
+                 step: int = 0, chain_offset: int = 0):
+    """B2's debug instantiation: one fused IMHK step (state x, lw in place)
+    that also writes its proposal's conditional centres c_i, as the kernel
+    forms them, and the proposal. Returns (centres, proposal), each
+    (n_pad, B), recentred. For holding the kernel's own centres to float64;
+    not a launch of the main path. CPU operands run
+    `imhk_centres_plain`."""
+    if ops.device.type == "cpu":
+        return imhk_centres_plain(ops, x, lw, seed=seed, step=step,
+                                  chain_offset=chain_offset)
+    dbg = torch.empty(2 * ops.n_pad, x.shape[1], dtype=torch.float32,
+                      device=ops.device)
+    guard = exact_guard(ops.device)
+    _imhk_tc_launch(ops, x, lw, torch.zeros_like(lw), 1, seed, step,
+                    chain_offset, None, "imhk_centres", guard[0], dbg=dbg)
+    check_exact(guard, "imhk_centres")
+    return dbg[:ops.n_pad], dbg[ops.n_pad:]
+
+
+def imhk_tc_resources(n_pad: int, window: int) -> dict:
+    """B2/B3's kernel for `window` at n_pad on the current card: registers
+    and local (spill) bytes a thread, dynamic shared memory and threads a
+    block, and blocks resident per SM."""
+    out = (ctypes.c_int * 5)()
+    raise_on("imhk_tc", load("imhk_tc").imhk_tc_info(n_pad, window, out),
+             "imhk_tc_info")
+    return dict(zip(("registers", "local_bytes", "shared_bytes",
+                     "blocks_per_sm", "threads"), list(out)))
 
 
 def reset_launch_counts():
@@ -555,6 +714,9 @@ def reset_launch_counts():
     babai_decode.launches = 0
     imhk_fused.launches = 0
     imhk_trajectory.launches = 0
+    # largest |y| the B2 / B3 kernels drew since the reset (hazard C8)
+    imhk_fused.max_abs_y = 0
+    imhk_trajectory.max_abs_y = 0
 
 
 reset_launch_counts()

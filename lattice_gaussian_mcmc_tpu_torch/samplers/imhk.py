@@ -248,14 +248,16 @@ class IMHKSampler:
             self._ops = klein_cuda.kernel_operands(self.pre)
         return self._ops
 
-    def _advance(self, x, lw, acc, n_steps: int, seed: int, step: int):
+    def _advance(self, x, lw, acc, n_steps: int, seed: int, step: int,
+                 guard):
         """n_steps fused IMHK steps (B2), STEPS_PER_LAUNCH per launch,
-        Philox steps step .. step + n_steps - 1."""
+        Philox steps step .. step + n_steps - 1, hazard C8's counters into
+        `guard`."""
         done = 0
         while done < n_steps:
             k = min(STEPS_PER_LAUNCH, n_steps - done)
             klein_cuda.imhk_fused(self.operands, x, lw, acc, k, seed=seed,
-                                  step=step + done)
+                                  step=step + done, guard=guard)
             done += k
 
     def _output(self, coeffs, return_coeffs: bool):
@@ -279,13 +281,15 @@ class IMHKSampler:
         ops = self.operands
         x, lw = klein_cuda.klein_draw(ops, n_chains, seed=seed, step=0)
         acc = torch.zeros_like(lw)
-        self._advance(x, lw, acc, self.burn_in, seed, 1)
-        acc_burn = float(acc.sum())
+        guard = klein_cuda.exact_guard(self.device)
+        self._advance(x, lw, acc, self.burn_in, seed, 1, guard)
+        acc_burn = acc.sum()    # read after the trajectory, not between
         x, lw, acc, tx, _ = klein_cuda.imhk_trajectory(
             ops, x, lw, acc, num_samples, thin, seed=seed,
-            step=1 + self.burn_in, coeffs=True)
+            step=1 + self.burn_in, coeffs=True, guard=guard)
+        klein_cuda.check_exact(guard, "IMHKSampler.sample")
         n_steps = num_samples * thin
-        self.acceptance_rate = ((float(acc.sum()) - acc_burn)
+        self.acceptance_rate = ((float(acc.sum()) - float(acc_burn))
                                 / (n_chains * n_steps))
         self._last_state = ChainState(
             coeffs=klein_cuda.from_kernel_layout(ops, x), log_w=lw,
@@ -308,7 +312,9 @@ class IMHKSampler:
         ops = self.operands
         x, lw = klein_cuda.klein_draw(ops, num_samples, seed=seed, step=0)
         acc = torch.zeros_like(lw)
-        self._advance(x, lw, acc, n_steps, seed, 1)
+        guard = klein_cuda.exact_guard(self.device)
+        self._advance(x, lw, acc, n_steps, seed, 1, guard)
+        klein_cuda.check_exact(guard, "IMHKSampler.sample_iid")
         self.acceptance_rate = float(acc.sum()) / (num_samples * n_steps)
         self._last_state = None
         return self._output(klein_cuda.from_kernel_layout(ops, x),

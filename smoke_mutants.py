@@ -19,6 +19,10 @@ import subprocess
 import sys
 import tempfile
 
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels._build import (
+    edited_sources,
+)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join("lattice_gaussian_mcmc_tpu_torch", "csrc")
 
@@ -30,10 +34,14 @@ def _tf32(v, c):
 
 MUTANTS = {
     # B2 accepts every proposal
-    "always_accept": ("klein.cu", "if (logf(u) < __fsub_rn(lwp, lw)) {",
-                      "if (true) {"),
-    # the Klein coupling (B1-B4) reads U with TF32's 10-bit mantissa
-    # (hazard C2)
+    "always_accept": ("imhk_tc.cu",
+                      "const bool take = logf(u) < __fsub_rn(lwpf, lw);",
+                      "const bool take = true;"),
+    # B2/B3's coupling on U1 alone: one bf16 pass (hazard C2)
+    "b2_hi_only": ("imhk_tc.cu", "constexpr int PASSES = PARTS;",
+                   "constexpr int PASSES = 1;"),
+    # the Klein coupling of B1, B4, B6 and B7 reads U with TF32's 10-bit
+    # mantissa (hazard C2)
     "tf32_coupling": ("klein_common.cuh", "const float4 u = __ldg(u4 + q);",
                       "float4 u = __ldg(u4 + q); "
                       + " ".join(_tf32("u", c) for c in "xyzw")),
@@ -62,13 +70,7 @@ def run_mutant(name, fname, old, new):
         root = os.path.join(tmp, "repo")
         shutil.copytree(REPO, root, ignore=shutil.ignore_patterns(
             ".git", "_build", "chiprun_out", "__pycache__"))
-        path = os.path.join(root, CSRC, fname)
-        with open(path) as f:
-            src = f.read()
-        if src.count(old) != 1:
-            raise SystemExit(f"{name}: mutation site not found in {fname}")
-        with open(path, "w") as f:
-            f.write(src.replace(old, new))
+        edited_sources(os.path.join(root, CSRC), fname, [(old, new)])
         r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root,
                            capture_output=True, text=True, timeout=900)
     phase = None

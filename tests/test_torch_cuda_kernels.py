@@ -1,4 +1,5 @@
-"""The CUDA kernels B1 (Klein draw), B2 (fused IMHK), B3 (IMHK trajectory),
+"""The CUDA kernels B1 (Klein draw), B2 (fused IMHK), B3 (IMHK trajectory;
+B2 and B3 from `csrc/imhk_tc.cu`),
 B4 (fused SMK), B5 (Peikert), B6 (Klein ring), B7 (Babai) and B8 (Z^n)
 against their plain PyTorch versions on the card, and the entry points that
 must reach them. These need a CUDA device and skip without
@@ -94,6 +95,94 @@ def test_b2_matches_plain(ops):
     _agree(x, xp, l, lp)
     assert (a != ap).float().mean().item() <= MAX_CHAINS_DIFFERING
     assert 0 < a.sum().item() < 2 * B
+
+
+@pytest.mark.cuda
+def test_b2_matches_plain_decisions_2d_hard_regime():
+    """Decision by decision where IMHK rejects (~1% of proposals), on the
+    caller's uniforms: every chain that agrees in state made the plain
+    version's decisions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lat = lattice_from_basis(np.array([[1.0, 0.5], [0.0, 1.0]]),
+                             device="cuda")
+    ops = IMHKSampler(lat, 0.35, burn_in=12, device="cuda").operands
+    chains, steps = 16_384, 4
+    y, lw = klein_cuda.klein_draw(ops, chains, seed=8)
+    u = torch.rand(steps * (ops.n_pad + klein_cuda.ACCEPT_ROWS), chains,
+                   device="cuda")
+    x, l, a = y.clone(), lw.clone(), torch.zeros_like(lw)
+    xp, lp, ap = y.clone(), lw.clone(), torch.zeros_like(lw)
+    klein_cuda.imhk_fused(ops, x, l, a, steps, uniforms=u)
+    klein_cuda.imhk_fused_plain(ops, xp, lp, ap, steps, uniforms=u)
+    same = (x[:2] == xp[:2]).all(dim=0)
+    assert 1 - same.float().mean().item() <= MAX_CHAINS_DIFFERING
+    assert torch.equal(a[same], ap[same])
+    torch.testing.assert_close(l[same], lp[same], atol=LW_ATOL, rtol=0)
+    assert 0 < steps * chains - a.sum().item() < 0.05 * steps * chains
+
+
+@pytest.mark.cuda
+def test_b2_b3_raise_beyond_the_exact_range():
+    """Hazard C8: a proposal coefficient with |y| > 256 is not exact in
+    bf16, so the wrapper raises; near 200 it runs and reports the range."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lat = lattice_from_basis(np.array([[1.0, 0.5], [0.0, 1.0]]),
+                             device="cuda")
+    ops = klein_cuda.kernel_operands(klein_precompute(lat, 0.35))
+    chains = 256
+    for centre, raises in ((200.0, False), (300.0, True)):
+        ops.cs[0] = centre       # the recentred centre of row 0
+        x = torch.zeros(ops.n_pad, chains, device="cuda")
+        lw = torch.zeros(chains, device="cuda")
+        acc = torch.zeros(chains, device="cuda")
+        klein_cuda.reset_launch_counts()
+        if raises:
+            with pytest.raises(RuntimeError, match="C8"):
+                klein_cuda.imhk_fused(ops, x, lw, acc, 1, seed=1)
+            with pytest.raises(RuntimeError, match="C8"):
+                klein_cuda.imhk_trajectory(ops, x, lw, acc, 2, seed=1)
+        else:
+            klein_cuda.imhk_fused(ops, x, lw, acc, 1, seed=1)
+            assert 195 <= klein_cuda.imhk_fused.max_abs_y <= 205
+
+
+@pytest.mark.cuda
+def test_b2_b3_raise_above_their_largest_n_pad():
+    """The proposal tile bounds n_pad; above IMHK_TC_MAX_N_PAD the wrapper
+    names the limit before it launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n_pad = klein_cuda.IMHK_TC_MAX_N_PAD + klein_cuda.BLOCK
+    eye = torch.eye(n_pad, device="cuda")
+    zeros = torch.zeros(n_pad, device="cuda")
+    ops = klein_cuda.KleinOperands(U=eye, UT=eye, cs=zeros, isg=zeros + 1,
+                                   shift=zeros, n=n_pad, window=16)
+    x = torch.zeros(n_pad, 32, device="cuda")
+    lw, acc = torch.zeros(32, device="cuda"), torch.zeros(32, device="cuda")
+    klein_cuda.reset_launch_counts()
+    with pytest.raises(ValueError, match=str(klein_cuda.IMHK_TC_MAX_N_PAD)):
+        klein_cuda.imhk_fused(ops, x, lw, acc, 1, seed=1)
+    with pytest.raises(ValueError, match=str(klein_cuda.IMHK_TC_MAX_N_PAD)):
+        klein_cuda.imhk_trajectory(ops, x, lw, acc, 1, seed=1)
+    assert klein_cuda.imhk_fused.launches == 0
+
+
+@pytest.mark.cuda
+def test_sample_reads_the_c8_guard_once():
+    """The entry points pass one guard to every launch and raise from it
+    before they return."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lat = lattice_from_basis(np.array([[1.0, 0.5], [0.0, 1.0]]),
+                             device="cuda")
+    s = IMHKSampler(lat, 0.35, burn_in=3, device="cuda")
+    s.operands.cs[0] = 300.0     # every proposal's row 0 beyond |y| = 256
+    with pytest.raises(RuntimeError, match="IMHKSampler.sample_iid.*C8"):
+        s.sample_iid(1, 256, return_coeffs=True)
+    with pytest.raises(RuntimeError, match="IMHKSampler.sample.*C8"):
+        s.sample(1, 2, n_chains=256, return_coeffs=True)
 
 
 @pytest.mark.cuda
