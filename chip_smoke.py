@@ -16,10 +16,13 @@ decoding. Phases, one JSON line each:
                    B2 (fused IMHK) with the f32 conditional-centre error
                    against float64, of the plain version's centres and of
                    the kernel's own (its debug instantiation), and B2 in
-                   the 2D hard regime, where it rejects; B3 (IMHK trajectory) bit for bit against B2 and
-                   against its plain version; B4 (fused SMK) at the SMK
-                   row's operands and decision by decision in the 2D hard
-                   regime; B5 (Peikert) at the Peikert row's operands; B6
+                   the 2D hard regime, where it rejects; B3 (IMHK
+                   trajectory) bit for bit against B2 and against its
+                   plain version; B4 (fused SMK) at the SMK row's operands,
+                   its own forward and reverse centres against float64,
+                   and decision by decision in the 2D hard regime; B5
+                   (Peikert) at the Peikert row's operands, its own centres
+                   against float64; B6
                    (Klein ring) round 0 and a one-round ring bit for bit
                    against B1, every round against its plain version; B7
                    (Babai) against the float64 nearest plane and, at
@@ -35,9 +38,11 @@ decoding. Phases, one JSON line each:
                    of 48 log-weights, pooled ACF and Sokal tau_int, a timed
                    64-step B2 run: samples/s, acceptance, ESS/s
   smk              SMKSampler at the same sigma, proposal 0.45 sigma,
-                   131,072 chains, 32 steps: samples/s, acceptance
+                   131,072 chains, 32 steps: samples/s, acceptance, B4's
+                   design floor
   peikert          PeikertSampler at 1.05 r s1(B), 65,536 chains x 8
-                   rounds in one launch: samples/s, second moment
+                   rounds in one launch: samples/s, second moment, B5's
+                   design floor
   suite            run_benchmarks at dimensions 256 and 1024 (klein: B6,
                    imhk: B1 + B2, direct: B8, peikert: B5; 65,536 chains,
                    1 warm-up, 3 timed runs) and the direct row at 16 and
@@ -76,9 +81,11 @@ FALCON_SIGMA = 165.7
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 on the CUDA cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
-# B2/B3's design floor: dense bf16 on the tensor cores, and the special
-# function units' exps (16 a clock per SM, 132 SMs, 1.98 GHz boost clock)
+# B2-B5's design floors: dense bf16 and TF32 on the tensor cores, and the
+# special function units' exps (16 a clock per SM, 132 SMs, 1.98 GHz boost
+# clock)
 PEAK_BF16_S = 989e12
+PEAK_TF32_S = 495e12
 PEAK_SFU_S = 16 * 132 * 1.98e9
 # Gates, kernel against its plain version on the same uniforms. The two sum
 # the coupling in another order, so a CDF-boundary tie now and then flips a
@@ -105,6 +112,11 @@ MAX_REJECTION_GAP = 0.1      # |rejections - plain's| / plain's, 64 steps
 # another order of the coupling sums (rounding only)
 MAX_LW_ERR = 1e-3
 MAX_CENTRE_ERR = 1e-3        # max_i |c_f32 - c_f64| / sigma_i
+# B5's centres c = c' - L2 z against float64, max |c - c_f64| / r: at the
+# Peikert row's operands the plain float32 product reads ~6e-4, the Pallas
+# kernel's two-part bf16 split ~7e-3 (tests/test_torch_peikert_tc.py,
+# ROADMAP C9)
+MAX_PEIKERT_CENTRE_ERR = 2e-3
 MAX_TVD = 0.02
 HARD_SIGMA = 0.35
 HARD_ACCEPTANCE = 0.9904     # enumerated stationary acceptance, 2D hard regime
@@ -279,6 +291,23 @@ def smk_vs_plain(ops, y, n_steps, gen):
     return res, ms, plain_ms
 
 
+def smk_centre_err(sampler, y):
+    """B4's debug instantiation, one step from the state y (n_pad, B): the
+    largest error of its forward centres c_i = (U y)_i - (U y')_i + y'_i
+    and reverse centres c'_i = (U y')_i - (U y)_i + y_i against float64
+    from the target's float64 U, over the proposal widths."""
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import smk_cuda
+    ops = sampler.operands
+    c, cp, p = smk_cuda.smk_centres(ops, y.clone(), seed=33, step=1)
+    n = ops.n
+    U = sampler._target_pre.U.double()
+    ya, pa = y[:n].double(), p[:n].double()
+    uy, up = U @ ya, U @ pa
+    sp = 1.0 / ops.isgp[:n].double()[:, None]
+    return max(float(((c[:n].double() - (uy - up + pa)).abs() / sp).max()),
+               float(((cp[:n].double() - (up - uy + ya)).abs() / sp).max()))
+
+
 def draws_ok(res, max_chains=MAX_CHAIN_SHARE):
     return (res["coeffs_differing"] <= MAX_COEFF_SHARE
             and res["chains_differing"] <= max_chains
@@ -315,16 +344,38 @@ def bound_ms(flop, nbytes):
                                        else "bytes")
 
 
-def tc_floor_ms(n, window, proposals):
-    """B2/B3's design floor for `proposals` Klein proposals: the coupling's
-    n(n-1) FLOP three times (one bf16 pass per part of U) at the tensor
-    cores' bf16 rate, and the n W exps at the SFU rate; the two units run
+def design_floor(flop, peak, special):
+    """A design floor: `flop` on the tensor cores at `peak`, `special`
+    special-function operations (exps) at the SFU rate; the two units run
     side by side, so the floor is the larger."""
-    coupling = 1e3 * 3 * n * (n - 1) * proposals / PEAK_BF16_S
-    exps = 1e3 * n * window * proposals / PEAK_SFU_S
+    coupling = 1e3 * flop / peak
+    exps = 1e3 * special / PEAK_SFU_S
     return {"design_floor_ms": max(coupling, exps),
             "design_floor_coupling_ms": coupling,
             "design_floor_exps_ms": exps}
+
+
+def tc_floor_ms(n, window, proposals):
+    """B2/B3's design floor for `proposals` Klein proposals: the coupling's
+    n(n-1) FLOP three times (one bf16 pass per part of U) at the bf16 rate,
+    and the n W exps."""
+    return design_floor(3 * n * (n - 1) * proposals, PEAK_BF16_S,
+                        n * window * proposals)
+
+
+def smk_floor_ms(n, window, proposals):
+    """B4's: B2's coupling, and two windows of exps a row (the draw's and
+    the reverse normaliser's)."""
+    return design_floor(3 * n * (n - 1) * proposals, PEAK_BF16_S,
+                        2 * n * window * proposals)
+
+
+def peikert_floor_ms(n, window, draws):
+    """B5's for `draws` chain-rounds: L2 z's n(n+1) FLOP three times
+    (3xTF32) at the TF32 rate, and the n W exps of the draws plus
+    Box-Muller's four special functions a pair of normals."""
+    return design_floor(3 * n * (n + 1) * draws, PEAK_TF32_S,
+                        (n * window + 2 * n) * draws)
 
 
 def klein_flop(n, window):
@@ -511,7 +562,7 @@ def phase_toolchain(s: Smoke):
     t0 = time.perf_counter()
     built = _build.build_all()
     build_s = time.perf_counter() - t0
-    for name in ("klein", "imhk_tc", "smk", "peikert", "zn"):
+    for name in ("klein", "imhk_tc", "smk_tc", "peikert_tc", "zn"):
         _build.load(name)
     ptxas = {name: [ln.strip() for ln in info["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln][:12]
@@ -520,12 +571,14 @@ def phase_toolchain(s: Smoke):
     # spills, shared memory and blocks resident per SM
     imhk_tc = {f"window_{w}": s.kc.imhk_tc_resources(1024, w)
                for w in (16, 8, 24)}
+    smk_tc = {f"window_{w}": s.sc.smk_tc_resources(1024, w)
+              for w in (8, 16, 24)}
     emit({"phase": "toolchain", "ok": True, "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc.strip().splitlines()[-1] if nvcc else None,
           "triton": has_triton, "card": s.card, "build_s": build_s,
           "build_s_each": built, "ptxas": ptxas,
-          "imhk_tc_resources": imhk_tc})
+          "imhk_tc_resources": imhk_tc, "smk_tc_resources": smk_tc})
 
 
 # ---------------------------------------------------------- kernel_vs_plain
@@ -800,8 +853,14 @@ def phase_kernel_vs_plain(s: Smoke):
                     proposal_sigma=SMK_PROPOSAL_OVER_SIGMA * s.sigma_row,
                     tail_budget=0.01)
     y4, _ = kc.klein_draw(ss.klein_operands, B, seed=31)
+    # warm-up: the operands' fragments and the kernel's first load stay
+    # outside the timed launch
+    sc.smk_steps(ss.operands, y4.clone(), torch.zeros(B, device=dev), 1)
     b4, b4_ms, b4_plain_ms = smk_vs_plain(ss.operands, y4, B4_CHECK_STEPS,
                                           gen)
+    # ... B4's own forward and reverse centres (its debug instantiation)
+    # against float64 from the target's float64 U, over the proposal widths
+    b4_centre = smk_centre_err(ss, y4)
     # ... and in the 2D hard regime, where it rejects, decision by decision
     s4 = SMKSampler(lat2, HARD_SIGMA, proposal_sigma=SMK_2D_PROPOSAL)
     y4h, _ = kc.klein_draw(s4.klein_operands, HARD_CHECK_CHAINS, seed=32)
@@ -812,10 +871,12 @@ def phase_kernel_vs_plain(s: Smoke):
              and b4["ties_off_by_one"] and b4["rejections"] > 0
              and b4["accept_differing"] <= MAX_ACCEPT_SHARE
              and b4["max_abs_log_alpha_err"] <= MAX_LW_ERR
+             and b4_centre < MAX_CENTRE_ERR
              and hard_decisions_ok(b4_hard, HARD_CHECK_CHAINS))
     del y4, y4h
     s.note("B4", max_abs_err=max(b4["max_abs_log_alpha_err"],
                                  b4_hard["max_abs_log_alpha_err"]),
+           max_centre_err_over_sigma_prop=b4_centre,
            coeffs_differing=max(b4["coeffs_differing"],
                                 b4_hard["coeffs_differing"]),
            accept_differing=max(b4["accept_differing"],
@@ -828,11 +889,13 @@ def phase_kernel_vs_plain(s: Smoke):
     # caller's normals up to ties; with in-kernel Philox the normals come
     # from the card's logf/sqrtf/cosf/sinf and torch's, which need not
     # round alike, so that run is held by its tie share alone
-    sigma_pk, _, _ = s.peikert_sigma()
-    ops_p = PeikertSampler(s.lat, sigma_pk).operands
+    sigma_pk, r_pk, _ = s.peikert_sigma()
+    sp5 = PeikertSampler(s.lat, sigma_pk)
+    ops_p = sp5.operands
     nr = B5_CHECK_ROUNDS
     z = torch.randn(nr * ops_p.n_pad, B, device=dev, generator=gen)
     u5 = torch.rand(nr * ops_p.n_pad, B, device=dev, generator=gen)
+    pc.peikert_rounds(ops_p, B, nr, uniforms=u5, normals=z)    # warm-up
     out, outp = [], []
     b5_ms = cuda_ms(lambda: out.append(pc.peikert_rounds(
         ops_p, B, nr, uniforms=u5, normals=z)))
@@ -841,10 +904,20 @@ def phase_kernel_vs_plain(s: Smoke):
     b5 = compare_rings(out[0], outp[0])
     b5_philox = compare_rings(pc.peikert_rounds(ops_p, B, nr, seed=41),
                               pc.peikert_rounds_plain(ops_p, B, nr, seed=41))
-    b5_ok = all(r["coeffs_differing"] <= MAX_COEFF_SHARE
-                and r["ties_off_by_one"] for r in (b5, b5_philox))
+    # ... and B5's own centres (its debug instantiation, round 0 on the
+    # caller's normals) against float64 from the float64 precomputation
+    n5, np5 = ops_p.n, ops_p.n_pad
+    c5, _ = pc.peikert_centres(ops_p, B, uniforms=u5[:np5], normals=z[:np5])
+    c5_64 = (sp5.pre.cprime.double()[:, None]
+             - sp5.pre.L2.double() @ z[:n5].double())
+    b5_centre = float((c5[:n5].double() - c5_64).abs().max()) / r_pk
+    del c5, c5_64
+    b5_ok = (all(r["coeffs_differing"] <= MAX_COEFF_SHARE
+                 and r["ties_off_by_one"] for r in (b5, b5_philox))
+             and b5_centre <= MAX_PEIKERT_CENTRE_ERR)
     del z, u5, out, outp
     s.note("B5", max_abs_err=max(b5["max_abs_err"], b5_philox["max_abs_err"]),
+           max_centre_err_over_r=b5_centre,
            coeffs_differing=max(b5["coeffs_differing"],
                                 b5_philox["coeffs_differing"]),
            plain_ms=b5_plain_ms, check_ms=b5_ms,
@@ -863,12 +936,15 @@ def phase_kernel_vs_plain(s: Smoke):
                                  window=ops2.window),
           "b3_vs_b2": dict(b3_vs_b2, keep=B3_CHECK_KEEP, thin=B3_CHECK_THIN),
           "b3": dict(b3, keep=nk, thin=1, window=ops_h.window),
-          "b4": dict(b4, steps=B4_CHECK_STEPS, window=ss.operands.window),
+          "b4": dict(b4, steps=B4_CHECK_STEPS, window=ss.operands.window,
+                     max_kernel_centre_err_over_sigma_prop=b4_centre),
           "b4_hard_regime": dict(b4_hard, chains=HARD_CHECK_CHAINS,
                                  steps=HARD_CHECK_STEPS,
                                  proposal_sigma=SMK_2D_PROPOSAL,
                                  window=s4.operands.window),
-          "b5": dict(b5, rounds=nr, window=ops_p.window),
+          "b5": dict(b5, rounds=nr, window=ops_p.window,
+                     max_kernel_centre_err_over_r=b5_centre,
+                     centre_gate=MAX_PEIKERT_CENTRE_ERR),
           "b5_philox": b5_philox, "b6": b6, "b7": b7, "b8": b8,
           "oks": {"b1_b2": b2_ok, "b3": b3_ok, "b4": b4_ok, "b5": b5_ok,
                   "b6": b6_ok, "b7": b7_ok, "b8": b8_ok}})
@@ -1141,10 +1217,12 @@ def phase_smk(s: Smoke):
           and launches["klein_draw"] > 0 and launches["smk_steps"] > 0)
     emit({"phase": "smk", "ok": ok, "dim": n, "sigma": s.sigma_row,
           "proposal_sigma": sampler.proposal_sigma, "window": W,
-          "window_path": "compiled" if W == 16 else "runtime",
+          "window_path": "compiled" if W in (8, 16, 24) else "runtime",
           "chains": Bs, "steps": T, "samples_per_s": sps,
           "acceptance": a_s, "expected_acceptance": SMK_ROW_ACCEPTANCE,
           "warm_up_acceptance": warm_acc, "b4_ms": b4_ms,
+          "b4_design_floor": smk_floor_ms(n, W, Bs * T),
+          "b4_max_abs_y": sc.smk_steps.max_abs_y,
           "launches": launches, "card": s.card})
     if not ok:
         fail("smk", "SMK row failed its checks")
@@ -1197,9 +1275,10 @@ def phase_peikert(s: Smoke):
           and launches["peikert_rounds"] > 0)
     emit({"phase": "peikert", "ok": ok, "dim": n, "sigma": sigma, "r": r,
           "s1": s1, "window": W,
-          "window_path": "compiled" if W == 16 else "runtime",
+          "window_path": "compiled" if W in (8, 16, 24) else "runtime",
           "chains": Bp, "rounds": R, "samples_per_s": sps,
           "norm2_over_dim_sigma2": norm_ratio, "b5_ms": b5_ms,
+          "b5_design_floor": peikert_floor_ms(n, W, Bp * R),
           "launches": launches, "card": s.card})
     if not ok:
         fail("peikert", "Peikert row failed its checks")
@@ -1497,8 +1576,8 @@ KERNELS = [
      "imhk_fused"),
     ("B3", "imhk_trajectory (B3)", "imhk_tc.cu", "klein_pallas.py:890",
      "imhk_trajectory"),
-    ("B4", "smk_steps (B4)", "smk.cu", "smk_pallas.py:439", "smk_steps"),
-    ("B5", "peikert_rounds (B5)", "peikert.cu", "peikert_pallas.py:287",
+    ("B4", "smk_steps (B4)", "smk_tc.cu", "smk_pallas.py:439", "smk_steps"),
+    ("B5", "peikert_rounds (B5)", "peikert_tc.cu", "peikert_pallas.py:287",
      "peikert_rounds"),
     ("B6", "klein_ring (B6)", "klein.cu", "klein_pallas.py:714",
      "klein_ring"),

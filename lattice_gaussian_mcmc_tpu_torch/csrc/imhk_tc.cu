@@ -63,262 +63,20 @@
 //   register ring). The draws are latency-bound (~0.8 of a launch), the
 //   coupling L2-bound (~0.25); see PERF.md.
 //
+// The sweep's device code, shared with fused SMK (smk_tc.cu, B4), is in
+// imhk_tc_common.cuh.
+//
 // Randomness: host uniforms (n_pad + 8 rows a step, the accept uniform in
 // row n_pad) or Philox4x32-10 with counter (chain id, row, step, tag), the
 // function of lattice_gaussian_mcmc_tpu_torch/utils/prng.py, bit for bit.
 
-#include "klein_common.cuh"
+#include "imhk_tc_common.cuh"
 
 using namespace lgk;
 
 namespace {
 
-constexpr int NC = 32;              // chains per thread block
-constexpr int TPB = 2 * NC;         // two threads per chain
-constexpr int CT_STRIDE = 72;       // floats per chain of the coupling tile
-constexpr int Y_ROW = 2 * NC;       // bytes per proposal row (bf16)
-constexpr int SB = 16;              // rows per sub-block of a 64-row block
-constexpr int PARTS = 3;            // bf16 parts of U
 constexpr int PASSES = PARTS;       // bf16 passes of the coupling (all)
-constexpr float EXACT_Y = 256.0f;   // |y| exact in bf16
-constexpr unsigned FULL = 0xFFFFFFFFu;
-
-struct TcOperands {
-  const uint4* Ufrag;  // (n_pad/16, n_pad/16, 3, 32) A fragments
-  const float* UT;     // float32 U transposed: the within-block triangle
-  const float* cs;
-  const float* isg;
-  int n_pad;
-  int window;
-};
-
-inline size_t smem_bytes(int n_pad) {
-  return (size_t)n_pad * Y_ROW + (size_t)NC * CT_STRIDE * sizeof(float) +
-         (size_t)NC * sizeof(int);
-}
-
-// byte offset of (row, chain) in the swizzled proposal tile
-__device__ __forceinline__ int y_off(int row, int chain) {
-  return row * Y_ROW +
-         ((((chain >> 3) ^ ((row >> 1) & 3)) << 4) | ((chain & 7) << 1));
-}
-
-__device__ __forceinline__ unsigned short to_bf16_bits(float y) {
-  return (unsigned short)(__float_as_uint(y) >> 16);  // exact: |y| <= 256
-}
-
-__device__ __forceinline__ float from_bf16_bits(unsigned short v) {
-  return __uint_as_float((uint32_t)v << 16);
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0,
-                                          uint32_t& r1, uint32_t& r2,
-                                          uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint4& a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void load_a(uint4 (&a)[2][PARTS],
-                                       const uint4* __restrict__ Ufrag,
-                                       int mt0, int kt, int KT, int lane) {
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int p = 0; p < PARTS; ++p)
-      a[m][p] = __ldg(Ufrag +
-                      (((size_t)(mt0 + m) * KT + kt) * PARTS + p) * 32 +
-                      lane);
-}
-
-__device__ __forceinline__ void zero(float (&acc)[2][4][4]) {
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.0f;
-}
-
-// acc = U[rows, lo+64 ..] Y[lo+64 .., chains], block lo's coupling to the
-// rows drawn, for the rows lo + 32 warp .. +31 (two m16 tiles) and all 32
-// chains (four n8 tiles). U's fragments stream from L2 into a ring of PF
-// 16-column steps in registers, each slot refilled PF steps ahead as it is
-// consumed (the step count is a multiple of 4). Each pair of steps sums
-// into a zeroed partial accumulator, then into acc in IEEE FP32.
-constexpr int PF = 4;
-__device__ void couple(const TcOperands& op, uint32_t ysm,
-                       float (&acc)[2][4][4], int lo, int warp, int lane) {
-  const int KT = op.n_pad >> 4;
-  const int kt0 = (lo + RB) >> 4, kt1 = KT;
-  const int mi = lane >> 3, rin = lane & 7;   // ldmatrix: matrix, its row
-  const int mt0 = (lo >> 4) + 2 * warp;
-  zero(acc);
-  uint4 a[PF][2][PARTS];
-#pragma unroll
-  for (int j = 0; j < PF; ++j)
-    if (kt0 + j < kt1) load_a(a[j], op.Ufrag, mt0, kt0 + j, KT, lane);
-  for (int kt = kt0; kt < kt1; kt += PF) {
-#pragma unroll
-    for (int half = 0; half < PF / 2; ++half) {
-      float part[2][4][4];
-      zero(part);
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        const int j = 2 * half + kk;
-        const int k = kt + j;
-        uint32_t b[4][2];
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          const int row = 16 * k + ((mi & 1) << 3) + rin;
-          const int nt = 2 * np + (mi >> 1);
-          ldsm_x4_t(ysm + row * Y_ROW + ((nt ^ ((row >> 1) & 3)) << 4),
-                    b[2 * np][0], b[2 * np][1], b[2 * np + 1][0],
-                    b[2 * np + 1][1]);
-        }
-#pragma unroll
-        for (int p = PASSES - 1; p >= 0; --p)
-#pragma unroll
-          for (int m = 0; m < 2; ++m)
-#pragma unroll
-            for (int n = 0; n < 4; ++n)
-              mma_bf16(part[m][n], a[j][m][p], b[n][0], b[n][1]);
-        if (k + PF < kt1) load_a(a[j], op.Ufrag, mt0, k + PF, KT, lane);
-      }
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[m][n][e] = __fadd_rn(acc[m][n][e], part[m][n][e]);
-    }
-  }
-}
-
-// acc (rows 32 warp .. +31 of the block) into the coupling tile
-// ct[chain * CT_STRIDE + row]
-__device__ __forceinline__ void store_ct(const float (&acc)[2][4][4],
-                                         float* ct, int warp, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int r = 32 * warp + 16 * m + g;
-      const int c = 8 * n + 2 * t;
-      ct[c * CT_STRIDE + r] = acc[m][n][0];
-      ct[(c + 1) * CT_STRIDE + r] = acc[m][n][1];
-      ct[c * CT_STRIDE + r + 8] = acc[m][n][2];
-      ct[(c + 1) * CT_STRIDE + r + 8] = acc[m][n][3];
-    }
-}
-
-// A fragments of U[lo : lo + 16 sb, lo + 16 sb : +16] (m16 tiles m < sb):
-// the columns of sub-block sb in the rows below it.
-__device__ __forceinline__ void load_diag(uint4 (&a)[RB / SB - 1][PARTS],
-                                          const uint4* __restrict__ Ufrag,
-                                          int lo, int sb, int KT, int lane) {
-  const int kt = (lo >> 4) + sb;
-#pragma unroll
-  for (int m = 0; m < RB / SB - 1; ++m)
-    if (m < sb) {
-#pragma unroll
-      for (int p = 0; p < PARTS; ++p)
-        a[m][p] = __ldg(Ufrag +
-                        (((size_t)((lo >> 4) + m) * KT + kt) * PARTS + p) *
-                            32 +
-                        lane);
-    }
-}
-
-// Sub-block sb of block lo is drawn: add its coupling to the rows below it,
-// ct[rows 0 .. 16 sb) += U[.., sub-block] Y[sub-block], on the tensor
-// cores. Warp w takes chains 16w .. 16w + 15 (two n8 tiles).
-__device__ void sub_update(const uint4 (&a)[RB / SB - 1][PARTS],
-                           uint32_t ysm, float* ct, int lo, int sb, int warp,
-                           int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const int mi = lane >> 3, rin = lane & 7;
-  const int row = lo + SB * sb + ((mi & 1) << 3) + rin;
-  const int nt = 2 * warp + (mi >> 1);
-  uint32_t b[2][2];
-  ldsm_x4_t(ysm + row * Y_ROW + ((nt ^ ((row >> 1) & 3)) << 4), b[0][0],
-            b[0][1], b[1][0], b[1][1]);
-#pragma unroll
-  for (int m = 0; m < RB / SB - 1; ++m)
-    if (m < sb) {
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-        for (int p = PASSES - 1; p >= 0; --p)
-          mma_bf16(d, a[m][p], b[n][0], b[n][1]);
-        const int r = 16 * m + g;
-        float* c0 = ct + (16 * warp + 8 * n + 2 * t) * CT_STRIDE + r;
-        float* c1 = c0 + CT_STRIDE;
-        c0[0] = __fadd_rn(c0[0], d[0]);
-        c1[0] = __fadd_rn(c1[0], d[1]);
-        c0[8] = __fadd_rn(c0[8], d[2]);
-        c1[8] = __fadd_rn(c1[8], d[3]);
-      }
-    }
-}
-
-// draw_row<W> by the two threads of a chain (h = 0, 1), bit for bit: each
-// computes W/2 of the weights, the low half's sum is shuffled up, and the
-// CDF is the same sequential sum. W == 0: draw_row's runtime window, run
-// by both threads alike.
-template <int W>
-__device__ __forceinline__ float draw_pair(float c, float isg, float u,
-                                           int window, int h, int lane,
-                                           float& logz) {
-  if constexpr (W == 0) {
-    return draw_row<0>(c, isg, u, window, logz);
-  } else {
-    constexpr int H = W / 2;
-    const float base = rintf(c);
-    const float delta = __fsub_rn(base, c);
-    const float a = __fmul_rn(isg, isg);
-    const float nad = __fmul_rn(-a, delta);
-    const float m = __fmul_rn(__fmul_rn(-0.5f, a), __fmul_rn(delta, delta));
-    float w[H];
-#pragma unroll
-    for (int j = 0; j < H; ++j) w[j] = window_weight(h * H + j, H, nad, a);
-    float s = 0.0f;
-#pragma unroll
-    for (int j = 0; j < H; ++j) s = __fadd_rn(s, w[j]);
-    const float low = __shfl_xor_sync(FULL, s, 1);
-    float run = h ? low : 0.0f;
-    float cdf[H];
-#pragma unroll
-    for (int j = 0; j < H; ++j) {
-      run = __fadd_rn(run, w[j]);
-      cdf[j] = run;
-    }
-    const float total = __shfl_sync(FULL, run, lane | 1);
-    const float target = __fmul_rn(u, total);
-    int cnt = 0;
-#pragma unroll
-    for (int j = 0; j < H; ++j) cnt += cdf[j] < target ? 1 : 0;
-    const int idx = min(cnt + __shfl_xor_sync(FULL, cnt, 1), W - 1);
-    logz = __fadd_rn(m, logf(total));
-    return __fadd_rn(base, (float)(idx - H));
-  }
-}
 
 // DBG: step 0 also writes each row's centre to dbg[i, chain] and its draw
 // to dbg[n_pad + i, chain].
@@ -358,7 +116,7 @@ __global__ void __launch_bounds__(TPB, 3)
         // the block's coupling to the rows drawn (rows >= lo + 64): warp w
         // takes its rows lo + 32w .. +31
         float cacc[2][4][4];
-        couple(op, ysm, cacc, lo, warp, lane);
+        couple<PASSES>(op, ysm, cacc, lo, warp, lane);
         store_ct(cacc, ct, warp, lane);
       }
       __syncthreads();
@@ -432,7 +190,7 @@ __global__ void __launch_bounds__(TPB, 3)
         }
         if (sb > 0) {
           __syncthreads();   // the sub-block's rows and centres written
-          sub_update(ad, ysm, ct, lo, sb, warp, lane);
+          sub_update<PASSES>(ad, ysm, ct, lo, sb, warp, lane);
           __syncthreads();
         }
       }
@@ -488,7 +246,7 @@ int launch(const TcOperands& op, const Uniforms& un, float* x, float* lw,
            float* acc, float* tlw, float* tx, float* dbg, int* bad, int thin,
            long long B, int n_steps, uint32_t step, uint32_t chain_offset,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(op.n_pad);
+  const size_t smem = tc_smem_bytes(op.n_pad);
   cudaError_t e = cudaFuncSetAttribute(
       imhk_tc_kernel<W, DBG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -523,7 +281,7 @@ int info(int n_pad, int* out) {
   cudaFuncAttributes fa;
   cudaError_t e = cudaFuncGetAttributes(&fa, imhk_tc_kernel<W, false>);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = smem_bytes(n_pad);
+  const size_t smem = tc_smem_bytes(n_pad);
   e = cudaFuncSetAttribute(imhk_tc_kernel<W, false>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);

@@ -1,9 +1,9 @@
-// Device functions shared by the Klein and Babai (klein.cu), SMK (smk.cu),
-// Peikert (peikert.cu) and Z^n (zn.cu) kernels on Hopper (sm_90a):
-// Philox4x32-10, the windowed inverse-CDF row draw and its log-normalizer,
-// the coupling passes of a backward substitution over 64-row blocks, and the
-// Klein proposal sweep, one thread per chain on a chain-minor (n_pad, B)
-// state.
+// Device functions shared by the Klein and Babai (klein.cu), IMHK
+// (imhk_tc.cu), SMK (smk_tc.cu), Peikert (peikert_tc.cu) and Z^n (zn.cu)
+// kernels on Hopper (sm_90a): Philox4x32-10, the windowed inverse-CDF row
+// draw and its log-normalizer, and for klein.cu the coupling passes of a
+// backward substitution over 64-row blocks and the Klein proposal sweep,
+// one thread per chain on a chain-minor (n_pad, B) state.
 //
 // expf and logf are the accurate versions (no --use_fast_math); the logit
 // and CDF arithmetic uses explicitly rounded operations so that the compiler
@@ -192,18 +192,11 @@ __device__ __forceinline__ float row_centre(float c0,
 // One Klein draw of this thread's chain into column `chain` of ybuf
 // (n_pad, B); `col` is the thread's column of the shared tile (stride
 // THREADS). Host uniform row of coordinate i is host_row0 + i.
-//
-// SMK = true is the symmetric Metropolis-Klein proposal: the centre of row
-// i is the chain's own current centre ct_i = (U y_cur)_i (read from ct),
-// the coupling sum_{j>i} U_ij y_j is kept apart, and the sweep stores
-// ctn_i = y_i + coupling_i = (U y_new)_i, the next state's centre.
-template <int W, bool SMK = false>
+template <int W>
 __device__ double propose(const Operands& op, float* __restrict__ ybuf,
                           long long B, long long chain, uint32_t chain_id,
                           float* col, const Uniforms& un,
-                          long long host_row0, uint32_t step,
-                          const float* __restrict__ ct = nullptr,
-                          float* __restrict__ ctn = nullptr) {
+                          long long host_row0, uint32_t step) {
   const int n_pad = op.n_pad;
   double lw = 0.0;
   for (int lo = n_pad - RB; lo >= 0; lo -= RB) {
@@ -212,22 +205,13 @@ __device__ double propose(const Operands& op, float* __restrict__ ybuf,
       const int i = lo + r;
       const size_t at = (size_t)i * (size_t)B + (size_t)chain;
       const float* Ui = op.U + (size_t)i * n_pad + lo;
-      float c, coup = 0.0f;
-      if constexpr (SMK) {
-        coup = col[r * THREADS];
-        for (int rr = r + 1; rr < RB; ++rr)
-          coup = fmaf(__ldg(Ui + rr), col[rr * THREADS], coup);
-        c = __fsub_rn(ct[at], coup);
-      } else {
-        c = row_centre(__ldg(op.cs + i), Ui, col, r);
-      }
+      const float c = row_centre(__ldg(op.cs + i), Ui, col, r);
       const float u = un.get(host_row0 + i, chain, chain_id, (uint32_t)i,
                              step, TAG_ROW);
       float logz;
       const float y = draw_row<W>(c, __ldg(op.isg + i), u, op.window, logz);
       col[r * THREADS] = y;
       ybuf[at] = y;
-      if constexpr (SMK) ctn[at] = __fadd_rn(y, coup);
       lw += (double)logz;
     }
   }

@@ -95,13 +95,14 @@ _SIGNATURES = {
                            _I, _I, _LL, _I, _I, _U32, _U32, _U32, _U32, _P],
         "imhk_tc_info": [_I, _I, _P],
     },
-    "smk": {
-        "smk_steps_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _LL, _I, _I, _U32, _U32, _U32, _U32, _P],
+    "smk_tc": {
+        "smk_tc_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _P, _I, _LL, _I, _I, _U32, _U32, _U32, _U32, _P],
+        "smk_tc_info": [_I, _I, _P],
     },
-    "peikert": {
-        "peikert_rounds_launch": [_P, _P, _F, _P, _P, _P, _P, _I, _LL, _I,
-                                  _I, _U32, _U32, _U32, _P],
+    "peikert_tc": {
+        "peikert_tc_launch": [_P, _P, _F, _P, _P, _P, _P, _I, _LL, _I, _I,
+                              _U32, _U32, _U32, _P],
     },
     "zn": {
         "zn_draw_launch": [_F, _F, _I, _P, _P, _LL, _U32, _U32, _P],

@@ -139,10 +139,11 @@ def fragment_pack(parts) -> torch.Tensor:
     return torch.stack(tiles, dim=2).contiguous()
 
 
-def tc_fragments(ops: KleinOperands) -> torch.Tensor:
-    """B2/B3's coupling operand, (n_pad/16, n_pad/16, 3, 32, 8) bfloat16:
+def tc_fragments(ops) -> torch.Tensor:
+    """The coupling operand of B2/B3 (`KleinOperands`) and B4
+    (`smk_cuda.SMKOperands`), (n_pad/16, n_pad/16, 3, 32, 8) bfloat16:
     `fragment_pack(split_bf16(ops.U))`, built at the first call and kept on
-    `ops` (no other kernel reads it)."""
+    `ops`."""
     frag = getattr(ops, "_tc_fragments", None)
     if frag is None:
         frag = fragment_pack(split_bf16(ops.U))

@@ -1,5 +1,5 @@
 """Peikert's convolution sampler (B5) on Hopper: the wrapper of the CUDA
-kernel in `csrc/peikert.cu`, its plain PyTorch version, the launch count,
+kernel in `csrc/peikert_tc.cu`, its plain PyTorch version, the launch count,
 the operand preparation and the window policy.
 
 Replaces the Pallas kernel
@@ -21,6 +21,15 @@ Box-Muller pair of words 0 and 1 of counter (chain id, p, k, TAG_NORMAL).
 The plain version computes the same normals with torch's log, sqrt, cos and
 sin, which need not round as the card's do, so kernel and plain agree bit
 for bit only on the caller's normals.
+
+The kernel forms L2 z on the tensor cores in 3xTF32: both operands split
+in registers, x = hi + lo with hi = x truncated to TF32 and lo = x - hi
+(`split_tf32` is the same split on the host; the kernel truncates lo to
+TF32 too), and L2 z = hi.hi + hi.lo + lo.hi (hazard C9: the Pallas
+kernel's two-part bf16 split is ~10 times less accurate). L2 goes to the
+kernel packed in mma.sync m16n8k8 A-fragment order (`peikert_fragments`).
+The kernel keeps a block's normals in shared memory, which bounds n_pad by
+`PEIKERT_TC_MAX_N_PAD`.
 
 Dispatch. A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises. It never falls back.
@@ -64,6 +73,10 @@ from lattice_gaussian_mcmc_tpu_torch.utils.prng import (
 )
 
 TWO_PI = 2.0 * math.pi
+# the largest n_pad whose normals tile (32 chains x n_pad float32,
+# peikert_tc.cu) fits the 227 KB (232,448 bytes) a block of sm_90 may take,
+# rounded down to a multiple of 64
+PEIKERT_TC_MAX_N_PAD = 1792
 
 
 def suggest_peikert_window(r: float, n: int, budget: float = 0.01) -> int:
@@ -117,6 +130,53 @@ def peikert_operands(pre, window: Optional[int] = None,
                            window=int(window))
 
 
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """float32 x truncated to TF32 (sign, exponent and 10 mantissa bits):
+    peikert_tc.cu's `KEEP` mask, bit for bit."""
+    bits = x.to(torch.float32).view(torch.int32)
+    return (bits & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) with hi = x truncated to TF32 and hi + lo = x exactly in
+    float32; the kernel truncates lo to TF32 too (`tf32_trunc(lo)`,
+    peikert_tc.cu `split`)."""
+    x = x.to(torch.float32)
+    hi = tf32_trunc(x)
+    return hi, x - hi
+
+
+def _fragment_index_k8(device):
+    """Rows and columns (32, 4) of a 16 x 8 tile that lane l holds as
+    registers a0..a3 of mma.sync m16n8k8 .tf32's A operand: g = l / 4,
+    t = l % 4, (g, t), (g+8, t), (g, t+4), (g+8, t+4)."""
+    lane = torch.arange(32, device=device)
+    g, t = lane // 4, lane % 4
+    return (torch.stack([g, g + 8, g, g + 8], dim=1),
+            torch.stack([t, t, t + 4, t + 4], dim=1))
+
+
+def fragment_pack_k8(A: torch.Tensor) -> torch.Tensor:
+    """(n_pad, n_pad) float32 -> (n_pad/16, n_pad/8, 32, 4): entry [mt, kt,
+    lane] is lane's A fragment of the tile (rows 16 mt .., columns 8 kt ..),
+    one 16-byte load per lane."""
+    n_pad = A.shape[0]
+    rows, cols = _fragment_index_k8(A.device)
+    tiles = A.reshape(n_pad // 16, 16, n_pad // 8, 8).permute(0, 2, 1, 3)
+    return tiles[:, :, rows, cols].contiguous()
+
+
+def peikert_fragments(ops: PeikertOperands) -> torch.Tensor:
+    """B5's product operand, (n_pad/16, n_pad/8, 32, 4) float32: L2 (the
+    transpose of ops.L2T) in A-fragment order, built at the first launch
+    and kept on `ops`."""
+    frag = getattr(ops, "_tc_fragments", None)
+    if frag is None:
+        frag = fragment_pack_k8(ops.L2T.T.contiguous().to(torch.float32))
+        ops._tc_fragments = frag
+    return frag
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch version: the kernel's arithmetic, any device and dtype.
 # ---------------------------------------------------------------------------
@@ -138,8 +198,10 @@ def philox_normals(seed: int, chains: torch.Tensor, rnd: int,
 
 def peikert_rounds_plain(ops: PeikertOperands, num_chains: int,
                          n_rounds: int = 1, *, seed: int = 0,
-                         chain_offset: int = 0, uniforms=None, normals=None):
-    """Plain version of B5: returns the ring (n_rounds * n_pad, B)."""
+                         chain_offset: int = 0, uniforms=None, normals=None,
+                         centres=None):
+    """Plain version of B5: returns the ring (n_rounds * n_pad, B). With
+    `centres` (n_pad, B), round 0's centres c = c' - L2 z go there."""
     n_pad, dt, dev = ops.n_pad, ops.L2T.dtype, ops.device
     if (uniforms is None) != (normals is None):
         raise ValueError("pass both host uniforms and normals, or neither")
@@ -158,6 +220,8 @@ def peikert_rounds_plain(ops: PeikertOperands, num_chains: int,
                                                              device=dev),
                                TAG_ROW).to(dt)
         c = ops.cp[:, None] - ops.L2T.T @ z
+        if centres is not None and k == 0:
+            centres.copy_(c)
         ring[rows], _ = _draw_row_plain(c, isg, u, ops.window, offs,
                                         offs_half)
     return ring
@@ -174,19 +238,18 @@ def ring_coeffs(ops: PeikertOperands, ring: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def peikert_rounds(ops: PeikertOperands, num_chains: int,
-                   n_rounds: int = 1, *, seed: int = 0,
-                   chain_offset: int = 0, uniforms=None, normals=None):
-    """B5: n_rounds independent Peikert draws per chain in one launch.
-    Returns the ring (n_rounds * n_pad, B). CPU operands run
-    `peikert_rounds_plain`."""
-    if ops.device.type == "cpu":
-        return peikert_rounds_plain(ops, num_chains, n_rounds, seed=seed,
-                                    chain_offset=chain_offset,
-                                    uniforms=uniforms, normals=normals)
+def _peikert_tc_launch(ops: PeikertOperands, num_chains: int,
+                       n_rounds: int, seed: int, chain_offset: int, uniforms,
+                       normals, what: str, dbg=None):
+    """Launch peikert_tc.cu's kernel; returns the ring (n_rounds * n_pad,
+    B). Raises on bad input or a launch error; does not wait."""
     n_pad = ops.n_pad
     if n_pad % ROW_BLOCK:
         raise ValueError(f"n_pad {n_pad} is not a multiple of {ROW_BLOCK}")
+    if n_pad > PEIKERT_TC_MAX_N_PAD:
+        raise ValueError(
+            f"{what}: n_pad {n_pad} is above {PEIKERT_TC_MAX_N_PAD}, the "
+            "largest whose normals tile fits a block's shared memory")
     check_cuda("L2T", ops.L2T, (n_pad, n_pad))
     check_cuda("cp", ops.cp, (n_pad,))
     if not 1 <= ops.window <= MAX_WINDOW:
@@ -198,24 +261,57 @@ def peikert_rounds(ops: PeikertOperands, num_chains: int,
     if uniforms is not None:
         check_cuda("uniforms", uniforms, (n_rounds * n_pad, num_chains))
         check_cuda("normals", normals, (n_rounds * n_pad, num_chains))
-        z = None
-    else:
-        z = torch.empty(n_pad, num_chains, dtype=torch.float32,
-                        device=ops.device)
-    lib = load("peikert")
+    lib = load("peikert_tc")
+    frag = peikert_fragments(ops)
     ring = torch.empty(n_rounds * n_pad, num_chains, dtype=torch.float32,
                        device=ops.device)
     k0, k1 = seed_key(seed)
-    rc = lib.peikert_rounds_launch(
-        ptr(ops.L2T), ptr(ops.cp), ops.isg,
+    rc = lib.peikert_tc_launch(
+        ptr(frag), ptr(ops.cp), ops.isg,
         ptr(uniforms) if uniforms is not None else None,
-        ptr(normals) if normals is not None else None,
-        ptr(z) if z is not None else None, ptr(ring), n_pad, num_chains,
+        ptr(normals) if normals is not None else None, ptr(ring),
+        ptr(dbg) if dbg is not None else None, n_pad, num_chains,
         ops.window, n_rounds, k0, k1, chain_offset,
         ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
-    raise_on("peikert", rc, "peikert_rounds")
+    raise_on("peikert_tc", rc, what)
+    return ring
+
+
+def peikert_rounds(ops: PeikertOperands, num_chains: int,
+                   n_rounds: int = 1, *, seed: int = 0,
+                   chain_offset: int = 0, uniforms=None, normals=None):
+    """B5: n_rounds independent Peikert draws per chain in one launch.
+    Returns the ring (n_rounds * n_pad, B). CPU operands run
+    `peikert_rounds_plain`."""
+    if ops.device.type == "cpu":
+        return peikert_rounds_plain(ops, num_chains, n_rounds, seed=seed,
+                                    chain_offset=chain_offset,
+                                    uniforms=uniforms, normals=normals)
+    ring = _peikert_tc_launch(ops, num_chains, n_rounds, seed, chain_offset,
+                              uniforms, normals, "peikert_rounds")
     peikert_rounds.launches += 1
     return ring
+
+
+def peikert_centres(ops: PeikertOperands, num_chains: int, *,
+                    seed: int = 0, chain_offset: int = 0, uniforms=None,
+                    normals=None):
+    """B5's debug instantiation: one round that also writes its centres
+    c = c' - L2 z as the kernel forms them. Returns (centres (n_pad, B),
+    ring (n_pad, B)). For holding the kernel's own centres to float64; not
+    a launch of the main path. CPU operands run the plain version."""
+    centres = torch.empty(ops.n_pad, num_chains, dtype=ops.L2T.dtype,
+                          device=ops.device)
+    if ops.device.type == "cpu":
+        ring = peikert_rounds_plain(ops, num_chains, 1, seed=seed,
+                                    chain_offset=chain_offset,
+                                    uniforms=uniforms, normals=normals,
+                                    centres=centres)
+    else:
+        ring = _peikert_tc_launch(ops, num_chains, 1, seed, chain_offset,
+                                  uniforms, normals, "peikert_centres",
+                                  dbg=centres)
+    return centres, ring
 
 
 def reset_launch_counts():

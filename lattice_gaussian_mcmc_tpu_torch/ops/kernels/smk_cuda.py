@@ -1,5 +1,5 @@
 """Fused symmetric Metropolis-Klein steps (B4) on Hopper: the wrapper of
-the CUDA kernel in `csrc/smk.cu`, its plain PyTorch version, the launch
+the CUDA kernel in `csrc/smk_tc.cu`, its plain PyTorch version, the launch
 count and the operand preparation.
 
 Replaces the Pallas kernel
@@ -18,6 +18,15 @@ is `suggest_window_budget` on that proposal profile (budget 0.01, at most
 1024), and the target enters as its recentered centre cse and
 wqt_i = R_ii / (sqrt(2) sigma) (0 on padded rows, which then add nothing
 to the target quadratics whatever they draw).
+
+The kernel is B2's tensor-core sweep (`klein_cuda.py`): its coupling runs
+over the exact bf16 split of U (`klein_cuda.tc_fragments`, built on the
+first launch of an operand set and kept on it), so its products are exact
+only while the state and the proposal's recentred coefficients are:
+|y| <= 256 (hazard C8). The kernel counts coefficients beyond that into an
+`exact_guard`; the wrapper, or the entry point that passed it one, raises
+before it returns. It keeps the proposal in shared memory, which bounds
+n_pad by `SMK_TC_MAX_N_PAD`.
 
 Dispatch. A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises. It never falls back.
@@ -137,11 +146,12 @@ def _log_normalizer_plain(c, isg, window, offs, offs_half):
     return m + torch.log(total)
 
 
-def _smk_propose_plain(ops: SMKOperands, rows, out, ct, ctn):
+def _smk_propose_plain(ops: SMKOperands, rows, out, ct, ctn, centres=None):
     """The SMK sweep into out (n_pad, B): rows draw around
     c_i = ct_i - coupling_i with the proposal widths, ctn_i =
     y_i + coupling_i. Returns the forward sum of log Z_i in float64.
-    Padded rows keep the 0 of out and ctn."""
+    Padded rows keep the 0 of out and ctn. With `centres` (n_pad, B), row
+    i's centre c_i goes to centres[i]."""
     n_pad, B = out.shape
     dt, dev = ops.U.dtype, ops.device
     offs = window_offsets(ops.window, dt, dev)[:, None]
@@ -156,8 +166,11 @@ def _smk_propose_plain(ops: SMKOperands, rows, out, ct, ctn):
         for r in range(min(ROW_BLOCK, ops.n - lo) - 1, -1, -1):
             i = lo + r
             coup = t[r] + ops.U[i, i + 1:hi] @ out[i + 1:hi]
-            z, logz = _draw_row_plain(ct[i] - coup, ops.isgp[i], u[r],
-                                      ops.window, offs, offs_half)
+            c = ct[i] - coup
+            if centres is not None:
+                centres[i] = c
+            z, logz = _draw_row_plain(c, ops.isgp[i], u[r], ops.window,
+                                      offs, offs_half)
             out[i] = z
             ctn[i] = z + coup
             lw += logz.to(torch.float64)
@@ -171,8 +184,9 @@ def smk_steps_plain(ops: SMKOperands, x, acc, n_steps: int, *,
     chain-minor state x (n_pad, B) and the acceptance count acc (B,) in
     place. Step s uses Philox step `step + s`. Returns (x, acc, log_alpha
     of the last step); with `debug`, also a dict of the last step's
-    proposal `p`, its centres `ctn` and `lwf`, `lwr`, `qn`, `qc`,
-    `log_alpha`."""
+    proposal `p`, its centres `ctn`, its forward centres `c` and reverse
+    centres `cp` (each (n_pad, B), 0 on padded rows) and `lwf`, `lwr`,
+    `qn`, `qc`, `log_alpha`."""
     n_pad, B = x.shape
     dt, dev = ops.U.dtype, ops.device
     offs = window_offsets(ops.window, dt, dev)
@@ -192,7 +206,8 @@ def smk_steps_plain(ops: SMKOperands, x, acc, n_steps: int, *,
             ua = philox_uniform(seed, chain_ids(B, chain_offset, dev),
                                 step + s, torch.zeros(1, device=dev),
                                 TAG_ACCEPT)[0]
-        lwf = _smk_propose_plain(ops, rows, prop, ct, ctn)
+        centres = torch.zeros_like(x) if debug else None
+        lwf = _smk_propose_plain(ops, rows, prop, ct, ctn, centres)
         # padded rows add exactly 0 (c' = 0 at width 1e-6, wqt = 0)
         n = ops.n
         cp = (ctn[:n] - ct[:n]) + x[:n]
@@ -206,8 +221,11 @@ def smk_steps_plain(ops: SMKOperands, x, acc, n_steps: int, *,
         ua = torch.clamp(ua.to(dt), min=1e-30)
         accept = torch.log(ua) < la
         if debug:
-            dbg = {"p": prop.clone(), "ctn": ctn.clone(), "lwf": lwf,
-                   "lwr": lwr, "qn": qn, "qc": qc, "log_alpha": la}
+            cpf = torch.zeros_like(x)
+            cpf[:n] = cp
+            dbg = {"p": prop.clone(), "ctn": ctn.clone(), "c": centres,
+                   "cp": cpf, "lwf": lwf, "lwr": lwr, "qn": qn, "qc": qc,
+                   "log_alpha": la}
         x.copy_(torch.where(accept[None, :], prop, x))
         ct = torch.where(accept[None, :], ctn, ct)
         acc += accept.to(acc.dtype)
@@ -218,12 +236,41 @@ def smk_steps_plain(ops: SMKOperands, x, acc, n_steps: int, *,
 # Kernel wrapper.
 # ---------------------------------------------------------------------------
 
+EXACT_Y = klein_cuda.EXACT_Y
+# the proposal tile and the coupling tile are B2's (imhk_tc_common.cuh
+# `tc_smem_bytes`), so the largest n_pad is B2's
+SMK_TC_MAX_N_PAD = klein_cuda.IMHK_TC_MAX_N_PAD
+
+
+def exact_guard(device) -> torch.Tensor:
+    """Hazard C8's device counters for one entry-point call, (2,) int32:
+    [state or drawn coefficients with |y| > 256, largest |y|]. Pass it to
+    every B4 launch of the call, then read it once with `check_exact`."""
+    return torch.zeros(2, dtype=torch.int32, device=device)
+
+
+def check_exact(guard: torch.Tensor, what: str):
+    """Read an `exact_guard` (one synchronisation): keep the largest |y| in
+    `smk_steps.max_abs_y`, and raise if a coefficient left the range where
+    the bf16 coupling is exact."""
+    bad, top = guard.tolist()
+    smk_steps.max_abs_y = max(smk_steps.max_abs_y, top)
+    if bad:
+        raise RuntimeError(
+            f"{what}: {bad} state or drawn coefficients have |y| > "
+            f"{EXACT_Y}, where the bf16 coupling is no longer exact "
+            "(hazard C8)")
+
 
 def _check_operands(ops: SMKOperands):
     n_pad = ops.n_pad
     if n_pad % klein_cuda.BLOCK:
         raise ValueError(f"n_pad {n_pad} is not a multiple of "
                          f"{klein_cuda.BLOCK}")
+    if n_pad > SMK_TC_MAX_N_PAD:
+        raise ValueError(
+            f"n_pad {n_pad} is above {SMK_TC_MAX_N_PAD}, the largest whose "
+            "proposal tile fits a block's shared memory")
     check_cuda("U", ops.U, (n_pad, n_pad))
     check_cuda("UT", ops.UT, (n_pad, n_pad))
     for name in ("cse", "isgp", "wqt"):
@@ -232,43 +279,111 @@ def _check_operands(ops: SMKOperands):
         raise ValueError(f"window {ops.window} outside [1, {MAX_WINDOW}]")
 
 
-def smk_steps(ops: SMKOperands, x, acc, n_steps: int, *, seed: int = 0,
-              step: int = 0, chain_offset: int = 0, uniforms=None):
-    """B4: n_steps fused SMK steps in one launch, updating the recentered
-    state x (n_pad, B) and acc (B,) (float32 acceptance counts) in place.
-    Returns (x, acc, log_alpha of the last step (B,)). CPU operands run
-    `smk_steps_plain`."""
-    if ops.device.type == "cpu":
-        return smk_steps_plain(ops, x, acc, n_steps, seed=seed, step=step,
-                               chain_offset=chain_offset, uniforms=uniforms)
+def _smk_tc_launch(ops: SMKOperands, x, acc, n_steps: int, seed: int,
+                   step: int, chain_offset: int, uniforms, what: str,
+                   bad: torch.Tensor, dbg=None):
+    """Launch smk_tc.cu's kernel on x (n_pad, B) and acc in place, its C8
+    counters into bad (an `exact_guard`); raise on a launch error. Returns
+    the last step's log alpha (B,). Does not wait for the kernel."""
     _check_operands(ops)
     B = x.shape[1]
     check_cuda("x", x, (ops.n_pad, B))
     check_cuda("acc", acc, (B,))
+    check_cuda("bad", bad, (2,), torch.int32)
     if n_steps < 1:
         raise ValueError(f"n_steps {n_steps} must be >= 1")
     if uniforms is not None:
         check_cuda("uniforms", uniforms,
-                    (n_steps * (ops.n_pad + ACCEPT_ROWS), B))
-    lib = load("smk")
-    ct = torch.empty_like(x)
-    prop = torch.empty_like(x)
-    ctn = torch.empty_like(x)
+                   (n_steps * (ops.n_pad + ACCEPT_ROWS), B))
+    lib = load("smk_tc")
+    frag = klein_cuda.tc_fragments(ops)
+    ct0, ct1 = torch.empty_like(x), torch.empty_like(x)
     la = torch.empty_like(acc)
     k0, k1 = seed_key(seed)
-    rc = lib.smk_steps_launch(
-        ptr(ops.U), ptr(ops.UT), ptr(ops.cse), ptr(ops.isgp),
-        ptr(ops.wqt), ptr(uniforms) if uniforms is not None else None,
-        ptr(x), ptr(acc), ptr(ct), ptr(prop), ptr(ctn), ptr(la),
-        ops.n_pad, B, ops.window, n_steps, k0, k1, step, chain_offset,
+    rc = lib.smk_tc_launch(
+        ptr(frag), ptr(ops.UT), ptr(ops.cse), ptr(ops.isgp), ptr(ops.wqt),
+        ptr(uniforms) if uniforms is not None else None,
+        ptr(x), ptr(acc), ptr(ct0), ptr(ct1), ptr(la),
+        ptr(dbg) if dbg is not None else None, ptr(bad), ops.n_pad, B,
+        ops.window, n_steps, k0, k1, step, chain_offset,
         ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
-    raise_on("smk", rc, "smk_steps")
+    raise_on("smk_tc", rc, what)
+    return la
+
+
+def smk_steps(ops: SMKOperands, x, acc, n_steps: int, *, seed: int = 0,
+              step: int = 0, chain_offset: int = 0, uniforms=None,
+              guard=None):
+    """B4: n_steps fused SMK steps in one launch, updating the recentered
+    state x (n_pad, B) and acc (B,) (float32 acceptance counts) in place.
+    Returns (x, acc, log_alpha of the last step (B,)). With `guard` (an
+    `exact_guard`) the caller reads the C8 counters with `check_exact`;
+    without one the wrapper reads its own after the launch. CPU operands
+    run `smk_steps_plain`."""
+    if ops.device.type == "cpu":
+        return smk_steps_plain(ops, x, acc, n_steps, seed=seed, step=step,
+                               chain_offset=chain_offset, uniforms=uniforms)
+    own = guard is None
+    if own:
+        guard = exact_guard(ops.device)
+    la = _smk_tc_launch(ops, x, acc, n_steps, seed, step, chain_offset,
+                        uniforms, "smk_steps", guard)
     smk_steps.launches += 1
+    if own:
+        check_exact(guard, "smk_steps")
     return x, acc, la
+
+
+def smk_centres_plain(ops: SMKOperands, x, *, seed: int = 0, step: int = 0,
+                      chain_offset: int = 0, uniforms=None):
+    """Plain version of `smk_centres`: one SMK step (B4's plain version,
+    state in place) that also returns its forward centres, reverse centres
+    and proposal, each (n_pad, B)."""
+    _, _, _, dbg = smk_steps_plain(
+        ops, x, torch.zeros(x.shape[1], dtype=x.dtype, device=x.device), 1,
+        seed=seed, step=step, chain_offset=chain_offset, uniforms=uniforms,
+        debug=True)
+    return dbg["c"], dbg["cp"], dbg["p"]
+
+
+def smk_centres(ops: SMKOperands, x, *, seed: int = 0, step: int = 0,
+                chain_offset: int = 0, uniforms=None):
+    """B4's debug instantiation: one fused SMK step (state x in place) that
+    also writes its forward centres c_i and reverse centres c'_i, as the
+    kernel forms them, and its proposal. Returns (centres, reverse centres,
+    proposal), each (n_pad, B), recentred. For holding the kernel's own
+    centres to float64; not a launch of the main path. CPU operands run
+    `smk_centres_plain`."""
+    if ops.device.type == "cpu":
+        return smk_centres_plain(ops, x, seed=seed, step=step,
+                                 chain_offset=chain_offset,
+                                 uniforms=uniforms)
+    n_pad = ops.n_pad
+    dbg = torch.empty(3 * n_pad, x.shape[1], dtype=torch.float32,
+                      device=ops.device)
+    guard = exact_guard(ops.device)
+    _smk_tc_launch(ops, x, torch.zeros(x.shape[1], device=ops.device), 1,
+                   seed, step, chain_offset, uniforms, "smk_centres", guard,
+                   dbg=dbg)
+    check_exact(guard, "smk_centres")
+    return dbg[:n_pad], dbg[n_pad:2 * n_pad], dbg[2 * n_pad:]
+
+
+def smk_tc_resources(n_pad: int, window: int) -> dict:
+    """B4's kernel for `window` at n_pad on the current card: registers and
+    local (spill) bytes a thread, dynamic shared memory and threads a
+    block, and blocks resident per SM."""
+    out = (ctypes.c_int * 5)()
+    raise_on("smk_tc", load("smk_tc").smk_tc_info(n_pad, window, out),
+             "smk_tc_info")
+    return dict(zip(("registers", "local_bytes", "shared_bytes",
+                     "blocks_per_sm", "threads"), list(out)))
 
 
 def reset_launch_counts():
     smk_steps.launches = 0
+    # largest |y| of the state and the proposals since the reset (C8)
+    smk_steps.max_abs_y = 0
 
 
 reset_launch_counts()

@@ -386,13 +386,17 @@ class MetropolisKleinSampler:
                    return_coeffs: bool = False, backend: str = "auto"):
         """`num_samples` independent SMK chains from a Klein draw of the
         target (B1), `n_steps` fused SMK steps each (B4, one launch);
-        returns the final states, (num_samples, n)."""
+        returns the final states, (num_samples, n). Hazard C8's guard is
+        read once, after the launch."""
         check_backend(backend, self.device)
         n_steps = max(1, int(n_steps))
         kops = self.klein_operands
         x, _ = klein_cuda.klein_draw(kops, num_samples, seed=seed, step=0)
         acc = torch.zeros(num_samples, dtype=x.dtype, device=x.device)
-        smk_cuda.smk_steps(self.operands, x, acc, n_steps, seed=seed, step=1)
+        guard = smk_cuda.exact_guard(self.device)
+        smk_cuda.smk_steps(self.operands, x, acc, n_steps, seed=seed, step=1,
+                           guard=guard)
+        smk_cuda.check_exact(guard, "SMKSampler.sample_iid")
         self.acceptance_rate = float(acc.sum()) / (num_samples * n_steps)
         coeffs = klein_cuda.from_kernel_layout(kops, x)
         return coeffs if return_coeffs else klein_points(self.pre.basis,

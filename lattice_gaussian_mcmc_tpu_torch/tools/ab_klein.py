@@ -1,5 +1,5 @@
-"""Time kernels B1, B2 and B3 of one checkout of the port at the paths'
-shapes, for comparing two trees on one card.
+"""Time kernels B1-B5 of one checkout of the port at the paths' shapes,
+for comparing two trees on one card.
 
     python3 lattice_gaussian_mcmc_tpu_torch/tools/ab_klein.py TREE [RING]
 
@@ -14,8 +14,13 @@ B2's accept count;
 one 48-step B3 launch (lw ring only) at the hard-regime row's shapes
 (sigma 0.45 max ||b*_i||, window by tail budget 0.01, 131,072 chains) with
 its accept count (each count equal across trees whose kernels make the
-same decisions, close otherwise); and ptxas's register lines. Run it for
-parent, change, change, parent, one after another on the same card.
+same decisions, close otherwise); at ring degree 512 also one 32-step B4
+launch at the SMK row's shapes (proposal 0.45 sigma of the hard-regime
+row's, window 8, 131,072 chains from a Klein draw) with its accept count,
+and B5 at the Peikert row's shapes (sigma 1.05 r s1(B), window 24, 8
+rounds) at 65,536 and at 4,096 chains, with its plain version's time at
+4,096; and ptxas's register lines. Run it for parent, change, change,
+parent, one after another on the same card.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import sys
 
 CHAINS = 524288
 B1_REPS = 5
+SMK_STEPS = 32
+PEIKERT_CHAINS, PEIKERT_CHECK_CHAINS, PEIKERT_ROUNDS = 65536, 4096, 8
 STEPS = 64
 HARD_CHAINS = 131072
 HARD_STEPS = 48
@@ -76,10 +83,11 @@ def main(tree: str, ring: int = 512) -> dict:
     acc_h = torch.zeros_like(lw_h)
     b3 = ms(lambda: klein_cuda.imhk_trajectory(
         ops_h, x, lw_h, acc_h, HARD_STEPS, 1, seed=100, step=1))
+    if ring == 512:
+        out_45 = _b4_b5(lat, sigma_h, ms)
     ptxas = {name: [ln.strip() for ln in info["ptxas"].splitlines()
                     if "entry function" in ln or "registers" in ln]
-             for name, info in _build.BUILD_INFO.items()
-             if name in ("klein", "imhk_tc")}
+             for name, info in _build.BUILD_INFO.items()}
     out = {"tree": tree, "dim": ops.n, "window": ops.window,
            "b1_ms": sorted(b1)[B1_REPS // 2], "b1_each_ms": b1,
            f"b2_{STEPS}_ms": b2,
@@ -90,7 +98,53 @@ def main(tree: str, ring: int = 512) -> dict:
         out["imhk_tc_resources"] = {
             w: klein_cuda.imhk_tc_resources(ops.n_pad, w)
             for w in (ops.window, ops_h.window)}
+    if ring == 512:
+        out.update(out_45)
     return out
+
+
+def _b4_b5(lat, sigma_h, ms) -> dict:
+    """B4 and B5 at the SMK and Peikert rows' shapes on the lattice of ring
+    degree 512, each after a warm-up launch."""
+    import numpy as np
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import (
+        klein_cuda,
+        peikert_cuda,
+        smk_cuda,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.ops.theta import (
+        smoothing_parameter_zn,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.samplers import (
+        PeikertSampler,
+        SMKSampler,
+    )
+    ss = SMKSampler(lat, sigma_h, proposal_sigma=0.45 * sigma_h,
+                    tail_budget=0.01)
+    x, _ = klein_cuda.klein_draw(ss.klein_operands, HARD_CHAINS, seed=31)
+    acc = torch.zeros(HARD_CHAINS, device="cuda")
+    smk_cuda.smk_steps(ss.operands, x.clone(), acc.clone(), 1, seed=400,
+                       step=1)
+    b4 = ms(lambda: smk_cuda.smk_steps(ss.operands, x, acc, SMK_STEPS,
+                                       seed=400, step=1))
+    del x
+    s1 = float(np.linalg.norm(lat.basis.cpu().double().numpy(), 2))
+    r = smoothing_parameter_zn(lat.n, 0.01)
+    ops_p = PeikertSampler(lat, 1.05 * r * s1).operands
+    b5 = {}
+    for B in (PEIKERT_CHAINS, PEIKERT_CHECK_CHAINS):
+        peikert_cuda.peikert_rounds(ops_p, B, PEIKERT_ROUNDS, seed=502)
+        b5[B] = ms(lambda: peikert_cuda.peikert_rounds(
+            ops_p, B, PEIKERT_ROUNDS, seed=502))
+    plain = ms(lambda: peikert_cuda.peikert_rounds_plain(
+        ops_p, PEIKERT_CHECK_CHAINS, PEIKERT_ROUNDS, seed=502))
+    return {f"b4_{SMK_STEPS}_ms": b4, "b4_accepted": float(acc.sum()),
+            "b4_window": ss.operands.window,
+            f"b5_{PEIKERT_CHAINS}_ms": b5[PEIKERT_CHAINS],
+            f"b5_{PEIKERT_CHECK_CHAINS}_ms": b5[PEIKERT_CHECK_CHAINS],
+            f"b5_{PEIKERT_CHECK_CHAINS}_plain_ms": plain,
+            "b5_rounds": PEIKERT_ROUNDS, "b5_window": ops_p.window}
 
 
 if __name__ == "__main__":

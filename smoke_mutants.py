@@ -40,18 +40,26 @@ MUTANTS = {
     # B2/B3's coupling on U1 alone: one bf16 pass (hazard C2)
     "b2_hi_only": ("imhk_tc.cu", "constexpr int PASSES = PARTS;",
                    "constexpr int PASSES = 1;"),
-    # the Klein coupling of B1, B4, B6 and B7 reads U with TF32's 10-bit
+    # the Klein coupling of B1, B6 and B7 reads U with TF32's 10-bit
     # mantissa (hazard C2)
     "tf32_coupling": ("klein_common.cuh", "const float4 u = __ldg(u4 + q);",
                       "float4 u = __ldg(u4 + q); "
                       + " ".join(_tf32("u", c) for c in "xyzw")),
     # B4 drops the reverse proposal term of its ratio (lw_rev = 0)
-    "smk_no_reverse": ("smk.cu", "la = (float)((qc - qn) + (lwf - lwr));",
+    "smk_no_reverse": ("smk_tc.cu",
+                       "la = (float)((qc - qn) + (lwf - lwr));",
                        "la = (float)((qc - qn) + (lwf - 0.0));"),
-    # B5 reads L2 with TF32's 10-bit mantissa
-    "tf32_peikert": ("peikert.cu", "const float4 l = __ldg(l4 + q);",
-                     "float4 l = __ldg(l4 + q); "
-                     + " ".join(_tf32("l", c) for c in "xyzw")),
+    # B4's coupling (and its ct = U y) on U1 alone: one bf16 pass (C2)
+    "smk_hi_only": ("smk_tc.cu", "constexpr int PASSES = PARTS;",
+                    "constexpr int PASSES = 1;"),
+    # B5 reads L2 with TF32's 10-bit mantissa: its lo part is dropped
+    "tf32_peikert": ("peikert_tc.cu", "mma_tf32(dc[n], alo, bh[0], bh[1]);",
+                     ""),
+    # B5's product as the Pallas kernel's: both operands split into two
+    # bf16 parts, hi.hi + hi.lo + lo.hi (hazard C9)
+    "peikert_two_part": ("peikert_tc.cu",
+                         "constexpr uint32_t KEEP = 0xFFFFE000u;",
+                         "constexpr uint32_t KEEP = 0xFFFF0000u;"),
     # B7 rounds half away from zero (hazard C3)
     "babai_roundf": ("klein.cu", "const float yi = rintf(c);",
                      "const float yi = roundf(c);"),

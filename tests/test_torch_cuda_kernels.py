@@ -1,6 +1,6 @@
 """The CUDA kernels B1 (Klein draw), B2 (fused IMHK), B3 (IMHK trajectory;
-B2 and B3 from `csrc/imhk_tc.cu`),
-B4 (fused SMK), B5 (Peikert), B6 (Klein ring), B7 (Babai) and B8 (Z^n)
+B2 and B3 from `csrc/imhk_tc.cu`), B4 (fused SMK, `csrc/smk_tc.cu`), B5
+(Peikert, `csrc/peikert_tc.cu`), B6 (Klein ring), B7 (Babai) and B8 (Z^n)
 against their plain PyTorch versions on the card, and the entry points that
 must reach them. These need a CUDA device and skip without
 one; they import nothing of JAX, so on a machine with a card and no JAX run
@@ -9,11 +9,17 @@ one; they import nothing of JAX, so on a machine with a card and no JAX run
 
 (`chip_smoke.py` makes the same checks at the flagship's shapes)."""
 
+import dataclasses
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from lattice_gaussian_mcmc_tpu_torch.lattices import lattice_from_basis
+from lattice_gaussian_mcmc_tpu_torch.lattices import (
+    lattice_from_basis,
+    ntru_lattice,
+)
 from lattice_gaussian_mcmc_tpu_torch.ops import linalg
 from lattice_gaussian_mcmc_tpu_torch.ops.kernels import (
     klein_cuda,
@@ -21,6 +27,7 @@ from lattice_gaussian_mcmc_tpu_torch.ops.kernels import (
     smk_cuda,
     zn_cuda,
 )
+from lattice_gaussian_mcmc_tpu_torch.ops.theta import smoothing_parameter_zn
 from lattice_gaussian_mcmc_tpu_torch.samplers import (
     IMHKSampler,
     KleinSampler,
@@ -32,6 +39,7 @@ from lattice_gaussian_mcmc_tpu_torch.samplers import (
     sample_zn,
 )
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, B = 136, 2048
 # float32 CDF-boundary ties between the kernel and its plain version (the
 # coupling sums run in another order) flip a draw by one and re-route the
@@ -253,6 +261,131 @@ def test_b4_matches_plain_2d_hard_regime():
     smk_cuda.reset_launch_counts()
     s.sample_iid(5, 1024, n_steps=2, backend="cuda")
     assert smk_cuda.smk_steps.launches == 1
+
+
+@pytest.mark.cuda
+def test_b4_raises_beyond_the_exact_range_and_its_largest_n_pad():
+    """Hazard C8 for B4: a state or proposal coefficient with |y| > 256 is
+    not exact in bf16, so the wrapper (or SMKSampler.sample_iid, reading
+    its one guard) raises; at 200 it runs and reports the range. Above
+    SMK_TC_MAX_N_PAD the wrapper names the limit before it launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lat = lattice_from_basis(np.array([[1.0, 0.5], [0.0, 1.0]]),
+                             device="cuda")
+    s = SMKSampler(lat, 0.35, proposal_sigma=0.35, device="cuda")
+    ops = s.operands
+    chains = 256
+    for value, raises in ((200.0, False), (256.0, True), (300.0, True)):
+        # at 256 the state is exact but proposals step to 257
+        x = torch.zeros(ops.n_pad, chains, device="cuda")
+        x[0] = value
+        acc = torch.zeros(chains, device="cuda")
+        smk_cuda.reset_launch_counts()
+        if raises:
+            with pytest.raises(RuntimeError, match="smk_steps.*C8"):
+                smk_cuda.smk_steps(ops, x, acc, 4, seed=1)
+        else:
+            smk_cuda.smk_steps(ops, x, acc, 4, seed=1)
+            assert 195 <= smk_cuda.smk_steps.max_abs_y <= 205
+    s.klein_operands.cs[0] = 300.0   # the Klein start's row 0 beyond 256
+    with pytest.raises(RuntimeError, match="SMKSampler.sample_iid.*C8"):
+        s.sample_iid(1, chains, n_steps=2, return_coeffs=True)
+    n_pad = smk_cuda.SMK_TC_MAX_N_PAD + klein_cuda.BLOCK
+    eye = torch.eye(n_pad, device="cuda")
+    zeros = torch.zeros(n_pad, device="cuda")
+    big = smk_cuda.SMKOperands(U=eye, UT=eye, cse=zeros, isgp=zeros + 1,
+                               wqt=zeros, shift=zeros, n=n_pad, window=8)
+    x = torch.zeros(n_pad, 32, device="cuda")
+    smk_cuda.reset_launch_counts()
+    with pytest.raises(ValueError, match=str(smk_cuda.SMK_TC_MAX_N_PAD)):
+        smk_cuda.smk_steps(big, x, torch.zeros(32, device="cuda"), 1)
+    assert smk_cuda.smk_steps.launches == 0
+
+
+@pytest.mark.cuda
+def test_b4_b5_runtime_window_match_plain():
+    """A window other than the compiled 8, 16 and 24 takes B4's and B5's
+    runtime-window path: B4 decision by decision in the 2D hard regime,
+    B5 up to ties on the caller's normals."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lat = lattice_from_basis(np.array([[1.0, 0.5], [0.0, 1.0]]),
+                             device="cuda")
+    s = SMKSampler(lat, 0.35, proposal_sigma=0.35, device="cuda")
+    ops = dataclasses.replace(s.operands, window=12)
+    y, _ = klein_cuda.klein_draw(s.klein_operands, 8192, seed=3)
+    x, a = y.clone(), torch.zeros(8192, device="cuda")
+    xp, ap = y.clone(), torch.zeros(8192, device="cuda")
+    smk_cuda.smk_steps(ops, x, a, 4, seed=3, step=1)
+    smk_cuda.smk_steps_plain(ops, xp, ap, 4, seed=3, step=1)
+    same = (x[:2] == xp[:2]).all(dim=0)
+    assert 1 - same.float().mean().item() <= MAX_CHAINS_DIFFERING
+    assert torch.equal(a[same], ap[same])
+    assert 0 < a.sum().item() < 4 * 8192
+    rng = np.random.default_rng(5)
+    basis = np.triu(rng.uniform(-0.5, 0.5, (N, N))) + np.eye(N)
+    lp = lattice_from_basis(basis, device="cuda")
+    pk = PeikertSampler(lp, 3.0 * float(np.linalg.norm(basis, 2)),
+                        device="cuda")
+    opp = peikert_cuda.peikert_operands(pk.pre, window=40)
+    z = torch.randn(opp.n_pad, B, device="cuda")
+    u = torch.rand(opp.n_pad, B, device="cuda")
+    ring = peikert_cuda.peikert_rounds(opp, B, 1, uniforms=u, normals=z)
+    ringp = peikert_cuda.peikert_rounds_plain(opp, B, 1, uniforms=u,
+                                              normals=z)
+    diff = ring != ringp
+    assert diff.float().mean().item() <= 1e-3
+    assert bool(((ring - ringp).abs()[diff] == 1).all())
+
+
+def _peikert_row():
+    """PeikertSampler at the Peikert row's operands: NTRU-512 (dimension
+    1024), sigma 1.05 r s1(B)."""
+    lat = ntru_lattice(512, q=12289, seed=0,
+                       cache_dir=os.path.join(REPO, "bench_cache"),
+                       device="cuda")
+    s1 = float(np.linalg.norm(lat.basis.cpu().numpy(), 2))
+    r = smoothing_parameter_zn(lat.n, 0.01)
+    return PeikertSampler(lat, 1.05 * r * s1, device="cuda"), r
+
+
+@pytest.mark.cuda
+def test_b5_matches_plain_at_the_peikert_row():
+    """At dimension 1024, window 24: on the caller's normals and on
+    Philox, coordinates differ only by ties, each by one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    s, _ = _peikert_row()
+    ops = s.operands
+    assert (ops.n_pad, ops.window) == (1024, 24)
+    z = torch.randn(2 * ops.n_pad, B, device="cuda")
+    u = torch.rand(2 * ops.n_pad, B, device="cuda")
+    for kw in ({"normals": z, "uniforms": u}, {"seed": 6}):
+        ring = peikert_cuda.peikert_rounds(ops, B, 2, **kw)
+        ringp = peikert_cuda.peikert_rounds_plain(ops, B, 2, **kw)
+        diff = ring != ringp
+        assert diff.float().mean().item() <= 1e-3
+        assert bool(((ring - ringp).abs()[diff] == 1).all())
+
+
+@pytest.mark.cuda
+def test_b5_centres_within_the_gate_of_float64():
+    """B5's debug instantiation: its own centres c = c' - L2 z (3xTF32 on
+    the tensor cores) within 2e-3 r of float64 (hazard C9)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    s, r = _peikert_row()
+    ops = s.operands
+    z = torch.randn(ops.n_pad, B, device="cuda")
+    u = torch.rand(ops.n_pad, B, device="cuda")
+    c, ring = peikert_cuda.peikert_centres(ops, B, uniforms=u, normals=z)
+    n = ops.n
+    c64 = (s.pre.cprime.double()[:, None]
+           - s.pre.L2.double() @ z[:n].double())
+    assert float((c[:n].double() - c64).abs().max()) / r <= 2e-3
+    assert torch.equal(ring, peikert_cuda.peikert_rounds(
+        ops, B, 1, uniforms=u, normals=z))
 
 
 @pytest.mark.cuda
