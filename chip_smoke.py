@@ -12,8 +12,11 @@ decoding. Phases, one JSON line each:
   toolchain        versions, the card, the kernel builds (one nvcc per
                    source, all started together)
   kernel_vs_plain  each kernel against its plain PyTorch version on the
-                   card, on the caller's random numbers: B1 (Klein draw),
-                   B2 (fused IMHK) with the f32 conditional-centre error
+                   card, on the caller's random numbers: B1 (Klein draw)
+                   with its own centres against float64 and bit for bit
+                   against B2's proposal at the same step, and above
+                   n_pad 3,456 (klein.cu's FP32 route, with B6); B2
+                   (fused IMHK) with the f32 conditional-centre error
                    against float64, of the plain version's centres and of
                    the kernel's own (its debug instantiation), and B2 in
                    the 2D hard regime, where it rejects; B3 (IMHK
@@ -22,9 +25,11 @@ decoding. Phases, one JSON line each:
                    its own forward and reverse centres against float64,
                    and decision by decision in the 2D hard regime; B5
                    (Peikert) at the Peikert row's operands, its own centres
-                   against float64; B6
-                   (Klein ring) round 0 and a one-round ring bit for bit
-                   against B1, every round against its plain version; B7
+                   against float64, and at NTRU-1024 (dimension 2048, 16
+                   chains a block); B6 (Klein ring) round 0 and a
+                   one-round ring bit for bit against B1, every round
+                   against its plain version, its own centres against
+                   float64; B7
                    (Babai) against the float64 nearest plane and, at
                    half-integer 2D targets, decision for decision against
                    its plain version; B8 (Z^n) against its plain version
@@ -54,7 +59,8 @@ decoding. Phases, one JSON line each:
                    UnifiedLatticeSampler.decode on NTRU-64
   timing           B1 and B2 against their plain versions at the flagship
                    shapes, B6-B8 at the suite's and the decode phase's
-                   shapes, and every kernel's bound
+                   shapes, every kernel's bound, and the design floors of
+                   B1, B2 and B6
 
 Each path phase (flagship, hard_regime, smk, peikert, suite, decode) sets
 every launch count to 0 before it runs and reads them after. Then the card's name and
@@ -175,6 +181,18 @@ B6_STD_TOL = 0.02                    # |std / (sigma sqrt(diag(G^-1))) - 1|
 SUITE_DIMS = (256, 1024)
 SUITE_CHAINS = 65_536                # the suite's default n_chains
 SUITE_DIRECT_DIMS = (16, 64)
+# B1 and B6 above the tensor-core sweep's reach (klein_cuda's
+# KLEIN_TC_MAX_N_PAD, 3,456) run klein.cu's FP32 sweep: checked on an
+# upper-triangular basis of dimension 3,500 (n_pad 3,584), diagonal in
+# [1, 2] and entries above it in [-0.05, 0.05] (so ||B^-1|| ~ 4 and the
+# coefficients stay small), at sigma 4 (window 40)
+FP32_ROUTE_N = 3500
+FP32_ROUTE_CHAINS = 512
+FP32_ROUTE_SIGMA = 4.0
+FP32_ROUTE_ROUNDS = 2
+# B5 at NTRU-1024 (dimension 2048: n_pad above 1,792, 16 chains a block),
+# bench.py's Peikert row at BENCH_N = 1024
+PEIKERT_WIDE_RING = 1024
 
 
 def emit(obj):
@@ -518,6 +536,8 @@ class Smoke:
 
     def counts(self):
         return {"klein_draw": self.kc.klein_draw.launches,
+                "klein_draw_fp32": self.kc.klein_draw.fp32_launches,
+                "klein_ring_fp32": self.kc.klein_ring.fp32_launches,
                 "imhk_fused": self.kc.imhk_fused.launches,
                 "imhk_trajectory": self.kc.imhk_trajectory.launches,
                 "smk_steps": self.sc.smk_steps.launches,
@@ -562,7 +582,8 @@ def phase_toolchain(s: Smoke):
     t0 = time.perf_counter()
     built = _build.build_all()
     build_s = time.perf_counter() - t0
-    for name in ("klein", "imhk_tc", "smk_tc", "peikert_tc", "zn"):
+    for name in ("klein", "klein_tc", "imhk_tc", "smk_tc", "peikert_tc",
+                 "zn"):
         _build.load(name)
     ptxas = {name: [ln.strip() for ln in info["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln][:12]
@@ -573,21 +594,40 @@ def phase_toolchain(s: Smoke):
                for w in (16, 8, 24)}
     smk_tc = {f"window_{w}": s.sc.smk_tc_resources(1024, w)
               for w in (8, 16, 24)}
+    # B1's and B6's (klein_tc.cu) at n_pad 256 and 1024
+    klein_tc = {f"n_pad_{n}": {f"{k}_window_{w}": s.kc.klein_tc_resources(
+        n, w, ring=k == "b6") for k in ("b1", "b6") for w in (8, 16, 24)}
+        for n in (256, 1024)}
     emit({"phase": "toolchain", "ok": True, "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc.strip().splitlines()[-1] if nvcc else None,
           "triton": has_triton, "card": s.card, "build_s": build_s,
           "build_s_each": built, "ptxas": ptxas,
-          "imhk_tc_resources": imhk_tc, "smk_tc_resources": smk_tc})
+          "imhk_tc_resources": imhk_tc, "smk_tc_resources": smk_tc,
+          "klein_tc_resources": klein_tc})
 
 
 # ---------------------------------------------------------- kernel_vs_plain
+def centre_err(pre, ops, y, c):
+    """max_i |c_i - c_f64,i| / sigma_i of the kernel's own conditional
+    centres c (n_pad, B) of its draw y (n_pad, B), both recentred, against
+    float64 from the float64 precomputation."""
+    n = ops.n
+    shift = ops.shift[:n, None].double()
+    x64 = y[:n].double() + shift
+    c64 = pre.cs[:, None] - pre.U @ x64 + x64
+    return float(((c[:n].double() + shift - c64).abs()
+                  / pre.sigmas[:, None]).max())
+
+
 def check_b6(s: Smoke):
     """B6 at the suite's klein-row operands on NTRU-512 (sigma 1.3
     max ||b*_i||, tail budget 0.01), CHECK_CHAINS chains x 3 rounds: one
     code path with B1 (round 0, and a one-round ring, bit for bit), every
     round against the plain version on the caller's uniforms and on Philox
-    (round r at step + r), rounds pairwise different."""
+    (round r at step + r), rounds pairwise different; its own centres (its
+    debug instantiation, drawing the same rounds bit for bit) against
+    float64."""
     import torch
     from lattice_gaussian_mcmc_tpu_torch.samplers import klein_precompute
     kc, B, R = s.kc, CHECK_CHAINS, B6_CHECK_ROUNDS
@@ -618,15 +658,147 @@ def check_b6(s: Smoke):
     distinct = all(not torch.equal(rq[a * n_pad:(a + 1) * n_pad],
                                    rq[b * n_pad:(b + 1) * n_pad])
                    for a in range(R) for b in range(a + 1, R))
-    ok = (round0 and one_round and distinct
+    cq, rqd, lqd = kc.klein_centres(ops, B, R, seed=62, step=3)
+    debug_equal = torch.equal(rqd, rq) and torch.equal(lqd, lq)
+    centre = max(centre_err(pre, ops, rq[r * n_pad:(r + 1) * n_pad],
+                            cq[r * n_pad:(r + 1) * n_pad]) for r in range(R))
+    del cq, rqd
+    max_abs_y = kc.klein_ring.max_abs_y
+    ok = (round0 and one_round and distinct and debug_equal
+          and centre < MAX_CENTRE_ERR
           and all(draws_ok(r) for r in host + philox))
     s.note("B6", max_abs_err=max(r["max_abs_lw_err"] for r in host + philox),
            coeffs_differing=max(r["coeffs_differing"] for r in host + philox),
-           plain_ms=plain_ms, check_ms=ms,
+           max_centre_err_over_sigma=centre, plain_ms=plain_ms, check_ms=ms,
            check_shape=f"{B} chains x {R} rounds, window {ops.window}")
     return ok, {"round0_equals_b1": round0, "one_round_equals_b1": one_round,
                 "rounds_distinct": distinct, "host": host, "philox": philox,
-                "rounds": R, "window": ops.window}
+                "debug_draws_equal": debug_equal,
+                "max_kernel_centre_err_over_sigma": centre,
+                "max_abs_y": max_abs_y, "rounds": R, "window": ops.window}
+
+
+def check_fp32_route(s: Smoke):
+    """B1 and B6 above the tensor-core sweep's reach, where the wrappers
+    take klein.cu's FP32 sweep: an upper-triangular basis of dimension
+    FP32_ROUTE_N (its own R, Q = I), FP32_ROUTE_CHAINS chains; B1 against
+    its plain version on the caller's uniforms, B6 (2 rounds) on Philox,
+    round 0 = B1 bit for bit, and both counted as FP32 launches."""
+    import numpy as np
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.lattices import lattice_from_numpy
+    from lattice_gaussian_mcmc_tpu_torch.samplers import klein_precompute
+    kc, B, R, N = s.kc, FP32_ROUTE_CHAINS, FP32_ROUTE_ROUNDS, FP32_ROUTE_N
+    rng = np.random.default_rng(35)
+    basis = (np.triu(rng.uniform(-0.05, 0.05, (N, N)), 1)
+             + np.diag(rng.uniform(1.0, 2.0, N)))
+    lat = lattice_from_numpy({"basis": basis, "Q": np.eye(N), "R": basis,
+                              "gs_norms": np.diag(basis)}, device=s.dev)
+    ops = kc.kernel_operands(klein_precompute(lat, FP32_ROUTE_SIGMA,
+                                              tail_budget=0.01))
+    n_pad = ops.n_pad
+
+    def counts():
+        return (kc.klein_draw.launches, kc.klein_ring.launches,
+                kc.klein_draw.fp32_launches, kc.klein_ring.fp32_launches)
+
+    before = counts()
+    u = torch.rand(n_pad, B, device=s.dev, generator=s.gen)
+    out, outp = [], []
+    ms = cuda_ms(lambda: out.extend(kc.klein_draw(ops, B, uniforms=u)))
+    plain_ms = cuda_ms(lambda: outp.extend(kc.klein_draw_plain(
+        ops, B, uniforms=u)))
+    host = compare_draws(out[0], outp[0], out[1], outp[1], N)
+    ring, lws = kc.klein_ring(ops, B, R, seed=63, step=2)
+    ringp, lwsp = kc.klein_ring_plain(ops, B, R, seed=63, step=2)
+    philox = [compare_draws(ring[r * n_pad:(r + 1) * n_pad],
+                            ringp[r * n_pad:(r + 1) * n_pad], lws[r],
+                            lwsp[r], N) for r in range(R)]
+    y0, l0 = kc.klein_draw(ops, B, seed=63, step=2)
+    round0 = torch.equal(ring[:n_pad], y0) and torch.equal(lws[0], l0)
+    distinct = not torch.equal(ring[:n_pad], ring[n_pad:2 * n_pad])
+    d = [a - b for a, b in zip(counts(), before)]
+    routed = kc.klein_route(n_pad) == "klein" and d == [0, 0, 2, 1]
+    ok = (routed and round0 and distinct
+          and all(draws_ok(r) for r in [host] + philox))
+    res = {"dim": N, "n_pad": n_pad, "window": ops.window, "chains": B,
+           "route": kc.klein_route(n_pad), "launches_tc_b1_b6_fp32_b1_b6": d,
+           "host": host, "philox": philox, "round0_equals_b1": round0,
+           "rounds_distinct": distinct, "ms": ms, "plain_ms": plain_ms}
+    s.note("B1", fp32_route={
+        "source": "lattice_gaussian_mcmc_tpu_torch/csrc/klein.cu",
+        "above_n_pad": kc.KLEIN_TC_MAX_N_PAD,
+        "check_shape": f"{B} chains, dim {N}, window {ops.window}",
+        "max_abs_err": max(r["max_abs_lw_err"] for r in [host] + philox),
+        "coeffs_differing": max(r["coeffs_differing"]
+                                for r in [host] + philox),
+        "check_ms": ms, "plain_ms": plain_ms})
+    return ok, res
+
+
+def check_b5_wide(s: Smoke):
+    """B5 at NTRU-1024 (dimension 2048: n_pad above 1,792, so 16 chains a
+    block), bench.py's Peikert row at BENCH_N = 1024 (sigma 1.05 r s1(B),
+    the window of suggest_peikert_window), CHECK_CHAINS chains x 2 rounds:
+    against its plain version on the caller's normals and on Philox, its
+    own centres against float64, and E||Bx||^2 / (dim sigma^2) of its
+    Philox draws."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.lattices import ntru_lattice
+    from lattice_gaussian_mcmc_tpu_torch.ops.theta import (
+        smoothing_parameter_zn,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.samplers import PeikertSampler
+    pc, B, nr = s.pc, CHECK_CHAINS, B5_CHECK_ROUNDS
+    lat = ntru_lattice(PEIKERT_WIDE_RING, q=12289, seed=0,
+                       cache_dir=os.path.join(REPO, "bench_cache"),
+                       device=s.dev)
+    s1 = float(torch.linalg.matrix_norm(lat.basis, ord=2))
+    r = smoothing_parameter_zn(lat.n, 0.01)
+    sigma = PEIKERT_SIGMA_OVER_RS1 * r * s1
+    sp = PeikertSampler(lat, sigma)
+    ops = sp.operands
+    n, n_pad = ops.n, ops.n_pad
+    chains_a_block = pc.peikert_block_chains(n_pad)
+    z = torch.randn(nr * n_pad, B, device=s.dev, generator=s.gen)
+    u = torch.rand(nr * n_pad, B, device=s.dev, generator=s.gen)
+    pc.peikert_rounds(ops, B, nr, uniforms=u, normals=z)      # warm-up
+    out, outp = [], []
+    ms = cuda_ms(lambda: out.append(pc.peikert_rounds(
+        ops, B, nr, uniforms=u, normals=z)))
+    plain_ms = cuda_ms(lambda: outp.append(pc.peikert_rounds_plain(
+        ops, B, nr, uniforms=u, normals=z)))
+    host = compare_rings(out[0], outp[0])
+    ring = pc.peikert_rounds(ops, B, nr, seed=43)
+    philox = compare_rings(ring, pc.peikert_rounds_plain(ops, B, nr,
+                                                         seed=43))
+    c5, _ = pc.peikert_centres(ops, B, uniforms=u[:n_pad],
+                               normals=z[:n_pad])
+    c64 = (sp.pre.cprime.double()[:, None]
+           - sp.pre.L2.double() @ z[:n].double())
+    centre = float((c5[:n].double() - c64).abs().max()) / r
+    del c5, c64, z, u, out, outp
+    X = pc.ring_coeffs(ops, ring).reshape(-1, n).double()
+    norm_ratio = float(((X @ lat.basis.T) ** 2).sum(1).mean()
+                       / (n * sigma ** 2))
+    del X, ring
+    ok = (chains_a_block == 16 and centre <= MAX_PEIKERT_CENTRE_ERR
+          and abs(norm_ratio - 1) < MAX_NORM_GAP
+          and all(c["coeffs_differing"] <= MAX_COEFF_SHARE
+                  and c["ties_off_by_one"] for c in (host, philox)))
+    s.note("B5", wide={"check_shape": f"{B} chains x {nr} rounds, dim {n}, "
+                                      f"window {ops.window}",
+                       "chains_a_block": chains_a_block, "check_ms": ms,
+                       "plain_ms": plain_ms,
+                       "max_abs_err": max(host["max_abs_err"],
+                                          philox["max_abs_err"]),
+                       "max_centre_err_over_r": centre})
+    return ok, {"dim": n, "n_pad": n_pad, "window": ops.window,
+                "sigma": sigma, "chains": B, "rounds": nr,
+                "chains_a_block": chains_a_block, "host": host,
+                "philox": philox, "max_kernel_centre_err_over_r": centre,
+                "norm2_over_dim_sigma2": norm_ratio, "ms": ms,
+                "plain_ms": plain_ms}
 
 
 def check_b7(s: Smoke):
@@ -750,21 +922,24 @@ def phase_kernel_vs_plain(s: Smoke):
     # These are the plain version's centres; the kernel's own are held to
     # them by the tie gates above (a TF32 or bf16 coupling would move them
     # by ~1e-3 of |c| and flip a large share of the draws).
-    c32 = ops.cs[:, None] - ops.U @ y + y
-    x64 = (y + ops.shift[:, None]).double()
-    c64 = pre.cs[:, None] - pre.U @ x64 + x64
-    centre = float(((c32.double() + ops.shift.double()[:, None] - c64).abs()
-                    / pre.sigmas[:, None]).max())
+    centre = centre_err(pre, ops, y, ops.cs[:, None] - ops.U @ y + y)
     # ... and the kernel's own: B2's debug instantiation writes the
     # conditional centres of one proposal (its three-pass bf16 coupling,
     # hazard C2) beside the proposal, held to float64 from that proposal
     xc, lc = y.clone(), lw.clone()
     ck, yk = kc.imhk_centres(ops, xc, lc, seed=13, step=1)
-    xk64 = (yk + ops.shift[:, None]).double()
-    ck64 = pre.cs[:, None] - pre.U @ xk64 + xk64
-    centre_kernel = float(((ck.double() + ops.shift.double()[:, None]
-                            - ck64).abs() / pre.sigmas[:, None]).max())
-    del xc, lc, ck, yk, xk64, ck64
+    centre_kernel = centre_err(pre, ops, yk, ck)
+    # B1's own centres (its debug instantiation) against float64, and one
+    # stream with B2: B1 at Philox step s draws B2's step-s proposal with
+    # the same centres, bit for bit
+    c1, y1c, l1c = kc.klein_centres(ops, B, seed=13, step=1)
+    y1s, l1s = kc.klein_draw(ops, B, seed=13, step=1)
+    b1_is_b2 = {"draw_equals_b2_proposal": torch.equal(y1s, yk),
+                "debug_draw_equals_b1": (torch.equal(y1c, y1s)
+                                         and torch.equal(l1c[0], l1s)),
+                "centres_equal_b2s": torch.equal(c1, ck)}
+    centre_b1 = centre_err(pre, ops, y1c, c1)
+    del xc, lc, ck, yk, c1, y1c, y1s
     # B2 where it rejects: the 2D hard regime (~1% of proposals rejected),
     # the operands of the law phase below, caller's uniforms
     basis2 = [[1.0, 0.5], [0.0, 1.0]]
@@ -774,14 +949,17 @@ def phase_kernel_vs_plain(s: Smoke):
     u0 = torch.rand(ops2.n_pad, HARD_CHECK_CHAINS, device=dev, generator=gen)
     y2, lw2 = kc.klein_draw(ops2, HARD_CHECK_CHAINS, uniforms=u0)
     b2_hard = fused_vs_plain(ops2, y2, lw2, HARD_CHECK_STEPS, gen)
-    b2_ok = (draws_ok(b1) and draws_ok(b2) and centre < MAX_CENTRE_ERR
+    b1_ok = (draws_ok(b1) and centre_b1 < MAX_CENTRE_ERR
+             and all(b1_is_b2.values()))
+    b2_ok = (draws_ok(b2) and centre < MAX_CENTRE_ERR
              and centre_kernel < MAX_CENTRE_ERR
              and b2["accept_differing"] <= MAX_ACCEPT_SHARE
              and b2["accept_differing_agreeing"] == 0
              and hard_decisions_ok(b2_hard, HARD_CHECK_CHAINS))
     del u1, y, yp, u0
     s.note("B1", max_abs_err=b1["max_abs_lw_err"],
-           coeffs_differing=b1["coeffs_differing"])
+           coeffs_differing=b1["coeffs_differing"],
+           max_centre_err_over_sigma=centre_b1)
     s.note("B2", max_abs_err=max(b2["max_abs_lw_err"],
                                  b2_hard["max_abs_lw_err"]),
            coeffs_differing=max(b2["coeffs_differing"],
@@ -923,12 +1101,18 @@ def phase_kernel_vs_plain(s: Smoke):
            plain_ms=b5_plain_ms, check_ms=b5_ms,
            check_shape=f"{B} chains x {nr} rounds, window {ops_p.window}")
 
+    b5w_ok, b5_wide = check_b5_wide(s)
     b6_ok, b6 = check_b6(s)
+    fp32_ok, fp32 = check_fp32_route(s)
     b7_ok, b7 = check_b7(s)
     b8_ok, b8 = check_b8(s)
-    ok = b2_ok and b3_ok and b4_ok and b5_ok and b6_ok and b7_ok and b8_ok
+    ok = (b1_ok and b2_ok and b3_ok and b4_ok and b5_ok and b5w_ok and b6_ok
+          and fp32_ok and b7_ok and b8_ok)
     emit({"phase": "kernel_vs_plain", "ok": ok, "chains": B, "dim": n,
-          "window": W, "plain_allow_tf32": False, "b1": b1, "b2_2steps": b2,
+          "window": W, "plain_allow_tf32": False,
+          "b1": dict(b1, max_kernel_centre_err_over_sigma=centre_b1,
+                     max_abs_y=kc.klein_draw.max_abs_y, **b1_is_b2),
+          "b1_b6_fp32_route": fp32, "b2_2steps": b2,
           "max_centre_err_over_sigma": centre,
           "max_kernel_centre_err_over_sigma": centre_kernel,
           "b2_hard_regime": dict(b2_hard, chains=HARD_CHECK_CHAINS,
@@ -945,9 +1129,12 @@ def phase_kernel_vs_plain(s: Smoke):
           "b5": dict(b5, rounds=nr, window=ops_p.window,
                      max_kernel_centre_err_over_r=b5_centre,
                      centre_gate=MAX_PEIKERT_CENTRE_ERR),
-          "b5_philox": b5_philox, "b6": b6, "b7": b7, "b8": b8,
-          "oks": {"b1_b2": b2_ok, "b3": b3_ok, "b4": b4_ok, "b5": b5_ok,
-                  "b6": b6_ok, "b7": b7_ok, "b8": b8_ok}})
+          "b5_philox": b5_philox, "b5_ntru1024": b5_wide, "b6": b6,
+          "b7": b7, "b8": b8,
+          "oks": {"b1": b1_ok, "b1_b6_fp32_route": fp32_ok, "b2": b2_ok,
+                  "b3": b3_ok, "b4": b4_ok, "b5": b5_ok,
+                  "b5_ntru1024": b5w_ok, "b6": b6_ok, "b7": b7_ok,
+                  "b8": b8_ok}})
     if not ok:
         fail("kernel_vs_plain", "kernel disagrees with its plain version")
     return s2, basis2
@@ -1047,7 +1234,8 @@ def phase_flagship(s: Smoke):
         accs.append(sampler.acceptance_rate)
     launches = s.counts()
     s.launches["flagship"] = launches
-    expected = {"klein_draw": FLAGSHIP_REPS + 1, "imhk_fused": FLAGSHIP_REPS,
+    expected = {"klein_draw": FLAGSHIP_REPS + 1, "klein_draw_fp32": 0,
+                "klein_ring_fp32": 0, "imhk_fused": FLAGSHIP_REPS,
                 "imhk_trajectory": 0, "smk_steps": 0, "peikert_rounds": 0,
                 "klein_ring": 0, "babai_decode": 0, "sample_zn_draws": 0}
     peak = torch.cuda.max_memory_allocated()
@@ -1069,6 +1257,7 @@ def phase_flagship(s: Smoke):
           "rep_samples_per_s": rates, "acceptance": acc,
           "burn_in": sampler.burn_in, "launches": launches,
           "expected_launches": expected,
+          "b1_max_abs_y": s.kc.klein_draw.max_abs_y,
           "b2_max_abs_y": s.kc.imhk_fused.max_abs_y,
           "peak_allocated_bytes": peak,
           "finite": finite, "integral": integral,
@@ -1150,10 +1339,8 @@ def phase_hard_regime(s: Smoke):
                                             "imhk_trajectory")))
     emit({"phase": "hard_regime", "ok": ok, "dim": n, "sigma": s.sigma_row,
           "sigma_over_max_gs": ROW_SIGMA_OVER_MAX_GS, "window": W,
-          # B1 compiles window 16 alone, B2/B3 windows 8, 16 and 24
-          "window_path": {"b1": "compiled" if W == 16 else "runtime",
-                          "b2_b3": "compiled" if W in (8, 16, 24)
-                          else "runtime"},
+          # B1-B3 compile windows 8, 16 and 24
+          "window_path": "compiled" if W in (8, 16, 24) else "runtime",
           "chains": Bh, "traj_steps": T, "burn_in": sampler.burn_in,
           "samples_per_s": sps, "acceptance": a_h,
           "expected_acceptance": HARD_ROW_ACCEPTANCE,
@@ -1164,6 +1351,7 @@ def phase_hard_regime(s: Smoke):
           "b3_ms": b3_ms, "b3_design_floor": tc_floor_ms(n, W, Bh * T),
           "pooled_acf": [float(r) for r in rho[:8]],
           "entry_sample_acceptance": entry_acc, "launches": launches,
+          "b1_max_abs_y": kc.klein_draw.max_abs_y,
           "b2_max_abs_y": kc.imhk_fused.max_abs_y,
           "b3_max_abs_y": kc.imhk_trajectory.max_abs_y, "card": s.card})
     if not ok:
@@ -1222,6 +1410,7 @@ def phase_smk(s: Smoke):
           "acceptance": a_s, "expected_acceptance": SMK_ROW_ACCEPTANCE,
           "warm_up_acceptance": warm_acc, "b4_ms": b4_ms,
           "b4_design_floor": smk_floor_ms(n, W, Bs * T),
+          "b1_max_abs_y": kc.klein_draw.max_abs_y,
           "b4_max_abs_y": sc.smk_steps.max_abs_y,
           "launches": launches, "card": s.card})
     if not ok:
@@ -1328,7 +1517,9 @@ def phase_suite(s: Smoke):
           "direct_dims": list(SUITE_DIRECT_DIMS),
           "klein_1024_norm2_over_dim_sigma2": klein["norm2_over_dim_sigma2"],
           "not_run": payload["not_run"], "launches": launches,
-          "b2_max_abs_y": s.kc.imhk_fused.max_abs_y, "card": s.card})
+          "b1_max_abs_y": s.kc.klein_draw.max_abs_y,
+          "b2_max_abs_y": s.kc.imhk_fused.max_abs_y,
+          "b6_max_abs_y": s.kc.klein_ring.max_abs_y, "card": s.card})
     if not ok:
         fail("suite", "benchmark suite rows failed their checks")
     return rows
@@ -1442,7 +1633,8 @@ def phase_decode(s: Smoke):
 # ---------------------------------------------------------------- timing
 def time_b6_b7_b8(s: Smoke):
     """B6, B7 and B8 by CUDA events at the suite's and the decode phase's
-    shapes (dimension 1024), each with its bound."""
+    shapes (dimension 1024), each with its bound; returns B6's design
+    floor."""
     import torch
     from lattice_gaussian_mcmc_tpu_torch.experiments import benchmark
     from lattice_gaussian_mcmc_tpu_torch.lattices import ntru_lattice
@@ -1465,6 +1657,7 @@ def time_b6_b7_b8(s: Smoke):
                   4 * (2 * n_pad * n_pad + 2 * n_pad + R * (n_pad * B + B)))
     s.note("B6", ms=ms6, bound_ms=b6[0], bound_by=b6[1],
            shape=f"{B} chains x {R} rounds, window {W}")
+    b6_floor = tc_floor_ms(n, W, B * R)
     torch.cuda.empty_cache()
     lat = s.lat
     _, t = decode_targets(lat, DECODE_TARGETS, DECODE_RHOS[-1], s.gen)
@@ -1497,6 +1690,7 @@ def time_b6_b7_b8(s: Smoke):
                         "replacement=True)",
            shape=f"{num} draws, window {Wz}")
     torch.cuda.empty_cache()
+    return b6_floor
 
 
 def phase_timing(s: Smoke, sampler):
@@ -1556,10 +1750,12 @@ def phase_timing(s: Smoke, sampler):
                                 cmp_b2["coeffs_differing"]),
            accept_differing=max(s.k["B2"]["accept_differing"],
                                 cmp_b2["accept_differing"]))
-    time_b6_b7_b8(s)
+    b6_floor = time_b6_b7_b8(s)
     emit({"phase": "timing", "ok": ok, "chains": Bf, "b1_vs_plain": cmp_b1,
           "b2_vs_plain": cmp_b2,
+          "b1_design_floor": tc_floor_ms(n, W, Bf),
           "b2_design_floor": tc_floor_ms(n, W, Bf * STEPS_PER_LAUNCH),
+          "b6_design_floor": b6_floor,
           "b3_to_b8": {k: s.k[k] for k in ("B3", "B4", "B5", "B6", "B7",
                                            "B8")},
           "card": s.card})
@@ -1570,7 +1766,7 @@ def phase_timing(s: Smoke, sampler):
 
 KERNELS = [
     # (key, name, source, replaces, launch counter)
-    ("B1", "klein_draw (B1)", "klein.cu", "klein_pallas.py:642",
+    ("B1", "klein_draw (B1)", "klein_tc.cu", "klein_pallas.py:642",
      "klein_draw"),
     ("B2", "imhk_fused (B2)", "imhk_tc.cu", "klein_pallas.py:798",
      "imhk_fused"),
@@ -1579,7 +1775,7 @@ KERNELS = [
     ("B4", "smk_steps (B4)", "smk_tc.cu", "smk_pallas.py:439", "smk_steps"),
     ("B5", "peikert_rounds (B5)", "peikert_tc.cu", "peikert_pallas.py:287",
      "peikert_rounds"),
-    ("B6", "klein_ring (B6)", "klein.cu", "klein_pallas.py:714",
+    ("B6", "klein_ring (B6)", "klein_tc.cu", "klein_pallas.py:714",
      "klein_ring"),
     ("B7", "babai_decode (B7)", "klein.cu", "klein_pallas.py:1027",
      "babai_decode"),
@@ -1591,7 +1787,9 @@ KERNELS = [
 def kernels_line(s: Smoke):
     """One entry per kernel: `launches` sums its counts over the path
     phases; `plain_ms` of B3-B8 is at the check size (`check_shape`, where
-    `check_ms` is the kernel's own time), their `ms` at the row's shape."""
+    `check_ms` is the kernel's own time), their `ms` at the row's shape.
+    B1's and B6's `fp32_route_launches` sum the paths' launches of
+    klein.cu's FP32 sweep, which they take above n_pad 3,456."""
     out = []
     for key, name, src, replaces, counter in KERNELS:
         entry = {"name": name, "route": "cuda",
@@ -1599,6 +1797,9 @@ def kernels_line(s: Smoke):
                  "replaces": f"lattice_gaussian_mcmc_tpu/ops/kernels/"
                              f"{replaces}",
                  "launches": sum(c[counter] for c in s.launches.values())}
+        if f"{counter}_fp32" in s.counts():
+            entry["fp32_route_launches"] = sum(
+                c[f"{counter}_fp32"] for c in s.launches.values())
         entry.update(s.k[key])
         entry.setdefault("library_ms", None)
         out.append(entry)

@@ -1,6 +1,6 @@
 // Device code shared by the tensor-core Klein sweeps on Hopper (sm_90a):
-// fused IMHK and its trajectory (imhk_tc.cu, B2/B3) and fused SMK
-// (smk_tc.cu, B4).
+// fused IMHK and its trajectory (imhk_tc.cu, B2/B3), fused SMK (smk_tc.cu,
+// B4), and the Klein draw and its ring (klein_tc.cu, B1/B6).
 //
 // A thread block of 64 threads owns NC = 32 chains. Their proposal lives
 // in shared memory as bf16, (n_pad, 32) chain-minor with the 16-byte chunks

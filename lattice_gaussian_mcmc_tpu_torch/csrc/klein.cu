@@ -1,15 +1,17 @@
 // Klein draw and its ring and batched Babai decoding on Hopper (sm_90a), one
-// thread per chain (or target).
+// thread per chain (or target), the coupling in FP32 on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel
 // lattice_gaussian_mcmc_tpu/ops/kernels/klein_pallas.py `_kernel` in its
 // draw mode (klein_sample_batch_pallas, B1) and its ring mode
-// (klein_sample_ring_pallas, B6), and the inner kernel of
-// babai_decode_batch_pallas (B7). Its fused Metropolis-Hastings and
-// trajectory modes (B2, B3) are imhk_tc.cu. The law is the same; the TPU
-// layout devices (bf16 split of U, CDF as a triangular matrix product,
-// (8, 128) row groups, the 8-row DMA staging of the rings) are not carried
-// over.
+// (klein_sample_ring_pallas, B6) above n_pad 3,456, and the inner kernel
+// of babai_decode_batch_pallas (B7). Up to n_pad 3,456 B1 and B6 run on
+// the tensor-core sweep of klein_tc.cu, whose draw tile bounds n_pad;
+// this FP32 sweep has no such bound (klein_cuda.py `klein_route`). Its
+// fused Metropolis-Hastings and trajectory modes (B2, B3) are imhk_tc.cu.
+// The law is the same; the TPU layout devices (bf16 split of U, CDF as a
+// triangular matrix product, (8, 128) row groups, the 8-row DMA staging of
+// the rings) are not carried over.
 //
 // What it computes, per chain, for rows i = n_pad-1 down to 0:
 //   c_i   = cs_i - sum_{j>i} U_ij y_j          (FP32 FMA on the CUDA cores)
@@ -133,9 +135,9 @@ int launch_draw(const Operands& op, const Uniforms& un, float* y, float* lw,
 
 extern "C" {
 
-// B6: n_rounds Klein draws per chain into the ring y (n_rounds n_pad, B)
-// and the lw ring (n_rounds, B). unif: (n_rounds n_pad, B) or null for
-// Philox (round r at step + r).
+// B6 (and B1, n_rounds 1): n_rounds Klein draws per chain into the ring y
+// (n_rounds n_pad, B) and the lw ring (n_rounds, B). unif: (n_rounds
+// n_pad, B) or null for Philox (round r at step + r).
 int klein_ring_launch(const float* U, const float* UT, const float* cs,
                       const float* isg, const float* unif, float* y,
                       float* lw, int n_pad, long long B, int window,
@@ -151,17 +153,6 @@ int klein_ring_launch(const float* U, const float* UT, const float* cs,
   launch_draw<W>(op, un, y, lw, B, n_rounds, step, chain_offset, st)
   KLEIN_BY_WINDOW(window, CALL)
 #undef CALL
-}
-
-// B1: one Klein draw per chain (B6 with one round). unif: (n_pad, B) or
-// null for Philox.
-int klein_draw_launch(const float* U, const float* UT, const float* cs,
-                      const float* isg, const float* unif, float* y,
-                      float* lw, int n_pad, long long B, int window,
-                      uint32_t seed_lo, uint32_t seed_hi, uint32_t step,
-                      uint32_t chain_offset, void* stream) {
-  return klein_ring_launch(U, UT, cs, isg, unif, y, lw, n_pad, B, window, 1,
-                           seed_lo, seed_hi, step, chain_offset, stream);
 }
 
 // B7: Babai nearest plane for B targets; ct (n_pad, B) recentred centres,

@@ -1,5 +1,5 @@
-// Device functions shared by the Klein and Babai (klein.cu), IMHK
-// (imhk_tc.cu), SMK (smk_tc.cu), Peikert (peikert_tc.cu) and Z^n (zn.cu)
+// Device functions shared by the Klein and Babai (klein.cu, klein_tc.cu),
+// IMHK (imhk_tc.cu), SMK (smk_tc.cu), Peikert (peikert_tc.cu) and Z^n (zn.cu)
 // kernels on Hopper (sm_90a): Philox4x32-10, the windowed inverse-CDF row
 // draw and its log-normalizer, and for klein.cu the coupling passes of a
 // backward substitution over 64-row blocks and the Klein proposal sweep,

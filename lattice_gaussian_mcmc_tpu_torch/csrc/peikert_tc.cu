@@ -33,12 +33,15 @@
 // Design. Once a round's z is known every row is an independent draw: the
 // kernel is C = L2 Z, lower triangular (n_pad x n_pad) times (n_pad x
 // chains), then an elementwise sampling pass.
-// - A block of 16 warps owns 32 chains of one round (grid: chain blocks x
-//   rounds). It makes their normals once into shared memory, (n_pad, 32)
-//   float32, each row's chains XOR-swizzled by 8 (row mod 4) so that the
-//   B-fragment reads are free of bank conflicts (128 KB at n_pad 1024; the
-//   227 KB of a block bound n_pad by 1,792, peikert_cuda.py
-//   PEIKERT_TC_MAX_N_PAD). No normal goes to device memory.
+// - A block of 16 warps owns NCP chains of one round (grid: chain blocks x
+//   rounds). It makes their normals once into shared memory, (n_pad, NCP)
+//   float32, each row's chains XOR-swizzled so that the B-fragment reads
+//   are free of bank conflicts (`z_idx`). No normal goes to device memory.
+//   NCP = 32 up to n_pad 1,792 (128 n_pad bytes, 128 KB at n_pad 1024);
+//   above, NCP = 16 (64 n_pad bytes), which the 227 KB of a block bound
+//   at n_pad 3,584 (peikert_cuda.py `peikert_block_chains`, chosen before
+//   the launch, and PEIKERT_TC_MAX_N_PAD). That covers every n_pad that
+//   B2-B4 reach (3,456), and dimension 2048 (NTRU-1024) at 16 chains.
 // - Each warp takes 16-row tiles of C, in a zigzag over the warps so that
 //   the triangle's work is even, and runs the K loop up to the tile's
 //   diagonal only: mma.sync m16n8k8 .tf32 over four n8 tiles (the 32
@@ -62,19 +65,23 @@ using namespace lgk;
 
 namespace {
 
-constexpr int NCP = 32;             // chains per block
 constexpr int WARPS = 16;
 constexpr int PTPB = 32 * WARPS;
-constexpr int NT = NCP / 8;         // n8 tiles of chains
 constexpr float kTwoPi = 6.28318530717958647692f;
 
-inline size_t smem_bytes(int n_pad) {
-  return (size_t)n_pad * NCP * sizeof(float);
+// the normals tile of NCP chains (32 or 16 a block)
+inline size_t smem_bytes(int n_pad, int ncp) {
+  return (size_t)n_pad * ncp * sizeof(float);
 }
 
-// index of (row, chain) in the swizzled normals tile
+// index of (row, chain) in the swizzled normals tile: a warp's B-fragment
+// read takes rows 8k + t (t < 4) and chains 8n + g (g < 8); the 32 banks
+// are the chains of one row (NCP = 32), swizzled by 8 (row mod 4), or of
+// two rows (NCP = 16), swizzled by 8 ((row / 2) mod 2)
+template <int NCP>
 __device__ __forceinline__ int z_idx(int row, int chain) {
-  return row * NCP + (chain ^ ((row & 3) << 3));
+  constexpr int SHIFT = NCP == 32 ? 0 : 1;
+  return row * NCP + (chain ^ (((row >> SHIFT) & (NCP / 8 - 1)) << 3));
 }
 
 // TF32's sign, exponent and 10 mantissa bits
@@ -98,7 +105,9 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // One k-step of a tile: A fragments of L2[16 mt .., 8 kt ..] (a float4 a
-// lane), B fragments of z[8 kt .., chains] from the shared tile.
+// lane), B fragments of z[8 kt .., chains] from the shared tile, NT n8
+// tiles of chains.
+template <int NCP, int NT = NCP / 8>
 __device__ __forceinline__ void kstep(const float4* __restrict__ Afrag,
                                       const float* zs, int mt, int kt,
                                       int KT, int lane, float (&dm)[NT][4],
@@ -113,16 +122,17 @@ __device__ __forceinline__ void kstep(const float4* __restrict__ Afrag,
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     uint32_t bh[2], bl[2];
-    split(zs[z_idx(8 * kt + t, 8 * n + g)], bh[0], bl[0]);
-    split(zs[z_idx(8 * kt + t + 4, 8 * n + g)], bh[1], bl[1]);
+    split(zs[z_idx<NCP>(8 * kt + t, 8 * n + g)], bh[0], bl[0]);
+    split(zs[z_idx<NCP>(8 * kt + t + 4, 8 * n + g)], bh[1], bl[1]);
     mma_tf32(dm[n], ahi, bh[0], bh[1]);
     mma_tf32(dc[n], ahi, bl[0], bl[1]);
     mma_tf32(dc[n], alo, bh[0], bh[1]);
   }
 }
 
-// DBG: round 0 also writes each row's centre c_i to dbg[i, chain].
-template <int W, bool DBG>
+// DBG: round 0 also writes each row's centre c_i to dbg[i, chain]. NCP
+// chains a block.
+template <int W, bool DBG, int NCP>
 __global__ void __launch_bounds__(PTPB, 1)
     peikert_tc_kernel(const float4* __restrict__ Afrag,
                       const float* __restrict__ cp, float isg, int window,
@@ -130,6 +140,7 @@ __global__ void __launch_bounds__(PTPB, 1)
                       float* __restrict__ ring, float* __restrict__ dbg,
                       int n_pad, long long B, uint32_t chain_offset) {
   extern __shared__ __align__(16) float zs[];
+  constexpr int NT = NCP / 8;         // n8 tiles of chains
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rnd = blockIdx.y;
   const long long chain0 = (long long)blockIdx.x * NCP;
@@ -141,7 +152,7 @@ __global__ void __launch_bounds__(PTPB, 1)
     const bool valid = ch < B;
     if (zin != nullptr) {
       for (int r = tid / NCP; r < n_pad; r += PTPB / NCP)
-        zs[z_idx(r, cc)] =
+        zs[z_idx<NCP>(r, cc)] =
             valid ? zin[((size_t)rnd * n_pad + r) * (size_t)B + (size_t)ch]
                   : 0.0f;
     } else {
@@ -158,8 +169,8 @@ __global__ void __launch_bounds__(PTPB, 1)
           z0 = __fmul_rn(rad, cosf(ang));
           z1 = __fmul_rn(rad, sinf(ang));
         }
-        zs[z_idx(2 * p, cc)] = z0;
-        zs[z_idx(2 * p + 1, cc)] = z1;
+        zs[z_idx<NCP>(2 * p, cc)] = z0;
+        zs[z_idx<NCP>(2 * p + 1, cc)] = z1;
       }
     }
   }
@@ -185,15 +196,15 @@ __global__ void __launch_bounds__(PTPB, 1)
         for (int n = 0; n < NT; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) dm[n][e] = dc[n][e] = 0.0f;
-        kstep(Afrag, zs, mt, kt, KT, lane, dm, dc);
-        kstep(Afrag, zs, mt, kt + 1, KT, lane, dm, dc);
+        kstep<NCP>(Afrag, zs, mt, kt, KT, lane, dm, dc);
+        kstep<NCP>(Afrag, zs, mt, kt + 1, KT, lane, dm, dc);
 #pragma unroll
         for (int n = 0; n < NT; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             tot[n][e] = __fadd_rn(tot[n][e], __fadd_rn(dm[n][e], dc[n][e]));
       }
-      // the epilogue: the tile's 16 rows x 32 chains, independent draws
+      // the epilogue: the tile's 16 rows x NCP chains, independent draws
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = 16 * mt + g + 8 * (e >> 1);
@@ -219,30 +230,30 @@ __global__ void __launch_bounds__(PTPB, 1)
   }
 }
 
-template <int W, bool DBG>
+template <int W, bool DBG, int NCP>
 int launch(const float4* Afrag, const float* cp, float isg, int window,
            const Uniforms& un, const float* zin, float* ring, float* dbg,
            int n_pad, long long B, int n_rounds, uint32_t chain_offset,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(n_pad);
+  const size_t smem = smem_bytes(n_pad, NCP);
   cudaError_t e = cudaFuncSetAttribute(
-      peikert_tc_kernel<W, DBG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      peikert_tc_kernel<W, DBG, NCP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((B + NCP - 1) / NCP), (unsigned)n_rounds);
-  peikert_tc_kernel<W, DBG><<<grid, PTPB, smem, stream>>>(
+  peikert_tc_kernel<W, DBG, NCP><<<grid, PTPB, smem, stream>>>(
       Afrag, cp, isg, window, un, zin, ring, dbg, n_pad, B, chain_offset);
   return (int)cudaGetLastError();
 }
 
-template <bool DBG>
+template <bool DBG, int NCP>
 int launch_by_window(const float4* Afrag, const float* cp, float isg,
                      int window, const Uniforms& un, const float* zin,
                      float* ring, float* dbg, int n_pad, long long B,
                      int n_rounds, uint32_t chain_offset, cudaStream_t st) {
-#define CALL(W)                                                          \
-  launch<W, DBG>(Afrag, cp, isg, window, un, zin, ring, dbg, n_pad, B, \
-                 n_rounds, chain_offset, st)
+#define CALL(W)                                                            \
+  launch<W, DBG, NCP>(Afrag, cp, isg, window, un, zin, ring, dbg, n_pad, \
+                      B, n_rounds, chain_offset, st)
   switch (window) {
     case 8: return CALL(8);
     case 16: return CALL(16);
@@ -250,6 +261,19 @@ int launch_by_window(const float4* Afrag, const float* cp, float isg,
     default: return CALL(0);
   }
 #undef CALL
+}
+
+template <bool DBG>
+int launch_by_shape(int ncp, const float4* Afrag, const float* cp, float isg,
+                    int window, const Uniforms& un, const float* zin,
+                    float* ring, float* dbg, int n_pad, long long B,
+                    int n_rounds, uint32_t chain_offset, cudaStream_t st) {
+  if (ncp == 32)
+    return launch_by_window<DBG, 32>(Afrag, cp, isg, window, un, zin, ring,
+                                     dbg, n_pad, B, n_rounds, chain_offset,
+                                     st);
+  return launch_by_window<DBG, 16>(Afrag, cp, isg, window, un, zin, ring,
+                                   dbg, n_pad, B, n_rounds, chain_offset, st);
 }
 
 }  // namespace
@@ -261,23 +285,27 @@ extern "C" {
 // (n_pad/16, n_pad/8, 32) float4; cp: (n_pad,) coefficient-space centre;
 // isg = 1 / r. Host randomness (both or neither): unif and zin
 // (n_rounds * n_pad, B); otherwise Philox keyed by (seed_lo, seed_hi).
-// dbg: null, or (n_pad, B) for round 0's centres.
+// dbg: null, or (n_pad, B) for round 0's centres. chains: chains a block,
+// 32 or 16, the one whose normals tile (4 chains n_pad bytes) fits a
+// block's shared memory (peikert_cuda.py `peikert_block_chains`).
 int peikert_tc_launch(const void* Afrag, const float* cp, float isg,
                       const float* unif, const float* zin, float* ring,
                       float* dbg, int n_pad, long long B, int window,
-                      int n_rounds, uint32_t seed_lo, uint32_t seed_hi,
-                      uint32_t chain_offset, void* stream) {
+                      int n_rounds, int chains, uint32_t seed_lo,
+                      uint32_t seed_hi, uint32_t chain_offset,
+                      void* stream) {
   if (n_pad <= 0 || n_pad % RB != 0 || B <= 0 || window <= 0 ||
-      n_rounds <= 0 || (unif == nullptr) != (zin == nullptr))
+      n_rounds <= 0 || (chains != 32 && chains != 16) ||
+      (unif == nullptr) != (zin == nullptr))
     return (int)cudaErrorInvalidValue;
   const Uniforms un{unif, B, seed_lo, seed_hi};
   const float4* A = static_cast<const float4*>(Afrag);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dbg != nullptr)
-    return launch_by_window<true>(A, cp, isg, window, un, zin, ring, dbg,
-                                  n_pad, B, n_rounds, chain_offset, st);
-  return launch_by_window<false>(A, cp, isg, window, un, zin, ring, dbg,
-                                 n_pad, B, n_rounds, chain_offset, st);
+    return launch_by_shape<true>(chains, A, cp, isg, window, un, zin, ring,
+                                 dbg, n_pad, B, n_rounds, chain_offset, st);
+  return launch_by_shape<false>(chains, A, cp, isg, window, un, zin, ring,
+                                dbg, n_pad, B, n_rounds, chain_offset, st);
 }
 
 const char* peikert_tc_error_string(int code) {

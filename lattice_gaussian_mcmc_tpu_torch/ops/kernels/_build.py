@@ -84,11 +84,14 @@ _P, _I, _LL, _U32, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # the error-string one
 _SIGNATURES = {
     "klein": {
-        "klein_draw_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I,
-                              _U32, _U32, _U32, _U32, _P],
         "klein_ring_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
                               _U32, _U32, _U32, _U32, _P],
         "babai_decode_launch": [_P, _P, _P, _P, _I, _LL, _P],
+    },
+    "klein_tc": {
+        "klein_tc_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I,
+                            _I, _U32, _U32, _U32, _U32, _P],
+        "klein_tc_info": [_I, _I, _I, _P],
     },
     "imhk_tc": {
         "imhk_tc_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -102,7 +105,7 @@ _SIGNATURES = {
     },
     "peikert_tc": {
         "peikert_tc_launch": [_P, _P, _F, _P, _P, _P, _P, _I, _LL, _I, _I,
-                              _U32, _U32, _U32, _P],
+                              _I, _U32, _U32, _U32, _P],
     },
     "zn": {
         "zn_draw_launch": [_F, _F, _I, _P, _P, _LL, _U32, _U32, _P],

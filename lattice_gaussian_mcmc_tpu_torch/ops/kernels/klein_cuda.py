@@ -1,8 +1,8 @@
 """Klein draw (B1) and its ring (B6), fused IMHK steps (B2), the IMHK
 trajectory (B3) and batched Babai decoding (B7) on Hopper: wrappers of the
-CUDA kernels in `csrc/klein.cu` (B1, B6, B7) and `csrc/imhk_tc.cu` (B2,
-B3), their plain PyTorch versions, launch counts, and the operand
-preparation.
+CUDA kernels in `csrc/klein_tc.cu` (B1, B6), `csrc/imhk_tc.cu` (B2, B3)
+and `csrc/klein.cu` (B7, and B1 and B6 above `KLEIN_TC_MAX_N_PAD`), their
+plain PyTorch versions, launch counts, and the operand preparation.
 
 Replaces the draw, ring, fused-MH and trajectory modes of the Pallas kernel
 `lattice_gaussian_mcmc_tpu/ops/kernels/klein_pallas.py` `_kernel`
@@ -17,13 +17,15 @@ log Z = 0). The chain state is the recentered integer vector y = x - k with
 k = round(cs); the kernel's centre absorbs the shift,
 cs_eff = cs - U k, computed once per call outside the kernel.
 
-B2 and B3 form the coupling on the tensor cores from an exact bf16 split of
-the float32 U (U = U1 + U2 + U3, `split_bf16`), packed in the mma
+B1, B2, B3 and B6 form the coupling on the tensor cores from an exact bf16
+split of the float32 U (U = U1 + U2 + U3, `split_bf16`), packed in the mma
 A-fragment order (`tc_fragments`). Their products are exact only while the
-proposal's recentred coefficients are: |y| <= 256 (hazard C8). The kernel
-counts the draws beyond that into an `exact_guard`; the wrapper, or the
+draw's recentred coefficients are: |y| <= 256 (hazard C8). The kernels
+count the draws beyond that into an `exact_guard`; the wrapper, or the
 entry point that passed it one, raises before it returns. They keep the
-proposal in shared memory, which bounds n_pad by `IMHK_TC_MAX_N_PAD`.
+draw in shared memory, which bounds n_pad by `IMHK_TC_MAX_N_PAD`: B2 and
+B3 raise above it, and B1 and B6 take the FP32 sweep of `csrc/klein.cu`
+there (`klein_route`, by n_pad, before the launch).
 
 Uniforms. Either the caller passes them (draw mode: row i = coordinate i,
 shape (n_pad, B); ring mode: n_pad rows per round, round r in rows
@@ -68,6 +70,13 @@ if TYPE_CHECKING:
 BLOCK = 128        # n is padded to a multiple of this
 ROW_BLOCK = 64     # rows per block of the backward substitution
 ACCEPT_ROWS = 8    # host-uniform rows per fused step beyond n_pad
+EXACT_Y = 256      # |y| up to which the bf16 draw tile is exact (hazard C8)
+# the largest n_pad whose draw tile fits one block's shared memory:
+# imhk_tc_common.cuh's tc_smem_bytes, 64 n_pad + 9,344 bytes, within the
+# 227 KB (232,448 bytes) a block of sm_90 may take, rounded down to a
+# multiple of 128
+IMHK_TC_MAX_N_PAD = 3456
+KLEIN_TC_MAX_N_PAD = IMHK_TC_MAX_N_PAD
 
 
 @dataclasses.dataclass
@@ -140,7 +149,7 @@ def fragment_pack(parts) -> torch.Tensor:
 
 
 def tc_fragments(ops) -> torch.Tensor:
-    """The coupling operand of B2/B3 (`KleinOperands`) and B4
+    """The coupling operand of B1/B2/B3/B6 (`KleinOperands`) and B4
     (`smk_cuda.SMKOperands`), (n_pad/16, n_pad/16, 3, 32, 8) bfloat16:
     `fragment_pack(split_bf16(ops.U))`, built at the first call and kept on
     `ops`."""
@@ -265,10 +274,11 @@ def klein_draw_plain(ops: KleinOperands, num_chains: int, *, seed: int = 0,
 
 def klein_ring_plain(ops: KleinOperands, num_chains: int, n_rounds: int, *,
                      seed: int = 0, step: int = 0, chain_offset: int = 0,
-                     uniforms=None):
+                     uniforms=None, centres=None):
     """Plain version of B6: n_rounds B1 draws per chain, round r at Philox
     step `step + r` (host uniform rows r n_pad ..). Returns the ring
-    (n_rounds n_pad, B) and the lw ring (n_rounds, B)."""
+    (n_rounds n_pad, B) and the lw ring (n_rounds, B). With `centres`
+    (n_rounds n_pad, B), each row's conditional centre goes there."""
     n_pad = ops.n_pad
     ring = torch.zeros(n_rounds * n_pad, num_chains, dtype=ops.U.dtype,
                        device=ops.device)
@@ -277,7 +287,9 @@ def klein_ring_plain(ops: KleinOperands, num_chains: int, n_rounds: int, *,
     for r in range(n_rounds):
         rows = _uniform_rows(ops, num_chains, seed, step + r, chain_offset,
                              uniforms, r * n_pad)
-        lws[r] = _propose_plain(ops, rows, ring[r * n_pad:(r + 1) * n_pad])
+        sl = slice(r * n_pad, (r + 1) * n_pad)
+        lws[r] = _propose_plain(ops, rows, ring[sl],
+                                None if centres is None else centres[sl])
     return ring, lws
 
 
@@ -470,63 +482,159 @@ def _check_operands(ops: KleinOperands):
         raise ValueError(f"window {ops.window} outside [1, 1024]")
 
 
-def klein_draw(ops: KleinOperands, num_chains: int, *, seed: int = 0,
-               step: int = 0, chain_offset: int = 0, uniforms=None):
-    """B1: one Klein draw per chain. Returns (y (n_pad, B) recentered
-    integer-valued, lw (B,)). CPU operands run `klein_draw_plain`."""
-    if ops.device.type == "cpu":
-        return klein_draw_plain(ops, num_chains, seed=seed, step=step,
-                                chain_offset=chain_offset, uniforms=uniforms)
-    _check_operands(ops)
-    if uniforms is not None:
-        check_cuda("uniforms", uniforms, (ops.n_pad, num_chains))
-    lib = load("klein")
-    y = torch.empty(ops.n_pad, num_chains, dtype=torch.float32,
-                    device=ops.device)
-    lw = torch.empty(num_chains, dtype=torch.float32, device=ops.device)
-    k0, k1 = seed_key(seed)
-    rc = lib.klein_draw_launch(
-        ptr(ops.U), ptr(ops.UT), ptr(ops.cs), ptr(ops.isg),
-        ptr(uniforms) if uniforms is not None else None,
-        ptr(y), ptr(lw), ops.n_pad, num_chains, ops.window, k0, k1,
-        step, chain_offset,
-        ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
-    raise_on("klein", rc, "klein_draw")
-    klein_draw.launches += 1
-    return y, lw
+def klein_route(n_pad: int) -> str:
+    """The kernel library B1 and B6 launch at n_pad: "klein_tc" (the
+    tensor-core sweep, `csrc/klein_tc.cu`) up to `KLEIN_TC_MAX_N_PAD`,
+    where its draw tile fits a block's shared memory, and "klein" (the FP32
+    sweep of `csrc/klein.cu`, no limit on n_pad) above."""
+    return "klein_tc" if n_pad <= KLEIN_TC_MAX_N_PAD else "klein"
 
 
-def klein_ring(ops: KleinOperands, num_chains: int, n_rounds: int, *,
-               seed: int = 0, step: int = 0, chain_offset: int = 0,
-               uniforms=None):
-    """B6: n_rounds independent Klein draws per chain in one launch, round r
-    at Philox step `step + r`, written to a ring (n_rounds n_pad, B) of
-    recentred coefficients and a ring (n_rounds, B) of lw. Round 0 is B1's
-    draw on the same uniforms. CPU operands run `klein_ring_plain`."""
-    if ops.device.type == "cpu":
-        return klein_ring_plain(ops, num_chains, n_rounds, seed=seed,
-                                step=step, chain_offset=chain_offset,
-                                uniforms=uniforms)
+def _klein_launch(ops: KleinOperands, num_chains: int, n_rounds: int,
+                  seed: int, step: int, chain_offset: int, uniforms,
+                  what: str, bad=None, dbg=None):
+    """Launch B1 (n_rounds 1) or B6 on the library `klein_route` picks;
+    returns the ring (n_rounds n_pad, B), the lw ring (n_rounds, B) and
+    that library's name. The tensor-core sweep counts C8 into bad (one row
+    of an `exact_guard`) and, with `dbg`, writes the centres there. Raises
+    on bad input or a launch error; does not wait."""
     if n_rounds < 1:
         raise ValueError(f"n_rounds {n_rounds} must be >= 1")
     _check_operands(ops)
+    n_pad = ops.n_pad
     if uniforms is not None:
-        check_cuda("uniforms", uniforms, (n_rounds * ops.n_pad, num_chains))
-    lib = load("klein")
-    ring = torch.empty(n_rounds * ops.n_pad, num_chains, dtype=torch.float32,
+        check_cuda("uniforms", uniforms, (n_rounds * n_pad, num_chains))
+    ring = torch.empty(n_rounds * n_pad, num_chains, dtype=torch.float32,
                        device=ops.device)
     lws = torch.empty(n_rounds, num_chains, dtype=torch.float32,
                       device=ops.device)
     k0, k1 = seed_key(seed)
-    rc = lib.klein_ring_launch(
-        ptr(ops.U), ptr(ops.UT), ptr(ops.cs), ptr(ops.isg),
-        ptr(uniforms) if uniforms is not None else None,
-        ptr(ring), ptr(lws), ops.n_pad, num_chains, ops.window, n_rounds,
-        k0, k1, step, chain_offset,
-        ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
-    raise_on("klein", rc, "klein_ring")
-    klein_ring.launches += 1
+    unif = ptr(uniforms) if uniforms is not None else None
+    stream = ctypes.c_void_p(
+        torch.cuda.current_stream(ops.device).cuda_stream)
+    route = klein_route(n_pad)
+    if route == "klein_tc":
+        check_cuda("bad", bad, (2,), torch.int32)
+        rc = load(route).klein_tc_launch(
+            ptr(tc_fragments(ops)), ptr(ops.UT), ptr(ops.cs), ptr(ops.isg),
+            unif, ptr(ring), ptr(lws), ptr(dbg) if dbg is not None else None,
+            ptr(bad), n_pad, num_chains, ops.window, n_rounds, k0, k1, step,
+            chain_offset, stream)
+    else:
+        if dbg is not None:
+            raise ValueError(f"{what}: the centres are written by the "
+                             "tensor-core sweep only, n_pad <= "
+                             f"{KLEIN_TC_MAX_N_PAD}")
+        rc = load(route).klein_ring_launch(
+            ptr(ops.U), ptr(ops.UT), ptr(ops.cs), ptr(ops.isg), unif,
+            ptr(ring), ptr(lws), n_pad, num_chains, ops.window, n_rounds,
+            k0, k1, step, chain_offset, stream)
+    raise_on(route, rc, what)
+    return ring, lws, route
+
+
+def _count(wrapper, route: str):
+    """One launch of `wrapper` on `route`'s kernel: `launches` counts the
+    tensor-core sweep's, `fp32_launches` klein.cu's."""
+    if route == "klein_tc":
+        wrapper.launches += 1
+    else:
+        wrapper.fp32_launches += 1
+
+
+def klein_draw(ops: KleinOperands, num_chains: int, *, seed: int = 0,
+               step: int = 0, chain_offset: int = 0, uniforms=None,
+               guard=None):
+    """B1: one Klein draw per chain. Returns (y (n_pad, B) recentered
+    integer-valued, lw (B,)). With `guard` (an `exact_guard`) the caller
+    reads the C8 counters with `check_exact`; without one the wrapper reads
+    its own after the launch. CPU operands run `klein_draw_plain`."""
+    if ops.device.type == "cpu":
+        return klein_draw_plain(ops, num_chains, seed=seed, step=step,
+                                chain_offset=chain_offset, uniforms=uniforms)
+    own = guard is None
+    if own:
+        guard = exact_guard(ops.device)
+    y, lw, route = _klein_launch(ops, num_chains, 1, seed, step,
+                                 chain_offset, uniforms, "klein_draw",
+                                 guard[2])
+    _count(klein_draw, route)
+    if own:
+        check_exact(guard, "klein_draw")
+    return y, lw[0]
+
+
+def klein_ring(ops: KleinOperands, num_chains: int, n_rounds: int, *,
+               seed: int = 0, step: int = 0, chain_offset: int = 0,
+               uniforms=None, guard=None):
+    """B6: n_rounds independent Klein draws per chain in one launch, round r
+    at Philox step `step + r`, written to a ring (n_rounds n_pad, B) of
+    recentred coefficients and a ring (n_rounds, B) of lw. Round 0 is B1's
+    draw on the same uniforms. `guard` as for `klein_draw`. CPU operands
+    run `klein_ring_plain`."""
+    if ops.device.type == "cpu":
+        return klein_ring_plain(ops, num_chains, n_rounds, seed=seed,
+                                step=step, chain_offset=chain_offset,
+                                uniforms=uniforms)
+    own = guard is None
+    if own:
+        guard = exact_guard(ops.device)
+    ring, lws, route = _klein_launch(ops, num_chains, n_rounds, seed, step,
+                                     chain_offset, uniforms, "klein_ring",
+                                     guard[3])
+    _count(klein_ring, route)
+    if own:
+        check_exact(guard, "klein_ring")
     return ring, lws
+
+
+def klein_centres_plain(ops: KleinOperands, num_chains: int,
+                        n_rounds: int = 1, *, seed: int = 0, step: int = 0,
+                        chain_offset: int = 0, uniforms=None):
+    """Plain version of `klein_centres`: B6's plain version that also
+    returns each round's conditional centres."""
+    centres = torch.zeros(n_rounds * ops.n_pad, num_chains,
+                          dtype=ops.U.dtype, device=ops.device)
+    ring, lws = klein_ring_plain(ops, num_chains, n_rounds, seed=seed,
+                                 step=step, chain_offset=chain_offset,
+                                 uniforms=uniforms, centres=centres)
+    return centres, ring, lws
+
+
+def klein_centres(ops: KleinOperands, num_chains: int, n_rounds: int = 1, *,
+                  seed: int = 0, step: int = 0, chain_offset: int = 0,
+                  uniforms=None):
+    """B1/B6's debug instantiation (the tensor-core sweep, n_pad <=
+    `KLEIN_TC_MAX_N_PAD`): n_rounds draws as `klein_ring` makes them that
+    also write each row's conditional centre c_i as the kernel forms it.
+    Returns (centres, ring), each (n_rounds n_pad, B) recentred, and the
+    lw ring (n_rounds, B). For holding the kernel's own centres to float64;
+    not a launch of the main path. CPU operands run
+    `klein_centres_plain`."""
+    if ops.device.type == "cpu":
+        return klein_centres_plain(ops, num_chains, n_rounds, seed=seed,
+                                   step=step, chain_offset=chain_offset,
+                                   uniforms=uniforms)
+    dbg = torch.empty(n_rounds * ops.n_pad, num_chains, dtype=torch.float32,
+                      device=ops.device)
+    guard = exact_guard(ops.device)
+    ring, lws, _ = _klein_launch(ops, num_chains, n_rounds, seed, step,
+                                 chain_offset, uniforms, "klein_centres",
+                                 guard[3], dbg=dbg)
+    check_exact(guard, "klein_centres")
+    return dbg, ring, lws
+
+
+def klein_tc_resources(n_pad: int, window: int, ring: bool = False) -> dict:
+    """B1's (or with `ring` B6's) tensor-core kernel for `window` at n_pad
+    on the current card: registers and local (spill) bytes a thread,
+    dynamic shared memory and threads a block, and blocks resident per
+    SM."""
+    out = (ctypes.c_int * 5)()
+    raise_on("klein_tc", load("klein_tc").klein_tc_info(
+        n_pad, window, int(ring), out), "klein_tc_info")
+    return dict(zip(("registers", "local_bytes", "shared_bytes",
+                     "blocks_per_sm", "threads"), list(out)))
 
 
 def babai_decode(ops: BabaiOperands, ct: torch.Tensor) -> torch.Tensor:
@@ -551,31 +659,26 @@ def babai_decode(ops: BabaiOperands, ct: torch.Tensor) -> torch.Tensor:
     return y
 
 
-EXACT_Y = 256   # |y| up to which the bf16 proposal is exact (hazard C8)
-# the largest n_pad whose proposal tile fits one block's shared memory:
-# imhk_tc.cu's smem_bytes, 64 n_pad + 9,344 bytes, within the 227 KB
-# (232,448 bytes) a block of sm_90 may take, rounded down to a multiple of 128
-IMHK_TC_MAX_N_PAD = 3456
-
-
 def exact_guard(device) -> torch.Tensor:
-    """Hazard C8's device counters for one entry-point call, (2, 2) int32:
-    row 0 for its B2 launches, row 1 for its B3 launches, each [draws with
+    """Hazard C8's device counters for one entry-point call, (4, 2) int32:
+    one row each for its B2, B3, B1 and B6 launches, each [draws with
     |y| > 256, largest |y| drawn]. Pass it to every launch of the call, then
     read it once with `check_exact` before the call returns."""
-    return torch.zeros(2, 2, dtype=torch.int32, device=device)
+    return torch.zeros(4, 2, dtype=torch.int32, device=device)
 
 
 def check_exact(guard: torch.Tensor, what: str):
-    """Read an `exact_guard` (one synchronisation): keep the largest |y| in
-    `imhk_fused.max_abs_y` / `imhk_trajectory.max_abs_y`, and raise if any
-    draw left the range where the bf16 coupling is exact."""
-    (bad2, max2), (bad3, max3) = guard.tolist()
-    imhk_fused.max_abs_y = max(imhk_fused.max_abs_y, max2)
-    imhk_trajectory.max_abs_y = max(imhk_trajectory.max_abs_y, max3)
-    if bad2 + bad3:
+    """Read an `exact_guard` (one synchronisation): keep the largest |y| of
+    each kernel in `max_abs_y` of its wrapper (`imhk_fused`,
+    `imhk_trajectory`, `klein_draw`, `klein_ring`), and raise if any draw
+    left the range where the bf16 coupling is exact."""
+    rows = guard.tolist()
+    for wrapper, (_, top) in zip(_GUARDED, rows):
+        wrapper.max_abs_y = max(wrapper.max_abs_y, top)
+    bad = sum(b for b, _ in rows)
+    if bad:
         raise RuntimeError(
-            f"{what}: {bad2 + bad3} drawn coefficients have |y| > {EXACT_Y}, "
+            f"{what}: {bad} drawn coefficients have |y| > {EXACT_Y}, "
             "where the bf16 coupling is no longer exact (hazard C8)")
 
 
@@ -709,15 +812,23 @@ def imhk_tc_resources(n_pad: int, window: int) -> dict:
                      "blocks_per_sm", "threads"), list(out)))
 
 
+# the wrappers of an `exact_guard`'s rows, in order
+_GUARDED = (imhk_fused, imhk_trajectory, klein_draw, klein_ring)
+
+
 def reset_launch_counts():
     klein_draw.launches = 0
     klein_ring.launches = 0
+    # B1 / B6 launches of the FP32 sweep (klein.cu, n_pad above
+    # KLEIN_TC_MAX_N_PAD)
+    klein_draw.fp32_launches = 0
+    klein_ring.fp32_launches = 0
     babai_decode.launches = 0
     imhk_fused.launches = 0
     imhk_trajectory.launches = 0
-    # largest |y| the B2 / B3 kernels drew since the reset (hazard C8)
-    imhk_fused.max_abs_y = 0
-    imhk_trajectory.max_abs_y = 0
+    # largest |y| each tensor-core kernel drew since the reset (hazard C8)
+    for wrapper in _GUARDED:
+        wrapper.max_abs_y = 0
 
 
 reset_launch_counts()

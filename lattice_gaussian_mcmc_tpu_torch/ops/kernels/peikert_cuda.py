@@ -28,8 +28,10 @@ in registers, x = hi + lo with hi = x truncated to TF32 and lo = x - hi
 TF32 too), and L2 z = hi.hi + hi.lo + lo.hi (hazard C9: the Pallas
 kernel's two-part bf16 split is ~10 times less accurate). L2 goes to the
 kernel packed in mma.sync m16n8k8 A-fragment order (`peikert_fragments`).
-The kernel keeps a block's normals in shared memory, which bounds n_pad by
-`PEIKERT_TC_MAX_N_PAD`.
+The kernel keeps a block's normals in shared memory: 32 chains a block up
+to n_pad 1,792, 16 above (`peikert_block_chains`, chosen before the
+launch), which bounds n_pad by `PEIKERT_TC_MAX_N_PAD` (3,584; above every
+n_pad that B2-B4 reach).
 
 Dispatch. A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises. It never falls back.
@@ -73,10 +75,26 @@ from lattice_gaussian_mcmc_tpu_torch.utils.prng import (
 )
 
 TWO_PI = 2.0 * math.pi
-# the largest n_pad whose normals tile (32 chains x n_pad float32,
-# peikert_tc.cu) fits the 227 KB (232,448 bytes) a block of sm_90 may take,
-# rounded down to a multiple of 64
-PEIKERT_TC_MAX_N_PAD = 1792
+SMEM_PER_BLOCK = 232_448   # bytes of shared memory a block of sm_90 may take
+# chains a block of peikert_tc.cu may own, most first
+BLOCK_CHAINS = (32, 16)
+# the largest n_pad whose normals tile (16 chains x n_pad float32) fits a
+# block's shared memory, rounded down to a multiple of 64: 3,584
+PEIKERT_TC_MAX_N_PAD = (SMEM_PER_BLOCK // (4 * BLOCK_CHAINS[-1])
+                        // ROW_BLOCK * ROW_BLOCK)
+
+
+def peikert_block_chains(n_pad: int) -> int:
+    """The chains a block of B5 owns at n_pad: the most of `BLOCK_CHAINS`
+    whose normals tile (4 n_pad bytes a chain) fits `SMEM_PER_BLOCK`, so 32
+    up to n_pad 1,792 and 16 up to `PEIKERT_TC_MAX_N_PAD`. Raises above."""
+    for chains in BLOCK_CHAINS:
+        if 4 * chains * n_pad <= SMEM_PER_BLOCK:
+            return chains
+    raise ValueError(
+        f"n_pad {n_pad} is above {PEIKERT_TC_MAX_N_PAD}, the largest whose "
+        f"normals tile of {BLOCK_CHAINS[-1]} chains fits a block's shared "
+        "memory")
 
 
 def suggest_peikert_window(r: float, n: int, budget: float = 0.01) -> int:
@@ -249,7 +267,8 @@ def _peikert_tc_launch(ops: PeikertOperands, num_chains: int,
     if n_pad > PEIKERT_TC_MAX_N_PAD:
         raise ValueError(
             f"{what}: n_pad {n_pad} is above {PEIKERT_TC_MAX_N_PAD}, the "
-            "largest whose normals tile fits a block's shared memory")
+            f"largest whose normals tile of {BLOCK_CHAINS[-1]} chains fits a "
+            "block's shared memory")
     check_cuda("L2T", ops.L2T, (n_pad, n_pad))
     check_cuda("cp", ops.cp, (n_pad,))
     if not 1 <= ops.window <= MAX_WINDOW:
@@ -271,7 +290,8 @@ def _peikert_tc_launch(ops: PeikertOperands, num_chains: int,
         ptr(uniforms) if uniforms is not None else None,
         ptr(normals) if normals is not None else None, ptr(ring),
         ptr(dbg) if dbg is not None else None, n_pad, num_chains,
-        ops.window, n_rounds, k0, k1, chain_offset,
+        ops.window, n_rounds, peikert_block_chains(n_pad), k0, k1,
+        chain_offset,
         ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
     raise_on("peikert_tc", rc, what)
     return ring

@@ -276,12 +276,17 @@ class IMHKSampler:
         steps continue at `steps + 1`).
 
         On a CUDA device the kernels run; on the CPU their plain versions.
-        backend "cuda" raises unless the sampler's device is a card."""
+        backend "cuda" raises unless the sampler's device is a card. On a
+        card B2 and B3 keep the proposal in shared memory, so n (padded to
+        a multiple of 128) must be at most `klein_cuda.IMHK_TC_MAX_N_PAD`
+        (3,456); above it they raise before any launch (the JAX package's
+        `sample_iid` falls back to `imhk_chains` there)."""
         check_backend(backend, self.device)
         ops = self.operands
-        x, lw = klein_cuda.klein_draw(ops, n_chains, seed=seed, step=0)
-        acc = torch.zeros_like(lw)
         guard = klein_cuda.exact_guard(self.device)
+        x, lw = klein_cuda.klein_draw(ops, n_chains, seed=seed, step=0,
+                                      guard=guard)
+        acc = torch.zeros_like(lw)
         self._advance(x, lw, acc, self.burn_in, seed, 1, guard)
         acc_burn = acc.sum()    # read after the trajectory, not between
         x, lw, acc, tx, _ = klein_cuda.imhk_trajectory(
@@ -306,13 +311,18 @@ class IMHKSampler:
         lattice points (or coefficients), (num_samples, n).
 
         On a CUDA device the kernels run; on the CPU their plain versions.
-        backend "cuda" raises unless the sampler's device is a card."""
+        backend "cuda" raises unless the sampler's device is a card. On a
+        card n (padded to a multiple of 128) must be at most
+        `klein_cuda.IMHK_TC_MAX_N_PAD` (3,456), B2's reach; above it B2
+        raises before any launch (the JAX package's `sample_iid` falls back
+        to `imhk_chains` there)."""
         check_backend(backend, self.device)
         n_steps = max(1, self.burn_in if n_steps is None else int(n_steps))
         ops = self.operands
-        x, lw = klein_cuda.klein_draw(ops, num_samples, seed=seed, step=0)
-        acc = torch.zeros_like(lw)
         guard = klein_cuda.exact_guard(self.device)
+        x, lw = klein_cuda.klein_draw(ops, num_samples, seed=seed, step=0,
+                                      guard=guard)
+        acc = torch.zeros_like(lw)
         self._advance(x, lw, acc, n_steps, seed, 1, guard)
         klein_cuda.check_exact(guard, "IMHKSampler.sample_iid")
         self.acceptance_rate = float(acc.sum()) / (num_samples * n_steps)
@@ -386,16 +396,22 @@ class MetropolisKleinSampler:
                    return_coeffs: bool = False, backend: str = "auto"):
         """`num_samples` independent SMK chains from a Klein draw of the
         target (B1), `n_steps` fused SMK steps each (B4, one launch);
-        returns the final states, (num_samples, n). Hazard C8's guard is
-        read once, after the launch."""
+        returns the final states, (num_samples, n). Hazard C8's guards (the
+        start's and B4's) are read once, after the launches. On a card n
+        (padded to a multiple of 128) must be at most
+        `smk_cuda.SMK_TC_MAX_N_PAD` (3,456), B4's reach; above it B4 raises
+        before its launch."""
         check_backend(backend, self.device)
         n_steps = max(1, int(n_steps))
         kops = self.klein_operands
-        x, _ = klein_cuda.klein_draw(kops, num_samples, seed=seed, step=0)
+        kguard = klein_cuda.exact_guard(self.device)
+        x, _ = klein_cuda.klein_draw(kops, num_samples, seed=seed, step=0,
+                                     guard=kguard)
         acc = torch.zeros(num_samples, dtype=x.dtype, device=x.device)
         guard = smk_cuda.exact_guard(self.device)
         smk_cuda.smk_steps(self.operands, x, acc, n_steps, seed=seed, step=1,
                            guard=guard)
+        klein_cuda.check_exact(kguard, "SMKSampler.sample_iid")
         smk_cuda.check_exact(guard, "SMKSampler.sample_iid")
         self.acceptance_rate = float(acc.sum()) / (num_samples * n_steps)
         coeffs = klein_cuda.from_kernel_layout(kops, x)

@@ -251,7 +251,10 @@ class KleinSampler:
         from lattice_gaussian_mcmc_tpu_torch.ops.kernels import klein_cuda
         check_backend(backend, self.device)
         ops = self.operands
-        y, lw = klein_cuda.klein_draw(ops, num_samples, seed=seed, step=0)
+        guard = klein_cuda.exact_guard(self.device)
+        y, lw = klein_cuda.klein_draw(ops, num_samples, seed=seed, step=0,
+                                      guard=guard)
+        klein_cuda.check_exact(guard, "KleinSampler.sample")
         return klein_cuda.from_kernel_layout(ops, y), lw
 
     def sample(self, seed: int, num_samples: int = 1,

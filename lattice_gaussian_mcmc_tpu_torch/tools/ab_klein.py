@@ -1,4 +1,4 @@
-"""Time kernels B1-B5 of one checkout of the port at the paths' shapes,
+"""Time kernels B1-B7 of one checkout of the port at the paths' shapes,
 for comparing two trees on one card.
 
     python3 lattice_gaussian_mcmc_tpu_torch/tools/ab_klein.py TREE [RING]
@@ -19,8 +19,13 @@ launch at the SMK row's shapes (proposal 0.45 sigma of the hard-regime
 row's, window 8, 131,072 chains from a Klein draw) with its accept count,
 and B5 at the Peikert row's shapes (sigma 1.05 r s1(B), window 24, 8
 rounds) at 65,536 and at 4,096 chains, with its plain version's time at
-4,096; and ptxas's register lines. Run it for parent, change, change,
-parent, one after another on the same card.
+4,096, B5 at NTRU-1024 (dimension 2048, the Peikert row at BENCH_N =
+1024; 8 rounds at 65,536 chains, 2 at 4,096 with its plain version's
+time, or the error of a tree that raises there), B6 at the suite klein
+row's shapes (NTRU-512 of seed 42, sigma 1.3 max ||b*_i||, window 24,
+65,536 chains x 8 rounds) and B7 at the decode phase's (65,536 targets
+B x* + w, noise 0.45 min ||b*_i||); and ptxas's register lines. Run it for
+parent, change, change, parent, one after another on the same card.
 """
 
 from __future__ import annotations
@@ -33,6 +38,9 @@ CHAINS = 524288
 B1_REPS = 5
 SMK_STEPS = 32
 PEIKERT_CHAINS, PEIKERT_CHECK_CHAINS, PEIKERT_ROUNDS = 65536, 4096, 8
+PEIKERT_CHECK_ROUNDS = 2
+SUITE_CHAINS, SUITE_ROUNDS = 65536, 8
+DECODE_TARGETS = 65536
 STEPS = 64
 HARD_CHAINS = 131072
 HARD_STEPS = 48
@@ -85,6 +93,7 @@ def main(tree: str, ring: int = 512) -> dict:
         ops_h, x, lw_h, acc_h, HARD_STEPS, 1, seed=100, step=1))
     if ring == 512:
         out_45 = _b4_b5(lat, sigma_h, ms)
+        out_45.update(_b5_wide(root, ms), **_b6_b7(root, lat, ms))
     ptxas = {name: [ln.strip() for ln in info["ptxas"].splitlines()
                     if "entry function" in ln or "registers" in ln]
              for name, info in _build.BUILD_INFO.items()}
@@ -145,6 +154,67 @@ def _b4_b5(lat, sigma_h, ms) -> dict:
             f"b5_{PEIKERT_CHECK_CHAINS}_ms": b5[PEIKERT_CHECK_CHAINS],
             f"b5_{PEIKERT_CHECK_CHAINS}_plain_ms": plain,
             "b5_rounds": PEIKERT_ROUNDS, "b5_window": ops_p.window}
+
+
+def _b5_wide(root, ms) -> dict:
+    """B5 at NTRU-1024 (dimension 2048), sigma 1.05 r s1(B): 8 rounds at
+    65,536 chains and 2 at 4,096 with the plain version's time, each after
+    a warm-up launch; a tree whose wrapper raises there reports why."""
+    import numpy as np
+    from lattice_gaussian_mcmc_tpu_torch.lattices import ntru_lattice
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import peikert_cuda
+    from lattice_gaussian_mcmc_tpu_torch.ops.theta import (
+        smoothing_parameter_zn,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.samplers import PeikertSampler
+    lat = ntru_lattice(1024, q=12289, seed=0,
+                       cache_dir=os.path.join(root, "bench_cache"),
+                       device="cuda")
+    s1 = float(np.linalg.norm(lat.basis.cpu().double().numpy(), 2))
+    r = smoothing_parameter_zn(lat.n, 0.01)
+    ops = PeikertSampler(lat, 1.05 * r * s1).operands
+    out = {"b5_2048_window": ops.window}
+    try:
+        for B, R in ((PEIKERT_CHAINS, PEIKERT_ROUNDS),
+                     (PEIKERT_CHECK_CHAINS, PEIKERT_CHECK_ROUNDS)):
+            peikert_cuda.peikert_rounds(ops, B, R, seed=502)
+            out[f"b5_2048_{B}x{R}_ms"] = ms(
+                lambda: peikert_cuda.peikert_rounds(ops, B, R, seed=502))
+    except ValueError as e:
+        out["b5_2048_error"] = str(e)
+    out[f"b5_2048_{PEIKERT_CHECK_CHAINS}x{PEIKERT_CHECK_ROUNDS}_plain_ms"] = (
+        ms(lambda: peikert_cuda.peikert_rounds_plain(
+            ops, PEIKERT_CHECK_CHAINS, PEIKERT_CHECK_ROUNDS, seed=502)))
+    return out
+
+
+def _b6_b7(root, lat, ms) -> dict:
+    """B6 at the suite klein row's shapes and B7 at the decode phase's,
+    each after a warm-up launch."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.lattices import ntru_lattice
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import klein_cuda
+    from lattice_gaussian_mcmc_tpu_torch.samplers import klein_precompute
+    lat42 = ntru_lattice(512, q=12289, seed=42,
+                         cache_dir=os.path.join(root, "bench_cache"),
+                         device="cuda")
+    ops = klein_cuda.kernel_operands(klein_precompute(
+        lat42, 1.3 * float(lat42.gs_norms.max()), tail_budget=0.01))
+    klein_cuda.klein_ring(ops, SUITE_CHAINS, SUITE_ROUNDS, seed=5)
+    b6 = ms(lambda: klein_cuda.klein_ring(ops, SUITE_CHAINS, SUITE_ROUNDS,
+                                          seed=5))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    xs = torch.randint(-2, 3, (DECODE_TARGETS, lat.n), device="cuda",
+                       generator=gen).double()
+    w = torch.randn(DECODE_TARGETS, lat.n, device="cuda", generator=gen,
+                    dtype=torch.float64)
+    t = xs @ lat.basis.T + 0.45 * float(lat.gs_norms.min()) * w
+    ops7 = klein_cuda.babai_operands(lat.Q, lat.R)
+    ct, _ = klein_cuda.babai_centres(ops7, t)
+    klein_cuda.babai_decode(ops7, ct)
+    b7 = ms(lambda: klein_cuda.babai_decode(ops7, ct))
+    return {f"b6_{SUITE_CHAINS}x{SUITE_ROUNDS}_ms": b6,
+            "b6_window": ops.window, f"b7_{DECODE_TARGETS}_ms": b7}
 
 
 if __name__ == "__main__":

@@ -40,8 +40,11 @@ MUTANTS = {
     # B2/B3's coupling on U1 alone: one bf16 pass (hazard C2)
     "b2_hi_only": ("imhk_tc.cu", "constexpr int PASSES = PARTS;",
                    "constexpr int PASSES = 1;"),
-    # the Klein coupling of B1, B6 and B7 reads U with TF32's 10-bit
-    # mantissa (hazard C2)
+    # B1/B6's coupling on U1 alone: one bf16 pass (hazard C2)
+    "klein_tc_hi_only": ("klein_tc.cu", "constexpr int PASSES = PARTS;",
+                         "constexpr int PASSES = 1;"),
+    # klein.cu's FP32 coupling of B7 (and of B1 and B6 above n_pad 3,456)
+    # reads U with TF32's 10-bit mantissa (hazard C2)
     "tf32_coupling": ("klein_common.cuh", "const float4 u = __ldg(u4 + q);",
                       "float4 u = __ldg(u4 + q); "
                       + " ".join(_tf32("u", c) for c in "xyzw")),
@@ -55,6 +58,10 @@ MUTANTS = {
     # B5 reads L2 with TF32's 10-bit mantissa: its lo part is dropped
     "tf32_peikert": ("peikert_tc.cu", "mma_tf32(dc[n], alo, bh[0], bh[1]);",
                      ""),
+    # B5's 16-chain blocks (n_pad above 1,792) drop L2's lo part
+    "peikert_wide_tf32": ("peikert_tc.cu",
+                          "mma_tf32(dc[n], alo, bh[0], bh[1]);",
+                          "if (NT == 4) mma_tf32(dc[n], alo, bh[0], bh[1]);"),
     # B5's product as the Pallas kernel's: both operands split into two
     # bf16 parts, hi.hi + hi.lo + lo.hi (hazard C9)
     "peikert_two_part": ("peikert_tc.cu",
@@ -64,9 +71,13 @@ MUTANTS = {
     "babai_roundf": ("klein.cu", "const float yi = rintf(c);",
                      "const float yi = roundf(c);"),
     # B6 draws every round on step 0's Philox counters
-    "ring_one_step": ("klein.cu",
-                      "const uint32_t step_r = step + (uint32_t)r;",
-                      "const uint32_t step_r = step;"),
+    "ring_one_step": ("klein_tc.cu",
+                      "const uint32_t step = step0 + (uint32_t)rd;",
+                      "const uint32_t step = step0;"),
+    # ... and so does its FP32 route (n_pad above 3,456)
+    "ring_one_step_fp32": ("klein.cu",
+                           "const uint32_t step_r = step + (uint32_t)r;",
+                           "const uint32_t step_r = step;"),
     # B8 counts cdf_k <= u total
     "zn_le": ("zn.cu", "if (cdf[mid] < target) lo = mid + 1;",
               "if (cdf[mid] <= target) lo = mid + 1;"),

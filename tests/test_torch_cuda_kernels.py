@@ -1,8 +1,9 @@
-"""The CUDA kernels B1 (Klein draw), B2 (fused IMHK), B3 (IMHK trajectory;
-B2 and B3 from `csrc/imhk_tc.cu`), B4 (fused SMK, `csrc/smk_tc.cu`), B5
-(Peikert, `csrc/peikert_tc.cu`), B6 (Klein ring), B7 (Babai) and B8 (Z^n)
-against their plain PyTorch versions on the card, and the entry points that
-must reach them. These need a CUDA device and skip without
+"""The CUDA kernels B1 (Klein draw) and B6 (Klein ring; both from
+`csrc/klein_tc.cu`, and from `csrc/klein.cu` above n_pad 3,456), B2 (fused
+IMHK), B3 (IMHK trajectory; B2 and B3 from `csrc/imhk_tc.cu`), B4 (fused
+SMK, `csrc/smk_tc.cu`), B5 (Peikert, `csrc/peikert_tc.cu`), B7 (Babai) and
+B8 (Z^n) against their plain PyTorch versions on the card, and the entry
+points that must reach them. These need a CUDA device and skip without
 one; they import nothing of JAX, so on a machine with a card and no JAX run
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest
@@ -18,6 +19,7 @@ import torch
 
 from lattice_gaussian_mcmc_tpu_torch.lattices import (
     lattice_from_basis,
+    lattice_from_numpy,
     ntru_lattice,
 )
 from lattice_gaussian_mcmc_tpu_torch.ops import linalg
@@ -85,8 +87,8 @@ def test_b1_matches_plain_host_uniforms_and_philox(ops):
 
 @pytest.mark.cuda
 def test_b1_runtime_window_matches_plain():
-    """A window other than the compiled 16 takes the runtime-window
-    path."""
+    """A window other than the compiled 8, 16 and 24 takes the
+    runtime-window path."""
     ops = _operands(window=40)
     y, lw = klein_cuda.klein_draw(ops, B, seed=2, step=1)
     yp, lwp = klein_cuda.klein_draw_plain(ops, B, seed=2, step=1)
@@ -490,3 +492,154 @@ def test_klein_sampler_and_gibbs_reach_the_kernels():
     s.decode(2, torch.tensor([[0.3, 0.7], [1.2, -2.6]], device="cuda"),
              n_chains=4, n_sweeps=3)
     assert klein_cuda.babai_decode.launches == 1
+
+
+@pytest.mark.cuda
+def test_b6_matches_plain_host_uniforms(ops):
+    """B6 on the caller's uniforms (round r in rows r n_pad ..), every
+    round against its plain version up to ties."""
+    unif = torch.rand(3 * ops.n_pad, B, device="cuda")
+    ring, lw = klein_cuda.klein_ring(ops, B, 3, uniforms=unif)
+    ringp, lwp = klein_cuda.klein_ring_plain(ops, B, 3, uniforms=unif)
+    for r in range(3):
+        sl = slice(r * ops.n_pad, (r + 1) * ops.n_pad)
+        _agree(ring[sl], ringp[sl], lw[r], lwp[r])
+    y, l1 = klein_cuda.klein_draw(ops, B, uniforms=unif[:ops.n_pad])
+    assert torch.equal(ring[:ops.n_pad], y) and torch.equal(lw[0], l1)
+
+
+@pytest.mark.cuda
+def test_b1_is_b2s_proposal_at_the_same_step(ops):
+    """One stream: B1 at Philox step s draws B2's step-s proposal with the
+    same conditional centres, bit for bit (the two debug instantiations
+    write them), from any state of B2."""
+    x, lw = klein_cuda.klein_draw(ops, B, seed=3, step=0)
+    for s in (1, 7):
+        c2, prop = klein_cuda.imhk_centres(ops, x.clone(), lw.clone(),
+                                           seed=3, step=s)
+        y, l1 = klein_cuda.klein_draw(ops, B, seed=3, step=s)
+        c1, y1, lw1 = klein_cuda.klein_centres(ops, B, seed=3, step=s)
+        assert torch.equal(y, prop) and torch.equal(y1, y)
+        assert torch.equal(c1, c2) and torch.equal(lw1[0], l1)
+
+
+@pytest.mark.cuda
+def test_b1_b6_centres_within_the_gate_of_float64():
+    """B1/B6's own centres (three bf16 passes on the tensor cores) within
+    1e-3 sigma_i of float64 (hazard C2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(136)
+    basis = (np.triu(rng.uniform(-0.1, 0.1, (N, N)), 1)
+             + np.diag(rng.uniform(1.0, 2.0, N)))
+    lat = lattice_from_basis(basis, device="cuda")
+    pre = klein_precompute(lat, 10.0, tail_budget=0.01)
+    ops = klein_cuda.kernel_operands(pre)
+    c, ring, _ = klein_cuda.klein_centres(ops, B, 2, seed=4)
+    for r in range(2):
+        sl = slice(r * ops.n_pad, r * ops.n_pad + N)
+        x64 = ring[sl].double() + ops.shift[:N, None].double()
+        c64 = pre.cs[:, None] - pre.U @ x64 + x64
+        err = (c[sl].double() + ops.shift[:N, None].double() - c64).abs()
+        assert float((err / pre.sigmas[:, None]).max()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_b1_b6_raise_beyond_the_exact_range():
+    """Hazard C8 for B1 and B6: a drawn |y| > 256 is not exact in their
+    bf16 tile, so the wrapper (or the entry point, reading its one guard)
+    raises; near 200 they run and report the range."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lat = lattice_from_basis(np.array([[1.0, 0.5], [0.0, 1.0]]),
+                             device="cuda")
+    ks = KleinSampler(lat, 0.35)
+    ops = ks.operands
+    for centre, raises in ((200.0, False), (300.0, True)):
+        ops.cs[0] = centre       # the recentred centre of row 0
+        klein_cuda.reset_launch_counts()
+        if raises:
+            with pytest.raises(RuntimeError, match="klein_draw.*C8"):
+                klein_cuda.klein_draw(ops, 256, seed=1)
+            with pytest.raises(RuntimeError, match="klein_ring.*C8"):
+                klein_cuda.klein_ring(ops, 256, 2, seed=1)
+            with pytest.raises(RuntimeError, match="KleinSampler.*C8"):
+                ks.sample(1, 256)
+        else:
+            klein_cuda.klein_draw(ops, 256, seed=1)
+            klein_cuda.klein_ring(ops, 256, 2, seed=1)
+            assert 195 <= klein_cuda.klein_draw.max_abs_y <= 205
+            assert 195 <= klein_cuda.klein_ring.max_abs_y <= 205
+
+
+@pytest.mark.cuda
+def test_b1_b6_fp32_route_above_the_tensor_core_reach():
+    """Above n_pad 3,456 the draw tile does not fit a block: B1 and B6
+    take klein.cu's FP32 sweep, chosen by n_pad before the launch, and
+    match their plain versions (a basis of dimension 3,500 that is its own
+    R, n_pad 3,584, a few chains)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n, chains = 3500, 128
+    rng = np.random.default_rng(35)
+    basis = (np.triu(rng.uniform(-0.05, 0.05, (n, n)), 1)
+             + np.diag(rng.uniform(1.0, 2.0, n)))
+    lat = lattice_from_numpy({"basis": basis, "Q": np.eye(n), "R": basis,
+                              "gs_norms": np.diag(basis)}, device="cuda")
+    ops = klein_cuda.kernel_operands(klein_precompute(lat, 4.0,
+                                                      tail_budget=0.01))
+    assert ops.n_pad == 3584 and klein_cuda.klein_route(ops.n_pad) == "klein"
+    klein_cuda.reset_launch_counts()
+    unif = torch.rand(ops.n_pad, chains, device="cuda")
+    y, lw = klein_cuda.klein_draw(ops, chains, uniforms=unif)
+    yp, lwp = klein_cuda.klein_draw_plain(ops, chains, uniforms=unif)
+    same = (y[:n] == yp[:n]).all(dim=0)
+    assert 1 - same.float().mean().item() <= 0.05
+    torch.testing.assert_close(lw[same], lwp[same], atol=1e-3, rtol=0)
+    ring, lws = klein_cuda.klein_ring(ops, chains, 2, seed=5, step=1)
+    ringp, lwsp = klein_cuda.klein_ring_plain(ops, chains, 2, seed=5,
+                                              step=1)
+    for r in range(2):
+        sl = slice(r * ops.n_pad, r * ops.n_pad + n)
+        same = (ring[sl] == ringp[sl]).all(dim=0)
+        assert 1 - same.float().mean().item() <= 0.05
+        torch.testing.assert_close(lws[r, same], lwsp[r, same], atol=1e-3,
+                                   rtol=0)
+    assert (klein_cuda.klein_draw.fp32_launches,
+            klein_cuda.klein_ring.fp32_launches) == (1, 1)
+    assert (klein_cuda.klein_draw.launches,
+            klein_cuda.klein_ring.launches) == (0, 0)
+
+
+@pytest.mark.cuda
+def test_b5_matches_plain_at_ntru1024():
+    """C10: B5 samples at dimension 2048 (NTRU-1024, the Peikert row at
+    bench.py's BENCH_N = 1024; 16 chains a block): on the caller's normals
+    coordinates differ from the plain version only by ties, each by one,
+    and its own centres lie within 2e-3 r of float64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lat = ntru_lattice(1024, q=12289, seed=0,
+                       cache_dir=os.path.join(REPO, "bench_cache"),
+                       device="cuda")
+    s1 = float(np.linalg.norm(lat.basis.cpu().numpy(), 2))
+    r = smoothing_parameter_zn(lat.n, 0.01)
+    s = PeikertSampler(lat, 1.05 * r * s1, device="cuda")
+    ops = s.operands
+    assert ops.n_pad == 2048 and peikert_cuda.peikert_block_chains(2048) == 16
+    z = torch.randn(2 * ops.n_pad, B, device="cuda")
+    u = torch.rand(2 * ops.n_pad, B, device="cuda")
+    ring = peikert_cuda.peikert_rounds(ops, B, 2, uniforms=u, normals=z)
+    ringp = peikert_cuda.peikert_rounds_plain(ops, B, 2, uniforms=u,
+                                              normals=z)
+    diff = ring != ringp
+    assert diff.float().mean().item() <= 1e-3
+    assert bool(((ring - ringp).abs()[diff] == 1).all())
+    c, _ = peikert_cuda.peikert_centres(ops, B, uniforms=u[:ops.n_pad],
+                                        normals=z[:ops.n_pad])
+    n = ops.n
+    c64 = (s.pre.cprime.double()[:, None]
+           - s.pre.L2.double() @ z[:n].double())
+    assert float((c[:n].double() - c64).abs().max()) / r <= 2e-3
+    X = s.sample(9, B, return_coeffs=True)
+    assert X.shape == (B, n) and bool(torch.isfinite(X).all())
