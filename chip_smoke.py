@@ -29,10 +29,14 @@ decoding. Phases, one JSON line each:
                    chains a block); B6 (Klein ring) round 0 and a
                    one-round ring bit for bit against B1, every round
                    against its plain version, its own centres against
-                   float64; B7
-                   (Babai) against the float64 nearest plane and, at
-                   half-integer 2D targets, decision for decision against
-                   its plain version; B8 (Z^n) against its plain version
+                   float64; B7 (Babai) against its plain version, the
+                   float64 nearest plane up to counted ties and x* at
+                   noise 0.05, at half-integer 2D targets decision for
+                   decision against its plain version, on a basis whose
+                   coefficients pass 256 and 2^16 equal to float64 (its
+                   wide parts), and above n_pad 3,456 (klein.cu's FP32
+                   route); B8 (Z^n) against its plain version draw for
+                   draw, on host uniforms and on Philox
   law              2D hard regime: TVD to the enumerated target and the
                    stationary acceptance 0.9904 (IMHK), TVD of SMK; B8's
                    TVD to the exact pmf; B6's per-round moments in 2D;
@@ -44,23 +48,26 @@ decoding. Phases, one JSON line each:
                    64-step B2 run: samples/s, acceptance, ESS/s
   smk              SMKSampler at the same sigma, proposal 0.45 sigma,
                    131,072 chains, 32 steps: samples/s, acceptance, B4's
-                   design floor
+                   bound
   peikert          PeikertSampler at 1.05 r s1(B), 65,536 chains x 8
                    rounds in one launch: samples/s, second moment, B5's
-                   design floor
+                   bound
   suite            run_benchmarks at dimensions 256 and 1024 (klein: B6,
                    imhk: B1 + B2, direct: B8, peikert: B5; 65,536 chains,
                    1 warm-up, 3 timed runs) and the direct row at 16 and
                    64: one line per row
   decode           B7 through Lattice.nearest_plane on NTRU-512, 65,536
                    targets B x* + w at noise 0.05 and 0.45 min ||b*_i||,
-                   held to x* and to the float64 nearest plane; the f32-QR
+                   held to x* and to the float64 nearest plane; B7's
+                   largest |y| and its FP32-route launches; the time of
+                   the float64 centre products beside B7's; the f32-QR
                    centre count (hazard C7); annealed Gibbs through
                    UnifiedLatticeSampler.decode on NTRU-64
   timing           B1 and B2 against their plain versions at the flagship
                    shapes, B6-B8 at the suite's and the decode phase's
-                   shapes, every kernel's bound, and the design floors of
-                   B1, B2 and B6
+                   shapes, and every kernel's bound: its bytes and each
+                   type of its operations at the card's rate for that
+                   type (`bound`), beside the FP32-only figure
 
 Each path phase (flagship, hard_regime, smk, peikert, suite, decode) sets
 every launch count to 0 before it runs and reads them after. Then the card's name and
@@ -87,12 +94,15 @@ FALCON_SIGMA = 165.7
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and FP32 on the CUDA cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
-# B2-B5's design floors: dense bf16 and TF32 on the tensor cores, and the
-# special function units' exps (16 a clock per SM, 132 SMs, 1.98 GHz boost
-# clock)
+# dense bf16 and TF32 on the tensor cores, and the special function units'
+# exps (16 a clock per SM, 132 SMs, 1.98 GHz boost clock)
 PEAK_BF16_S = 989e12
 PEAK_TF32_S = 495e12
 PEAK_SFU_S = 16 * 132 * 1.98e9
+# B8's generator work: integer instructions at the INT32 rate, 64 lanes a
+# clock per SM (four partitions of 16, NVIDIA's Hopper architecture white
+# paper), 132 SMs, 1.98 GHz boost clock
+PEAK_INT32_S = 64 * 132 * 1.98e9
 # Gates, kernel against its plain version on the same uniforms. The two sum
 # the coupling in another order, so a CDF-boundary tie now and then flips a
 # draw by one; every later row of that chain is then drawn around other
@@ -170,8 +180,23 @@ GIBBS_TARGETS, GIBBS_CHAINS, GIBBS_SWEEPS = 64, 24, 48
 # success lies strictly between 0 and 1 (prod_i erf(R_ii / (2 sqrt(2) rho
 # min_gs)) = 0.45 at 0.22), so that the two success rates can part
 GIBBS_RHOS = (0.22, 0.45)
-# B8: independent draws; a CDF-boundary tie moves one draw by one
-MAX_ZN_SHARE = 1e-3
+# B7's reach in y: an upper-triangular integer basis with a unit diagonal
+# (its own R, Q = I), built so that the recentred coefficients y pass 256
+# and 2^16 (with more than 16 significant bits, so that y's third bf16
+# part is not 0) while every quantity of the decode is an integer or a
+# quarter below 2^22, exact in float32: the kernel must equal float64
+# coefficient for coefficient (`reach_basis`)
+REACH_N = 256
+REACH_TARGETS = 512
+# B7's cost where tiles are flagged: the reach basis's operands at this
+# many targets, on centres that pass 256 and on centres that do not
+REACH_TIMING_TARGETS = 65536
+# B7 above the tensor-core reach: targets B x* + w on the FP32 route's
+# basis, w ~ N(0, 0.05^2) against R_ii >= 1
+FP32_ROUTE_TARGETS = 256
+FP32_ROUTE_NOISE = 0.05
+# B8: the kernel repeats its plain version's CDF bit for bit, so every draw
+# is equal on the same uniforms
 ZN_SIGMA = 5.0                       # the suite's direct row
 ZN_BOUNDARY = 65_536                 # check uniforms exactly on a CDF entry
 ZN_LAW_DRAWS = 1 << 22
@@ -356,44 +381,60 @@ def compare_rings(ring, ringp):
             "max_abs_err": float(step.max()) if step.numel() else 0.0}
 
 
-def bound_ms(flop, nbytes):
-    t_ops, t_bytes = flop / PEAK_FP32_S, nbytes / PEAK_BYTES_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+def fp32_bound_ms(flop, nbytes):
+    """Every operation at the CUDA cores' FP32 rate, or the bytes, the
+    larger: the bound of PRs 1-6, kept beside `bound` for comparison."""
+    return 1e3 * max(flop / PEAK_FP32_S, nbytes / PEAK_BYTES_S)
 
 
-def design_floor(flop, peak, special):
-    """A design floor: `flop` on the tensor cores at `peak`, `special`
-    special-function operations (exps) at the SFU rate; the two units run
-    side by side, so the floor is the larger."""
-    coupling = 1e3 * flop / peak
-    exps = 1e3 * special / PEAK_SFU_S
-    return {"design_floor_ms": max(coupling, exps),
-            "design_floor_coupling_ms": coupling,
-            "design_floor_exps_ms": exps}
+def bound(nbytes, tensor=0, tensor_peak=PEAK_BF16_S, special=0, fp32=0,
+          int32=0):
+    """The least time the card could take for a kernel's work: its bytes
+    (inputs read once, outputs written once) over the memory rate, and
+    each type of operation over its unit's peak: the products on the
+    tensor cores (bf16 unless `tensor_peak` says otherwise), exps and
+    other special functions on the SFUs, FP32 and INT32 operations on the
+    CUDA cores. The units run side by side, so the bound is the largest
+    part."""
+    parts = {"bytes": 1e3 * nbytes / PEAK_BYTES_S,
+             "tensor_cores": 1e3 * tensor / tensor_peak,
+             "sfu": 1e3 * special / PEAK_SFU_S,
+             "fp32": 1e3 * fp32 / PEAK_FP32_S,
+             "int32": 1e3 * int32 / PEAK_INT32_S}
+    ms = max(parts.values())
+    return {"bound_ms": ms,
+            "bound_by": "bytes" if parts["bytes"] >= ms else "operations",
+            "bound_parts_ms": parts}
 
 
-def tc_floor_ms(n, window, proposals):
-    """B2/B3's design floor for `proposals` Klein proposals: the coupling's
-    n(n-1) FLOP three times (one bf16 pass per part of U) at the bf16 rate,
-    and the n W exps."""
-    return design_floor(3 * n * (n - 1) * proposals, PEAK_BF16_S,
-                        n * window * proposals)
+def klein_bound(n, window, proposals, nbytes):
+    """B1-B3's and B6's for `proposals` Klein draws: the coupling's n(n-1)
+    FLOP three times (one bf16 pass per part of U), the n W exps, and the
+    rest of `klein_flop` (5 n W) in FP32."""
+    return bound(nbytes, tensor=3 * n * (n - 1) * proposals,
+                 special=n * window * proposals,
+                 fp32=5 * n * window * proposals)
 
 
-def smk_floor_ms(n, window, proposals):
-    """B4's: B2's coupling, and two windows of exps a row (the draw's and
-    the reverse normaliser's)."""
-    return design_floor(3 * n * (n - 1) * proposals, PEAK_BF16_S,
-                        2 * n * window * proposals)
+def smk_bound(n, window, proposals, chains, nbytes):
+    """B4's: B1's coupling, two windows of exps a row (the draw's and the
+    reverse normaliser's), the rest of `smk_flop` in FP32, and n(n+1) FP32
+    FLOP a chain once."""
+    return bound(nbytes, tensor=3 * n * (n - 1) * proposals,
+                 special=2 * n * window * proposals,
+                 fp32=(9 * n * window + 8 * n) * proposals
+                 + n * (n + 1) * chains)
 
 
-def peikert_floor_ms(n, window, draws):
+def peikert_bound(n, window, draws, nbytes):
     """B5's for `draws` chain-rounds: L2 z's n(n+1) FLOP three times
-    (3xTF32) at the TF32 rate, and the n W exps of the draws plus
-    Box-Muller's four special functions a pair of normals."""
-    return design_floor(3 * n * (n + 1) * draws, PEAK_TF32_S,
-                        (n * window + 2 * n) * draws)
+    (3xTF32) on the tensor cores, the n W exps and Box-Muller's four
+    special functions a pair of normals, and the rest of `peikert_flop`
+    (~3 n for Box-Muller, 5 n W for the rounding) in FP32."""
+    return bound(nbytes, tensor=3 * n * (n + 1) * draws,
+                 tensor_peak=PEAK_TF32_S,
+                 special=(n * window + 2 * n) * draws,
+                 fp32=(3 * n + 5 * n * window) * draws)
 
 
 def klein_flop(n, window):
@@ -447,10 +488,14 @@ def tvd_1d(z, sigma, center):
     return 0.5 * float(abs(emp - p).sum() + (1.0 - emp.sum()))
 
 
-def zn_flop(window, num):
-    # per block of 4,096 draws: the window's logits twice (3 operations
-    # each), the max, the exps and the prefix sum
-    return 9 * window * -(-num // 4096)
+def zn_bound(num):
+    """B8's bound for num draws: 4 bytes written a draw, and a quarter of
+    a Philox call's integer instructions (counted in the SASS) a draw at
+    the INT32 rate; with the instruction count."""
+    from lattice_gaussian_mcmc_tpu_torch.tools import sass
+    per_call = sass.philox_instructions()
+    return {**bound(4 * num, int32=per_call / 4 * num),
+            "philox_sass_instructions": per_call}
 
 
 def decode_targets(lat, T, rho, gen):
@@ -544,6 +589,7 @@ class Smoke:
                 "peikert_rounds": self.pc.peikert_rounds.launches,
                 "klein_ring": self.kc.klein_ring.launches,
                 "babai_decode": self.kc.babai_decode.launches,
+                "babai_decode_fp32": self.kc.babai_decode.fp32_launches,
                 "sample_zn_draws": self.zc.sample_zn_draws.launches}
 
     def note(self, kernel, **kw):
@@ -596,8 +642,13 @@ def phase_toolchain(s: Smoke):
               for w in (8, 16, 24)}
     # B1's and B6's (klein_tc.cu) at n_pad 256 and 1024
     klein_tc = {f"n_pad_{n}": {f"{k}_window_{w}": s.kc.klein_tc_resources(
-        n, w, ring=k == "b6") for k in ("b1", "b6") for w in (8, 16, 24)}
+        n, w, k) for k in ("b1", "b6") for w in (8, 16, 24)}
         for n in (256, 1024)}
+    # B7's (klein_tc.cu, Babai mode) at the decode phase's and the reach
+    # check's n_pad, and at the largest the route takes
+    for n in (256, 1024, s.kc.KLEIN_TC_MAX_N_PAD):
+        klein_tc.setdefault(f"n_pad_{n}", {})["b7"] = \
+            s.kc.klein_tc_resources(n, 1, "b7")
     emit({"phase": "toolchain", "ok": True, "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc.strip().splitlines()[-1] if nvcc else None,
@@ -679,14 +730,17 @@ def check_b6(s: Smoke):
 
 
 def check_fp32_route(s: Smoke):
-    """B1 and B6 above the tensor-core sweep's reach, where the wrappers
-    take klein.cu's FP32 sweep: an upper-triangular basis of dimension
-    FP32_ROUTE_N (its own R, Q = I), FP32_ROUTE_CHAINS chains; B1 against
-    its plain version on the caller's uniforms, B6 (2 rounds) on Philox,
-    round 0 = B1 bit for bit, and both counted as FP32 launches."""
+    """B1, B6 and B7 above the tensor-core sweep's reach, where the
+    wrappers take klein.cu's FP32 sweep: an upper-triangular basis of
+    dimension FP32_ROUTE_N (its own R, Q = I), FP32_ROUTE_CHAINS chains;
+    B1 against its plain version on the caller's uniforms, B6 (2 rounds) on
+    Philox, round 0 = B1 bit for bit; B7 on FP32_ROUTE_TARGETS targets
+    B x* + w against its plain version and the float64 nearest plane; all
+    counted as FP32 launches."""
     import numpy as np
     import torch
     from lattice_gaussian_mcmc_tpu_torch.lattices import lattice_from_numpy
+    from lattice_gaussian_mcmc_tpu_torch.ops import linalg
     from lattice_gaussian_mcmc_tpu_torch.samplers import klein_precompute
     kc, B, R, N = s.kc, FP32_ROUTE_CHAINS, FP32_ROUTE_ROUNDS, FP32_ROUTE_N
     rng = np.random.default_rng(35)
@@ -719,12 +773,50 @@ def check_fp32_route(s: Smoke):
     distinct = not torch.equal(ring[:n_pad], ring[n_pad:2 * n_pad])
     d = [a - b for a, b in zip(counts(), before)]
     routed = kc.klein_route(n_pad) == "klein" and d == [0, 0, 2, 1]
-    ok = (routed and round0 and distinct
+    # B7 on the same lattice
+    T = FP32_ROUTE_TARGETS
+    xs = torch.randint(-2, 3, (T, N), device=s.dev, generator=s.gen).double()
+    t = xs @ lat.basis.T + FP32_ROUTE_NOISE * torch.randn(
+        T, N, device=s.dev, generator=s.gen, dtype=torch.float64)
+    ops7 = kc.babai_operands(lat.Q, lat.R)
+    ct, k = kc.babai_centres(ops7, t)
+    b7_before = (kc.babai_decode.launches, kc.babai_decode.fp32_launches)
+    out7 = []
+    ms7 = cuda_ms(lambda: out7.append(kc.babai_decode(ops7, ct)))
+    d7 = [kc.babai_decode.launches - b7_before[0],
+          kc.babai_decode.fp32_launches - b7_before[1]]
+    plain7 = []
+    plain_ms7 = cuda_ms(lambda: plain7.append(kc.babai_decode_plain(ops7,
+                                                                    ct)))
+    zeros = torch.zeros(T, device=s.dev)
+    b7 = compare_draws(out7[0], plain7[0], zeros, zeros, N)
+    del b7["max_abs_lw_err"]
+    X7 = out7[0][:N].T.double() + k
+    n_diff, tie_dist = babai_ties(lat, t, X7,
+                                  linalg.babai_nearest_plane(lat.Q, lat.R, t))
+    b7.update({"targets": T, "launches_tc_fp32": d7,
+               "vs_float64_differing": n_diff, "max_tie_distance": tie_dist,
+               "exact_x_star": int((X7 == xs).all(dim=1).sum()),
+               "ms": ms7, "plain_ms": plain_ms7})
+    b7_ok = (d7 == [0, 1] and b7["coeffs_differing"] <= MAX_COEFF_SHARE
+             and b7["chains_differing"] <= MAX_CHAIN_SHARE
+             and b7["ties_off_by_one"]
+             and (n_diff == 0 or tie_dist <= BABAI_TIE_TOL))
+    del out7, plain7, ct
+    s.note("B7", fp32_route={
+        "source": "lattice_gaussian_mcmc_tpu_torch/csrc/klein.cu",
+        "above_n_pad": kc.KLEIN_TC_MAX_N_PAD,
+        "check_shape": f"{T} targets, dim {N}",
+        "coeffs_differing": b7["coeffs_differing"],
+        "vs_float64_differing": n_diff, "check_ms": ms7,
+        "plain_ms": plain_ms7})
+    ok = (routed and round0 and distinct and b7_ok
           and all(draws_ok(r) for r in [host] + philox))
     res = {"dim": N, "n_pad": n_pad, "window": ops.window, "chains": B,
            "route": kc.klein_route(n_pad), "launches_tc_b1_b6_fp32_b1_b6": d,
            "host": host, "philox": philox, "round0_equals_b1": round0,
-           "rounds_distinct": distinct, "ms": ms, "plain_ms": plain_ms}
+           "rounds_distinct": distinct, "ms": ms, "plain_ms": plain_ms,
+           "b7": b7}
     s.note("B1", fp32_route={
         "source": "lattice_gaussian_mcmc_tpu_torch/csrc/klein.cu",
         "above_n_pad": kc.KLEIN_TC_MAX_N_PAD,
@@ -801,12 +893,131 @@ def check_b5_wide(s: Smoke):
                 "plain_ms": plain_ms}
 
 
+def reach_basis(rng, n=REACH_N):
+    """(basis, x* sampler) of B7's reach check: basis = I + N with N
+    integer, strictly upper-triangular and N^2 confined to rows 0-79.
+    Rows 192-255 (S) have no entry off the diagonal; each of rows 80-191
+    (M) one, a_m in the hundreds at a column of S; each of rows 0-79 (T)
+    two entries +-1 at columns of M, so T couples to M across 64-row blocks
+    and inside rows 64-127. For targets t = B x* + w, |w_i| = 1/4, Babai
+    returns x*, k = rint(t) = B x*, and y = x* - k = -N x*: 0 on S,
+    -a_m x*_s on M, small on T. x*_s is in {-1, 0, 1} on the first 16 rows
+    of S (|y| <= 256), in 2 .. 60 on the next 16 (256 < |y| < 2^16) and
+    odd in 1,001 .. 1,499 on the last 32, where an odd a_m in 601 .. 999
+    makes |y| an odd number between 2^19 and 2^21 (its third bf16 part is
+    not 0 but for a low part below 257); x* is in [-2, 2] elsewhere. The
+    centres stay below 2^22 in magnitude, quarters exact in float32."""
+    import numpy as np
+    S = np.arange(192, n)
+    small, mid = S[:16], S[16:32]
+    Nm = np.zeros((n, n))
+    for j, m in enumerate(range(80, 192)):
+        col = S[j % len(S)]
+        if col in small:
+            a = rng.integers(100, 257)
+        elif col in mid:
+            a = rng.integers(100, 1000)
+        else:
+            a = 2 * rng.integers(300, 500) + 1
+        Nm[m, col] = a * rng.choice([-1, 1])
+    for t in range(80):
+        cols = rng.choice(np.arange(max(t + 1, 80), 192), 2, replace=False)
+        Nm[t, cols] = rng.choice([-1, 1], 2)
+    basis = np.eye(n) + Nm
+
+    def xstar(T):
+        x = rng.integers(-2, 3, (T, n)).astype(np.float64)
+        x[:, small] = rng.integers(-1, 2, (T, len(small)))
+        x[:, mid] = (rng.integers(2, 61, (T, len(mid)))
+                     * rng.choice([-1, 1], (T, len(mid))))
+        big = S[32:]
+        x[:, big] = ((2 * rng.integers(500, 750, (T, len(big))) + 1)
+                     * rng.choice([-1, 1], (T, len(big))))
+        return x
+
+    return basis, xstar
+
+
+def check_b7_reach(s: Smoke):
+    """B7 where |y| passes 256 and 2^16 (`reach_basis`, REACH_TARGETS
+    targets through Lattice.nearest_plane): equal to float64, to x* and to
+    its plain version coefficient for coefficient, with the coefficients
+    beyond 256 counted by the kernel; nothing raises."""
+    import numpy as np
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.lattices import lattice_from_numpy
+    from lattice_gaussian_mcmc_tpu_torch.ops import linalg
+    kc, T = s.kc, REACH_TARGETS
+    rng = np.random.default_rng(77)
+    basis, xstar = reach_basis(rng)
+    lat = lattice_from_numpy({"basis": basis, "Q": np.eye(REACH_N),
+                              "R": basis, "gs_norms": np.ones(REACH_N)},
+                             device=s.dev)
+    xs = torch.from_numpy(xstar(T)).to(s.dev)
+    w = torch.from_numpy(rng.choice([-0.25, 0.25], (T, REACH_N))).to(s.dev)
+    t = xs @ lat.basis.T + w
+    launches = (kc.babai_decode.launches, kc.babai_decode.fp32_launches)
+    before = kc.babai_y_stats()
+    X = lat.nearest_plane(t)
+    after = kc.babai_y_stats()
+    launches = (kc.babai_decode.launches - launches[0],
+                kc.babai_decode.fp32_launches - launches[1])
+    Xo = linalg.babai_nearest_plane(lat.Q, lat.R, t)
+    ops = kc.babai_operands(lat.Q, lat.R)
+    ct, k = kc.babai_centres(ops, t)
+    y_plain = kc.babai_decode_plain(ops, ct)
+    y64 = (xs - k).T                  # the recentred coefficients, exact
+    y1 = y64.to(torch.bfloat16).double()
+    r = y64 - y1
+    y3 = r - r.to(torch.bfloat16).double()
+    res = {"dim": REACH_N, "targets": T, "launches_tc_fp32": launches,
+           "equal_float64": torch.equal(X, Xo),
+           "equal_x_star": torch.equal(X, xs),
+           "plain_equal_x_star": torch.equal(
+               y_plain[:REACH_N].T.double() + k, xs),
+           "kernel_beyond_256": after["beyond_256"] - before["beyond_256"],
+           "kernel_max_abs_y": after["max_abs_y"],
+           "float64_beyond_256": int((y64.abs() > 256).sum()),
+           "float64_beyond_65536": int((y64.abs() > 65536).sum()),
+           "float64_third_part_nonzero": int((y3 != 0).sum()),
+           "float64_max_abs_y": float(y64.abs().max())}
+    ok = (res["equal_float64"] and res["equal_x_star"]
+          and res["plain_equal_x_star"] and launches == (1, 0)
+          and res["kernel_beyond_256"] == res["float64_beyond_256"] > 0
+          and res["kernel_max_abs_y"] == res["float64_max_abs_y"]
+          and res["float64_beyond_65536"] > 0
+          and res["float64_third_part_nonzero"] > 0)
+    res["timing"] = time_b7_reach(s, kc, lat, ops, xstar, rng)
+    return ok, res
+
+
+def time_b7_reach(s: Smoke, kc, lat, ops, xstar, rng):
+    """B7 on the reach basis's operands at REACH_TIMING_TARGETS targets by
+    CUDA events: on t = B x* + w, where most 16-row tiles are flagged and
+    take y's wide parts, and on t = w, where y = 0 and none is; with the
+    coefficients beyond 256 that each run counted."""
+    import torch
+    T = REACH_TIMING_TARGETS
+    w = torch.from_numpy(rng.choice([-0.25, 0.25], (T, REACH_N))).to(s.dev)
+    xs = torch.from_numpy(xstar(T)).to(s.dev)
+    out = {"targets": T}
+    for name, t in (("wide", xs @ lat.basis.T + w), ("narrow", w)):
+        ct, _ = kc.babai_centres(ops, t)
+        before = kc.babai_y_stats()["beyond_256"]
+        kc.babai_decode(ops, ct)
+        out[f"{name}_beyond_256"] = (kc.babai_y_stats()["beyond_256"]
+                                     - before)
+        out[f"{name}_ms"] = cuda_ms(lambda: kc.babai_decode(ops, ct), reps=3)
+    return out
+
+
 def check_b7(s: Smoke):
     """B7 on NTRU-512 at CHECK_CHAINS targets B x* + w (noise 0.45
     min ||b*_i||): against its plain version, against the float64 nearest
     plane up to ties, and the count of targets that centres from a float32
-    QR (hazard C7) decode otherwise; in 2D at half-integer targets, equal
-    to its plain version decision for decision (rintf, hazard C3)."""
+    QR (hazard C7) decode otherwise; at noise 0.05 every target decoded to
+    x*; in 2D at half-integer targets, equal to its plain version decision
+    for decision (rintf, hazard C3); its reach in y (`check_b7_reach`)."""
     import torch
     from lattice_gaussian_mcmc_tpu_torch.lattices import lattice_from_basis
     from lattice_gaussian_mcmc_tpu_torch.ops import linalg
@@ -814,6 +1025,7 @@ def check_b7(s: Smoke):
     ops = kc.babai_operands(lat.Q, lat.R)
     xs, t = decode_targets(lat, T, DECODE_RHOS[-1], s.gen)
     ct, k = kc.babai_centres(ops, t)
+    kc.babai_decode(ops, ct)             # warm-up: U's fragments, the load
     out, outp = [], []
     ms = cuda_ms(lambda: out.append(kc.babai_decode(ops, ct)))
     plain_ms = cuda_ms(lambda: outp.append(kc.babai_decode_plain(ops, ct)))
@@ -825,6 +1037,9 @@ def check_b7(s: Smoke):
     n_diff, tie_dist = babai_ties(lat, t, X, Xo)
     X32 = decode_from_centres(kc, ops, f32_qr_centres(lat, t))
     c7 = int((X32 != Xo).any(dim=1).sum())
+    xs05, t05 = decode_targets(lat, T, DECODE_RHOS[0], s.gen)
+    exact05 = int((lat.nearest_plane(t05) == xs05).all(dim=1).sum())
+    reach_ok, reach = check_b7_reach(s)
     lat2 = lattice_from_basis([[1.0, 0.5], [0.0, 1.0]], device=s.dev)
     ops2 = kc.babai_operands(lat2.Q, lat2.R)
     h = torch.randint(-40, 41, (HARD_CHECK_CHAINS, 2), device=s.dev,
@@ -837,25 +1052,34 @@ def check_b7(s: Smoke):
           and vs_plain["chains_differing"] <= MAX_CHAIN_SHARE
           and vs_plain["ties_off_by_one"]
           and (n_diff == 0 or tie_dist <= BABAI_TIE_TOL)
-          and half_equal and half_ties > 0)
+          and exact05 == T and half_equal and half_ties > 0 and reach_ok
+          and reach["timing"]["wide_beyond_256"] > 0
+          and reach["timing"]["narrow_beyond_256"] == 0)
     s.note("B7", max_abs_err=float((out[0] - outp[0]).abs().max()),
            coeffs_differing=vs_plain["coeffs_differing"],
            plain_ms=plain_ms, check_ms=ms,
-           check_shape=f"{T} targets, dim {lat.n}")
+           check_shape=f"{T} targets, dim {lat.n}",
+           reach_max_abs_y=reach["kernel_max_abs_y"],
+           reach_shape=f"{REACH_TIMING_TARGETS} targets, dim {REACH_N}",
+           reach_wide_ms=reach["timing"]["wide_ms"],
+           reach_narrow_ms=reach["timing"]["narrow_ms"])
     return ok, {"targets": T, "rho": DECODE_RHOS[-1], "vs_plain": vs_plain,
                 "vs_float64_differing": n_diff,
                 "max_tie_distance": tie_dist,
                 "c7_f32_qr_differing_from_float64": c7,
                 "exact_x_star": int((X == xs).all(dim=1).sum()),
+                f"exact_x_star_rho{DECODE_RHOS[0]}": exact05,
                 "half_integer_2d_equal": half_equal,
-                "half_integer_2d_ties": half_ties}
+                "half_integer_2d_ties": half_ties, "reach": reach}
 
 
 def check_b8(s: Smoke):
     """B8 at the suite's direct row (sigma 5, window of
-    suggest_peikert_window(5, 1024)), CHECK_CHAINS x 1024 draws: against the
-    plain version on the caller's uniforms (the first ZN_BOUNDARY of them
-    put exactly on CDF entries, where `<` and `<=` part) and on Philox."""
+    suggest_peikert_window(5, 1024)), CHECK_CHAINS x 1024 draws: equal to
+    the plain version draw for draw on the caller's uniforms (the first
+    ZN_BOUNDARY of them put exactly on CDF entries, where `<` and `<=`
+    part) and on Philox; its first 16 draws are the four words of counters
+    0-3, and the same in a run of another length."""
     import torch
     from lattice_gaussian_mcmc_tpu_torch.ops.kernels.peikert_cuda import (
         suggest_peikert_window,
@@ -882,9 +1106,21 @@ def check_b8(s: Smoke):
         zc.sample_zn_draws(num, ZN_SIGMA, 0.0, W, seed=81, device=s.dev),
         zc.sample_zn_draws_plain(num, ZN_SIGMA, 0.0, W, seed=81,
                                  device=s.dev))
-    ok = ub.numel() > 0 and all(r["coeffs_differing"] <= MAX_ZN_SHARE
-                                and r["ties_off_by_one"]
-                                for r in (host, philox))
+    # the stream: draws 4j .. 4j + 3 are the four words of counter j, and
+    # a prefix of a longer run is the same draws
+    from lattice_gaussian_mcmc_tpu_torch.utils import prng
+    j = torch.arange(4, device=s.dev)
+    words = prng.philox4x32(j, j * 0, j * 0, j * 0 + prng.TAG_ZN,
+                            *prng.seed_key(81))
+    u16 = prng.mantissa_uniform(torch.stack(words, dim=1).reshape(-1))
+    head = zc.sample_zn_draws(16, ZN_SIGMA, 0.0, W, seed=81, device=s.dev)
+    host["stream"] = {
+        "words_of_counter": torch.equal(
+            head, zc.sample_zn_draws(16, ZN_SIGMA, 0.0, W, uniforms=u16)),
+        "prefix": torch.equal(head, zc.sample_zn_draws(
+            num - 3, ZN_SIGMA, 0.0, W, seed=81, device=s.dev)[:16])}
+    ok = (ub.numel() > 0 and all(host["stream"].values())
+          and all(r["coeffs_differing"] == 0 for r in (host, philox)))
     s.note("B8", max_abs_err=max(host["max_abs_err"], philox["max_abs_err"]),
            coeffs_differing=max(host["coeffs_differing"],
                                 philox["coeffs_differing"]),
@@ -1112,7 +1348,7 @@ def phase_kernel_vs_plain(s: Smoke):
           "window": W, "plain_allow_tf32": False,
           "b1": dict(b1, max_kernel_centre_err_over_sigma=centre_b1,
                      max_abs_y=kc.klein_draw.max_abs_y, **b1_is_b2),
-          "b1_b6_fp32_route": fp32, "b2_2steps": b2,
+          "b1_b6_b7_fp32_route": fp32, "b2_2steps": b2,
           "max_centre_err_over_sigma": centre,
           "max_kernel_centre_err_over_sigma": centre_kernel,
           "b2_hard_regime": dict(b2_hard, chains=HARD_CHECK_CHAINS,
@@ -1131,7 +1367,8 @@ def phase_kernel_vs_plain(s: Smoke):
                      centre_gate=MAX_PEIKERT_CENTRE_ERR),
           "b5_philox": b5_philox, "b5_ntru1024": b5_wide, "b6": b6,
           "b7": b7, "b8": b8,
-          "oks": {"b1": b1_ok, "b1_b6_fp32_route": fp32_ok, "b2": b2_ok,
+          "oks": {"b1": b1_ok, "b1_b6_b7_fp32_route": fp32_ok,
+                  "b2": b2_ok,
                   "b3": b3_ok, "b4": b4_ok, "b5": b5_ok,
                   "b5_ntru1024": b5w_ok, "b6": b6_ok, "b7": b7_ok,
                   "b8": b8_ok}})
@@ -1237,7 +1474,8 @@ def phase_flagship(s: Smoke):
     expected = {"klein_draw": FLAGSHIP_REPS + 1, "klein_draw_fp32": 0,
                 "klein_ring_fp32": 0, "imhk_fused": FLAGSHIP_REPS,
                 "imhk_trajectory": 0, "smk_steps": 0, "peikert_rounds": 0,
-                "klein_ring": 0, "babai_decode": 0, "sample_zn_draws": 0}
+                "klein_ring": 0, "babai_decode": 0, "babai_decode_fp32": 0,
+                "sample_zn_draws": 0}
     peak = torch.cuda.max_memory_allocated()
     n = lat.n
     # output check: shape, finite integers, and the D_{L,sigma} second
@@ -1327,10 +1565,10 @@ def phase_hard_regime(s: Smoke):
     tau = sokal_tau(rho)
     ess_per_sample = 1.0 / (2.0 * tau)
     n_pad, W = ops.n_pad, ops.window
-    bound, by = bound_ms(klein_flop(n, W) * Bh * T,
-                         4 * (2 * n_pad * n_pad + 2 * n_pad
-                              + 2 * (n_pad * Bh + 2 * Bh) + T * Bh))
-    s.note("B3", ms=b3_ms, bound_ms=bound, bound_by=by,
+    nbytes = 4 * (2 * n_pad * n_pad + 2 * n_pad
+                  + 2 * (n_pad * Bh + 2 * Bh) + T * Bh)
+    s.note("B3", ms=b3_ms, **klein_bound(n, W, Bh * T, nbytes),
+           fp32_bound_ms=fp32_bound_ms(klein_flop(n, W) * Bh * T, nbytes),
            shape=f"{Bh} chains x {T} steps, window {W}, lw ring")
     ok = (entry_ok and ring_finite and bool(torch.isfinite(lw).all())
           and abs(a_h - HARD_ROW_ACCEPTANCE) <= ROW_ACCEPTANCE_TOL
@@ -1348,7 +1586,7 @@ def phase_hard_regime(s: Smoke):
           "ess_per_s": sps * ess_per_sample,
           "ess_per_s_independence_formula": sps * a_h / (2.0 - a_h),
           "samples_per_s_ring_plus_acf": Bh * T / dt_traj,
-          "b3_ms": b3_ms, "b3_design_floor": tc_floor_ms(n, W, Bh * T),
+          "b3_ms": b3_ms, "b3_bound_ms": s.k["B3"]["bound_ms"],
           "pooled_acf": [float(r) for r in rho[:8]],
           "entry_sample_acceptance": entry_acc, "launches": launches,
           "b1_max_abs_y": kc.klein_draw.max_abs_y,
@@ -1395,10 +1633,10 @@ def phase_smk(s: Smoke):
     finite = bool(torch.isfinite(Xf).all())
     integral = bool((Xf == torch.round(Xf)).all())
     del x, Xf
-    bound, by = bound_ms(T * smk_flop(n, W) * Bs + n * (n + 1) * Bs,
-                         4 * (2 * n_pad * n_pad + 3 * n_pad
-                              + 2 * n_pad * Bs + 3 * Bs))
-    s.note("B4", ms=b4_ms, bound_ms=bound, bound_by=by,
+    nbytes = 4 * (2 * n_pad * n_pad + 3 * n_pad + 2 * n_pad * Bs + 3 * Bs)
+    s.note("B4", ms=b4_ms, **smk_bound(n, W, Bs * T, Bs, nbytes),
+           fp32_bound_ms=fp32_bound_ms(
+               T * smk_flop(n, W) * Bs + n * (n + 1) * Bs, nbytes),
            shape=f"{Bs} chains x {T} steps, window {W}")
     ok = (finite and integral
           and abs(a_s - SMK_ROW_ACCEPTANCE) <= ROW_ACCEPTANCE_TOL
@@ -1409,7 +1647,7 @@ def phase_smk(s: Smoke):
           "chains": Bs, "steps": T, "samples_per_s": sps,
           "acceptance": a_s, "expected_acceptance": SMK_ROW_ACCEPTANCE,
           "warm_up_acceptance": warm_acc, "b4_ms": b4_ms,
-          "b4_design_floor": smk_floor_ms(n, W, Bs * T),
+          "b4_bound_ms": s.k["B4"]["bound_ms"],
           "b1_max_abs_y": kc.klein_draw.max_abs_y,
           "b4_max_abs_y": sc.smk_steps.max_abs_y,
           "launches": launches, "card": s.card})
@@ -1455,9 +1693,9 @@ def phase_peikert(s: Smoke):
     norm_ratio = float((v ** 2).sum(1).mean() / (n * sigma ** 2))
     del ring, X, v
     n_pad, W = ops.n_pad, ops.window
-    bound, by = bound_ms(peikert_flop(n, W) * Bp * R,
-                         4 * (n_pad * n_pad + n_pad + R * n_pad * Bp))
-    s.note("B5", ms=b5_ms, bound_ms=bound, bound_by=by,
+    nbytes = 4 * (n_pad * n_pad + n_pad + R * n_pad * Bp)
+    s.note("B5", ms=b5_ms, **peikert_bound(n, W, Bp * R, nbytes),
+           fp32_bound_ms=fp32_bound_ms(peikert_flop(n, W) * Bp * R, nbytes),
            shape=f"{Bp} chains x {R} rounds, window {W}")
     ok = (entry_ok and finite and integral and W == PEIKERT_WINDOW
           and abs(norm_ratio - 1) < MAX_NORM_GAP
@@ -1467,7 +1705,7 @@ def phase_peikert(s: Smoke):
           "window_path": "compiled" if W in (8, 16, 24) else "runtime",
           "chains": Bp, "rounds": R, "samples_per_s": sps,
           "norm2_over_dim_sigma2": norm_ratio, "b5_ms": b5_ms,
-          "b5_design_floor": peikert_floor_ms(n, W, Bp * R),
+          "b5_bound_ms": s.k["B5"]["bound_ms"],
           "launches": launches, "card": s.card})
     if not ok:
         fail("peikert", "Peikert row failed its checks")
@@ -1526,6 +1764,30 @@ def phase_suite(s: Smoke):
 
 
 # ---------------------------------------------------------------- decode
+def nearest_plane_parts(s: Smoke, t):
+    """Lattice.nearest_plane's parts on targets t (B, n), in order, ms by
+    CUDA events: B7's operands (with U's fragments), the float64 centres
+    t Q / diag(R) and their recentring ct - U k (`babai_centres`), B7, and
+    the coefficients' layout y^T + k."""
+    import torch
+    kc, lat = s.kc, s.lat
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    ops = kc.babai_operands(lat.Q, lat.R)
+    kc.tc_fragments(ops)
+    ev[1].record()
+    centred, k = kc.babai_centres(ops, t)
+    ev[2].record()
+    y = kc.babai_decode(ops, centred)
+    ev[3].record()
+    y[:ops.n].T.to(torch.float64) + k
+    ev[4].record()
+    torch.cuda.synchronize()
+    return {name: ev[i].elapsed_time(ev[i + 1]) for i, name in enumerate(
+        ("operands", "float64_centres", "b7", "layout"))}
+
+
 def phase_decode(s: Smoke):
     """B7 through Lattice.nearest_plane on the NTRU-512 secret basis, 65,536
     targets B x* + w at two noise levels; annealed Gibbs through
@@ -1574,8 +1836,12 @@ def phase_decode(s: Smoke):
         gibbs_out.append((sigma0, Xg, time.perf_counter() - t0))
     launches = s.counts()
     s.launches["decode"] = launches
+    y_stats = s.kc.babai_y_stats()
+    s.note("B7", max_abs_y=y_stats["max_abs_y"],
+           beyond_256=y_stats["beyond_256"])
     # checks outside the path: the float64 oracle on a subset, C7, the
     # Babai baseline of the Gibbs targets
+    breakdown = nearest_plane_parts(s, sets[-1][2])
     ops = s.kc.babai_operands(lat.Q, lat.R)
     for rho, xs, t, X in sets:
         r = res[f"rho{rho}"]
@@ -1621,7 +1887,8 @@ def phase_decode(s: Smoke):
           and launches["babai_decode"] > 0)
     emit({"phase": "decode", "ok": ok, "dim": lat.n, "targets": T,
           "check_targets": DECODE_CHECK, "rhos": res,
-          "tie_tol": BABAI_TIE_TOL,
+          "tie_tol": BABAI_TIE_TOL, "b7_y": y_stats,
+          "nearest_plane_parts_ms": breakdown,
           "gibbs": {"dim": lat128.n, "targets": GIBBS_TARGETS,
                     "chains": GIBBS_CHAINS, "sweeps": GIBBS_SWEEPS,
                     "margin": margin, "rhos": gibbs},
@@ -1633,8 +1900,7 @@ def phase_decode(s: Smoke):
 # ---------------------------------------------------------------- timing
 def time_b6_b7_b8(s: Smoke):
     """B6, B7 and B8 by CUDA events at the suite's and the decode phase's
-    shapes (dimension 1024), each with its bound; returns B6's design
-    floor."""
+    shapes (dimension 1024), each with its bound."""
     import torch
     from lattice_gaussian_mcmc_tpu_torch.experiments import benchmark
     from lattice_gaussian_mcmc_tpu_torch.lattices import ntru_lattice
@@ -1653,11 +1919,10 @@ def time_b6_b7_b8(s: Smoke):
     n, n_pad, W, R = ops.n, ops.n_pad, ops.window, benchmark.KLEIN_ROUNDS
     kc.klein_ring(ops, B, R, seed=5)
     ms6 = cuda_ms(lambda: kc.klein_ring(ops, B, R, seed=5), reps=3)
-    b6 = bound_ms(klein_flop(n, W) * B * R,
-                  4 * (2 * n_pad * n_pad + 2 * n_pad + R * (n_pad * B + B)))
-    s.note("B6", ms=ms6, bound_ms=b6[0], bound_by=b6[1],
+    nbytes = 4 * (2 * n_pad * n_pad + 2 * n_pad + R * (n_pad * B + B))
+    s.note("B6", ms=ms6, **klein_bound(n, W, B * R, nbytes),
+           fp32_bound_ms=fp32_bound_ms(klein_flop(n, W) * B * R, nbytes),
            shape=f"{B} chains x {R} rounds, window {W}")
-    b6_floor = tc_floor_ms(n, W, B * R)
     torch.cuda.empty_cache()
     lat = s.lat
     _, t = decode_targets(lat, DECODE_TARGETS, DECODE_RHOS[-1], s.gen)
@@ -1667,9 +1932,14 @@ def time_b6_b7_b8(s: Smoke):
     kc.babai_decode(ops7, ct)
     ms7 = cuda_ms(lambda: kc.babai_decode(ops7, ct), reps=3)
     T, np7 = DECODE_TARGETS, ops7.n_pad
-    b7 = bound_ms(lat.n * (lat.n - 1) * T,
-                  4 * (2 * np7 * np7 + 2 * np7 * T))
-    s.note("B7", ms=ms7, bound_ms=b7[0], bound_by=b7[1],
+    # ct read and y written (float32), U's three bf16 parts and U^T
+    # (float32) read; the coupling's three bf16 passes on the tensor cores
+    # and a subtraction and a rounding a coefficient
+    nbytes = 4 * 2 * np7 * T + (3 * 2 + 4) * np7 * np7
+    s.note("B7", ms=ms7,
+           **bound(nbytes, tensor=3 * lat.n * (lat.n - 1) * T,
+                   fp32=2 * lat.n * T),
+           fp32_bound_ms=fp32_bound_ms(lat.n * (lat.n - 1) * T, nbytes),
            shape=f"{T} targets, dim {lat.n}")
     del ct
     num = B * n
@@ -1677,7 +1947,6 @@ def time_b6_b7_b8(s: Smoke):
     zc.sample_zn_draws(num, ZN_SIGMA, 0.0, Wz, seed=5, device=s.dev)
     ms8 = cuda_ms(lambda: zc.sample_zn_draws(num, ZN_SIGMA, 0.0, Wz, seed=5,
                                              device=s.dev), reps=3)
-    b8 = bound_ms(zn_flop(Wz, num), 4 * num)
     # yardstick, used nowhere in the port: num draws of the same window
     # law by one library call, on its own random numbers
     _, cdf = zc.zn_cdf(ZN_SIGMA, 0.0, Wz, s.dev)
@@ -1685,12 +1954,11 @@ def time_b6_b7_b8(s: Smoke):
     torch.multinomial(w, num, replacement=True)
     lib8 = cuda_ms(lambda: torch.multinomial(w, num, replacement=True),
                    reps=3)
-    s.note("B8", ms=ms8, bound_ms=b8[0], bound_by=b8[1], library_ms=lib8,
+    s.note("B8", ms=ms8, **zn_bound(num), library_ms=lib8,
            library_call="torch.multinomial(window weights, num, "
                         "replacement=True)",
            shape=f"{num} draws, window {Wz}")
     torch.cuda.empty_cache()
-    return b6_floor
 
 
 def phase_timing(s: Smoke, sampler):
@@ -1729,33 +1997,30 @@ def phase_timing(s: Smoke, sampler):
           and cmp_b2["accept_differing"] <= MAX_ACCEPT_SHARE_DEEP
           and rej_p > 0 and abs(cmp_b2["rejections"] - rej_p)
           <= MAX_REJECTION_GAP * rej_p)
+    bytes_b1 = 4 * (2 * n_pad * n_pad + 2 * n_pad + n_pad * Bf + Bf)
+    bytes_b2 = 4 * (2 * n_pad * n_pad + 2 * n_pad + 2 * (n_pad * Bf + 2 * Bf))
     flop = klein_flop(n, W) * Bf
-    bound_b1, by_b1 = bound_ms(flop, 4 * (2 * n_pad * n_pad + 2 * n_pad
-                                          + n_pad * Bf + Bf))
-    bound_b2, by_b2 = bound_ms(STEPS_PER_LAUNCH * flop,
-                               4 * (2 * n_pad * n_pad + 2 * n_pad
-                                    + 2 * (n_pad * Bf + 2 * Bf)))
     shape = f"{Bf} chains, window {W}"
-    s.note("B1", ms=ms_b1, plain_ms=plain_b1, bound_ms=bound_b1,
-           bound_by=by_b1, shape=shape,
+    s.note("B1", ms=ms_b1, plain_ms=plain_b1,
+           **klein_bound(n, W, Bf, bytes_b1),
+           fp32_bound_ms=fp32_bound_ms(flop, bytes_b1), shape=shape,
            max_abs_err=max(s.k["B1"]["max_abs_err"],
                            cmp_b1["max_abs_lw_err"]),
            coeffs_differing=max(s.k["B1"]["coeffs_differing"],
                                 cmp_b1["coeffs_differing"]))
-    s.note("B2", ms=ms_b2, plain_ms=plain_b2, bound_ms=bound_b2,
-           bound_by=by_b2, shape=f"{shape} x {STEPS_PER_LAUNCH} steps",
+    s.note("B2", ms=ms_b2, plain_ms=plain_b2,
+           **klein_bound(n, W, Bf * STEPS_PER_LAUNCH, bytes_b2),
+           fp32_bound_ms=fp32_bound_ms(STEPS_PER_LAUNCH * flop, bytes_b2),
+           shape=f"{shape} x {STEPS_PER_LAUNCH} steps",
            max_abs_err=max(s.k["B2"]["max_abs_err"],
                            cmp_b2["max_abs_lw_err"]),
            coeffs_differing=max(s.k["B2"]["coeffs_differing"],
                                 cmp_b2["coeffs_differing"]),
            accept_differing=max(s.k["B2"]["accept_differing"],
                                 cmp_b2["accept_differing"]))
-    b6_floor = time_b6_b7_b8(s)
+    time_b6_b7_b8(s)
     emit({"phase": "timing", "ok": ok, "chains": Bf, "b1_vs_plain": cmp_b1,
           "b2_vs_plain": cmp_b2,
-          "b1_design_floor": tc_floor_ms(n, W, Bf),
-          "b2_design_floor": tc_floor_ms(n, W, Bf * STEPS_PER_LAUNCH),
-          "b6_design_floor": b6_floor,
           "b3_to_b8": {k: s.k[k] for k in ("B3", "B4", "B5", "B6", "B7",
                                            "B8")},
           "card": s.card})
@@ -1777,7 +2042,7 @@ KERNELS = [
      "peikert_rounds"),
     ("B6", "klein_ring (B6)", "klein_tc.cu", "klein_pallas.py:714",
      "klein_ring"),
-    ("B7", "babai_decode (B7)", "klein.cu", "klein_pallas.py:1027",
+    ("B7", "babai_decode (B7)", "klein_tc.cu", "klein_pallas.py:1027",
      "babai_decode"),
     ("B8", "sample_zn_draws (B8)", "zn.cu", "zn_pallas.py:97",
      "sample_zn_draws"),
@@ -1788,7 +2053,7 @@ def kernels_line(s: Smoke):
     """One entry per kernel: `launches` sums its counts over the path
     phases; `plain_ms` of B3-B8 is at the check size (`check_shape`, where
     `check_ms` is the kernel's own time), their `ms` at the row's shape.
-    B1's and B6's `fp32_route_launches` sum the paths' launches of
+    B1's, B6's and B7's `fp32_route_launches` sum the paths' launches of
     klein.cu's FP32 sweep, which they take above n_pad 3,456."""
     out = []
     for key, name, src, replaces, counter in KERNELS:

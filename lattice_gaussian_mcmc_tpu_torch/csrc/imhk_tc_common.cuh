@@ -1,6 +1,7 @@
 // Device code shared by the tensor-core Klein sweeps on Hopper (sm_90a):
 // fused IMHK and its trajectory (imhk_tc.cu, B2/B3), fused SMK (smk_tc.cu,
-// B4), and the Klein draw and its ring (klein_tc.cu, B1/B6).
+// B4), and the Klein draw, its ring and Babai decoding (klein_tc.cu, B1/B6,
+// B7).
 //
 // A thread block of 64 threads owns NC = 32 chains. Their proposal lives
 // in shared memory as bf16, (n_pad, 32) chain-minor with the 16-byte chunks
@@ -13,7 +14,10 @@
 // the block, and `draw_pair` splits a row's window between the two threads
 // of a chain with `draw_row`'s arithmetic bit for bit. The
 // PASSES template argument is the number of bf16 parts a product uses (all
-// three in the kernels).
+// three in the kernels). With a `WideY` (Babai, B7 in klein_tc.cu) both
+// products also take y's second and third bf16 parts in the 16-row tiles
+// flagged as holding some |y| > 256, read from the float32 rows in device
+// memory; the draw kernels pass none and compile without them.
 
 #pragma once
 
@@ -40,7 +44,7 @@ struct TcOperands {
 };
 
 // the proposal tile, the coupling tile and one int a chain
-inline size_t tc_smem_bytes(int n_pad) {
+__host__ __device__ inline size_t tc_smem_bytes(int n_pad) {
   return (size_t)n_pad * Y_ROW + (size_t)NC * CT_STRIDE * sizeof(float) +
          (size_t)NC * sizeof(int);
 }
@@ -53,6 +57,12 @@ __device__ __forceinline__ int y_off(int row, int chain) {
 
 __device__ __forceinline__ unsigned short to_bf16_bits(float y) {
   return (unsigned short)(__float_as_uint(y) >> 16);  // exact: |y| <= 256
+}
+
+// bf16 of a finite float, rounded to nearest even
+__device__ __forceinline__ unsigned short to_bf16_rn_bits(float v) {
+  const uint32_t b = __float_as_uint(v);
+  return (unsigned short)((b + 0x7FFFu + ((b >> 16) & 1u)) >> 16);
 }
 
 __device__ __forceinline__ float from_bf16_bits(unsigned short v) {
@@ -92,6 +102,51 @@ __device__ __forceinline__ void load_a(uint4 (&a)[2][PARTS],
                       lane);
 }
 
+// No wide parts: the draw kernels' products.
+struct NoWide {
+  static constexpr bool on = false;
+  __device__ __forceinline__ bool tile(int) const { return false; }
+};
+
+// y beyond bf16's exact range (B7). The tile holds y1 = bf16(y) (round to
+// nearest), exact for |y| <= 256. An integer |y| < 2^24 is y1 + y2 + y3
+// exactly, y2 = bf16(y - y1), y3 = y - y1 - y2 (each rounding drops the
+// eight leading bits of what is left). `big` flags the 16-row tiles with
+// some |y| > 256; their y2 and y3 are formed from the float32 rows that the
+// block already wrote to y (n_pad, B), read through L2.
+struct WideY {
+  static constexpr bool on = true;
+  const unsigned char* big;   // shared, one byte a 16-row tile
+  const float* y;             // (n_pad, B), rows written before a barrier
+  long long B;
+  long long chain0;           // the block's first chain
+  __device__ __forceinline__ bool tile(int k) const { return big[k] != 0; }
+};
+
+// B fragments of y2 and y3 of tile k for the n8 tile nt of the block's
+// chains: element e of lane l is row 16k + 2(l % 4) + (e & 1) + 8 (e >> 1),
+// chain 8 nt + l / 4, as ldmatrix.trans lays out the tile's y1.
+__device__ __forceinline__ void wide_frags(const WideY& w, int k, int nt,
+                                           int lane, uint32_t (&b2)[2],
+                                           uint32_t (&b3)[2]) {
+  const long long chain = w.chain0 + 8 * nt + (lane >> 2);
+  const bool ok = chain < w.B;
+  uint32_t p2[4], p3[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int row = 16 * k + 2 * (lane & 3) + (e & 1) + ((e >> 1) << 3);
+    const float v =
+        ok ? __ldcg(w.y + (size_t)row * (size_t)w.B + (size_t)chain) : 0.0f;
+    const float r = __fsub_rn(v, from_bf16_bits(to_bf16_rn_bits(v)));
+    p2[e] = to_bf16_rn_bits(r);
+    p3[e] = to_bf16_rn_bits(__fsub_rn(r, from_bf16_bits(p2[e])));
+  }
+  b2[0] = p2[0] | (p2[1] << 16);
+  b2[1] = p2[2] | (p2[3] << 16);
+  b3[0] = p3[0] | (p3[1] << 16);
+  b3[1] = p3[2] | (p3[3] << 16);
+}
+
 __device__ __forceinline__ void zero(float (&acc)[2][4][4]) {
 #pragma unroll
   for (int m = 0; m < 2; ++m)
@@ -107,11 +162,14 @@ __device__ __forceinline__ void zero(float (&acc)[2][4][4]) {
 // (U y)_i of those rows. U's fragments stream from L2 into a ring of PF
 // 16-column steps in registers, each slot refilled PF steps ahead as it is
 // consumed (the step count is a multiple of 4). Each pair of steps sums
-// into a zeroed partial accumulator, then into acc in IEEE FP32.
+// into a zeroed partial accumulator, then into acc in IEEE FP32. With a
+// WideY, a step whose tile is flagged also multiplies every part of U into
+// y2 and y3.
 constexpr int PF = 4;
-template <int PASSES, bool DIAG = false>
+template <int PASSES, bool DIAG = false, class Wide = NoWide>
 __device__ void couple(const TcOperands& op, uint32_t ysm,
-                       float (&acc)[2][4][4], int lo, int warp, int lane) {
+                       float (&acc)[2][4][4], int lo, int warp, int lane,
+                       const Wide& wide = Wide()) {
   const int KT = op.n_pad >> 4;
   const int kt0 = (lo + (DIAG ? 0 : RB)) >> 4, kt1 = KT;
   const int mi = lane >> 3, rin = lane & 7;   // ldmatrix: matrix, its row
@@ -146,6 +204,22 @@ __device__ void couple(const TcOperands& op, uint32_t ysm,
 #pragma unroll
             for (int n = 0; n < 4; ++n)
               mma_bf16(part[m][n], a[j][m][p], b[n][0], b[n][1]);
+        if constexpr (Wide::on) {
+          if (wide.tile(k)) {
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {
+              uint32_t b2[2], b3[2];
+              wide_frags(wide, k, n, lane, b2, b3);
+#pragma unroll
+              for (int p = PASSES - 1; p >= 0; --p)
+#pragma unroll
+                for (int m = 0; m < 2; ++m) {
+                  mma_bf16(part[m][n], a[j][m][p], b3[0], b3[1]);
+                  mma_bf16(part[m][n], a[j][m][p], b2[0], b2[1]);
+                }
+            }
+          }
+        }
         if (k + PF < kt1) load_a(a[j], op.Ufrag, mt0, k + PF, KT, lane);
       }
 #pragma unroll
@@ -197,11 +271,12 @@ __device__ __forceinline__ void load_diag(uint4 (&a)[RB / SB - 1][PARTS],
 
 // Sub-block sb of block lo is drawn: add its coupling to the rows below it,
 // ct[rows 0 .. 16 sb) += U[.., sub-block] Y[sub-block], on the tensor
-// cores. Warp w takes chains 16w .. 16w + 15 (two n8 tiles).
-template <int PASSES>
+// cores. Warp w takes chains 16w .. 16w + 15 (two n8 tiles). With a WideY
+// and the sub-block's tile flagged, y2 and y3 enter as in `couple`.
+template <int PASSES, class Wide = NoWide>
 __device__ void sub_update(const uint4 (&a)[RB / SB - 1][PARTS],
                            uint32_t ysm, float* ct, int lo, int sb, int warp,
-                           int lane) {
+                           int lane, const Wide& wide = Wide()) {
   const int g = lane >> 2, t = lane & 3;
   const int mi = lane >> 3, rin = lane & 7;
   const int row = lo + SB * sb + ((mi & 1) << 3) + rin;
@@ -209,6 +284,16 @@ __device__ void sub_update(const uint4 (&a)[RB / SB - 1][PARTS],
   uint32_t b[2][2];
   ldsm_x4_t(ysm + row * Y_ROW + ((nt ^ ((row >> 1) & 3)) << 4), b[0][0],
             b[0][1], b[1][0], b[1][1]);
+  uint32_t b2[2][2], b3[2][2];
+  bool wide_tile = false;
+  if constexpr (Wide::on) {
+    const int kt = (lo >> 4) + sb;
+    wide_tile = wide.tile(kt);
+    if (wide_tile)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        wide_frags(wide, kt, 2 * warp + n, lane, b2[n], b3[n]);
+  }
 #pragma unroll
   for (int m = 0; m < RB / SB - 1; ++m)
     if (m < sb) {
@@ -218,6 +303,14 @@ __device__ void sub_update(const uint4 (&a)[RB / SB - 1][PARTS],
 #pragma unroll
         for (int p = PASSES - 1; p >= 0; --p)
           mma_bf16(d, a[m][p], b[n][0], b[n][1]);
+        if constexpr (Wide::on) {
+          if (wide_tile)
+#pragma unroll
+            for (int p = PASSES - 1; p >= 0; --p) {
+              mma_bf16(d, a[m][p], b3[n][0], b3[n][1]);
+              mma_bf16(d, a[m][p], b2[n][0], b2[n][1]);
+            }
+        }
         const int r = 16 * m + g;
         float* c0 = ct + (16 * warp + 8 * n + 2 * t) * CT_STRIDE + r;
         float* c1 = c0 + CT_STRIDE;

@@ -4,10 +4,11 @@
 // Replaces the Pallas TPU kernel
 // lattice_gaussian_mcmc_tpu/ops/kernels/klein_pallas.py `_kernel` in its
 // draw mode (klein_sample_batch_pallas, B1) and its ring mode
-// (klein_sample_ring_pallas, B6) above n_pad 3,456, and the inner kernel
-// of babai_decode_batch_pallas (B7). Up to n_pad 3,456 B1 and B6 run on
-// the tensor-core sweep of klein_tc.cu, whose draw tile bounds n_pad;
-// this FP32 sweep has no such bound (klein_cuda.py `klein_route`). Its
+// (klein_sample_ring_pallas, B6), and the inner kernel of
+// babai_decode_batch_pallas (B7), each above n_pad 3,456. Up to n_pad
+// 3,456 B1, B6 and B7 run on the tensor-core sweep of klein_tc.cu, whose
+// draw tile bounds n_pad; this FP32 sweep has no such bound (klein_cuda.py
+// `klein_route`). Its
 // fused Metropolis-Hastings and trajectory modes (B2, B3) are imhk_tc.cu.
 // The law is the same; the TPU layout devices (bf16 split of U, CDF as a
 // triangular matrix product, (8, 128) row groups, the 8-row DMA staging of
@@ -33,7 +34,9 @@
 // Babai mode (B7) is the same backward substitution with rintf (half to
 // even, as torch.round) in place of the draw: y_i = rint(ct_i - sum_{j>i}
 // U_ij y_j) per target, on recentred centres ct (the wrapper removes
-// k = rint(ct) in float64 first, so |y| stays small). No uniforms, no lw.
+// k = rint(ct) in float64 first). No uniforms, no lw; exact in its
+// operands for any |y| < 2^24. bad[0] counts the coefficients with
+// |y| > 256 and bad[1] keeps the largest |y|, as klein_tc.cu's B7 does.
 // Bound (n = 1024): n(n-1) FLOP of coupling per target, ~1 ms for 65,536
 // targets at 67 TFLOP/s; the centres in and the coefficients out are 0.5 GB,
 // 0.16 ms at 3.35 TB/s.
@@ -100,11 +103,13 @@ __global__ void __launch_bounds__(THREADS)
 __global__ void __launch_bounds__(THREADS)
     babai_kernel(const float* __restrict__ U, const float* __restrict__ UT,
                  const float* __restrict__ ct, float* __restrict__ y,
-                 int n_pad, long long B) {
+                 int* __restrict__ bad, int n_pad, long long B) {
   extern __shared__ float tile[];
   const long long chain = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (chain >= B) return;
   float* col = tile + threadIdx.x;
+  float ymax = 0.0f;
+  int n_big = 0;
   for (int lo = n_pad - RB; lo >= 0; lo -= RB) {
     cross_block(UT, n_pad, lo, y, B, chain, col);
     for (int r = RB - 1; r >= 0; --r) {
@@ -114,8 +119,12 @@ __global__ void __launch_bounds__(THREADS)
       const float yi = rintf(c);
       col[r * THREADS] = yi;
       y[at] = yi;
+      ymax = fmaxf(ymax, fabsf(yi));
+      n_big += fabsf(yi) > 256.0f ? 1 : 0;
     }
   }
+  if (n_big) atomicAdd(bad, n_big);
+  atomicMax(bad + 1, (int)ymax);
 }
 
 template <int W>
@@ -155,14 +164,17 @@ int klein_ring_launch(const float* U, const float* UT, const float* cs,
 #undef CALL
 }
 
-// B7: Babai nearest plane for B targets; ct (n_pad, B) recentred centres,
-// y (n_pad, B) out.
+// B7 above n_pad 3,456: Babai nearest plane for B targets; ct (n_pad, B)
+// recentred centres, y (n_pad, B) out; bad as for klein_tc.cu's
+// babai_tc_launch.
 int babai_decode_launch(const float* U, const float* UT, const float* ct,
-                        float* y, int n_pad, long long B, void* stream) {
-  if (n_pad <= 0 || n_pad % RB != 0 || B <= 0)
+                        float* y, int* bad, int n_pad, long long B,
+                        void* stream) {
+  if (n_pad <= 0 || n_pad % RB != 0 || B <= 0 || bad == nullptr)
     return (int)cudaErrorInvalidValue;
   babai_kernel<<<grid_for(B), THREADS, kSmem,
-                 static_cast<cudaStream_t>(stream)>>>(U, UT, ct, y, n_pad, B);
+                 static_cast<cudaStream_t>(stream)>>>(U, UT, ct, y, bad,
+                                                      n_pad, B);
   return (int)cudaGetLastError();
 }
 

@@ -1,15 +1,16 @@
-// Klein draw (B1) and its ring (B6) on Hopper (sm_90a), on the tensor-core
-// sweep of the fused IMHK kernel (imhk_tc.cu, B2): the coupling on the
-// tensor cores, the proposal kept in shared memory.
+// Klein draw (B1), its ring (B6) and batched Babai decoding (B7) on Hopper
+// (sm_90a), on the tensor-core sweep of the fused IMHK kernel (imhk_tc.cu,
+// B2): the coupling on the tensor cores, the proposal kept in shared memory.
 //
 // Replaces the draw mode (klein_sample_batch_pallas, B1) and the ring mode
 // (klein_sample_ring_pallas, B6) of the Pallas TPU kernel
-// lattice_gaussian_mcmc_tpu/ops/kernels/klein_pallas.py `_kernel`. The law
-// is the same; the TPU layout devices (CDF as a triangular matrix product,
-// (8, 128) row groups, the 8-row DMA staging of the rings) are not carried
-// over. Above n_pad 3,456 the proposal tile no longer fits a block's
-// shared memory, and the wrappers take the FP32 sweep of klein.cu instead
-// (klein_cuda.py `klein_route`, chosen by n_pad before the launch).
+// lattice_gaussian_mcmc_tpu/ops/kernels/klein_pallas.py `_kernel`, and the
+// inner kernel of babai_decode_batch_pallas (B7). The law is the same; the
+// TPU layout devices (CDF as a triangular matrix product, (8, 128) row
+// groups, the 8-row DMA staging of the rings) are not carried over. Above
+// n_pad 3,456 the proposal tile no longer fits a block's shared memory,
+// and the wrappers take the FP32 sweep of klein.cu instead (klein_cuda.py
+// `klein_route`, chosen by n_pad before the launch).
 //
 // What it computes, per chain and round, for rows i = n_pad-1 down to 0:
 //   c_i   = cs_i - sum_{j>i} U_ij y_j
@@ -56,6 +57,32 @@
 //
 // Randomness: host uniforms or Philox4x32-10, the function of
 // lattice_gaussian_mcmc_tpu_torch/utils/prng.py, bit for bit.
+//
+// Babai (BABAI, B7): the same sweep with rintf (half to even, hazard C3)
+// in place of the draw, per target on recentred centres ct (n_pad, B)
+// (the wrapper removes k = rint(ct) in float64 first): y_i = rint(ct_i -
+// sum_{j>i} U_ij y_j), written to y (n_pad, B) as float32. No uniforms, no
+// lw. Two latencies that the draw hides behind its exps lie on B7's
+// serial chain of rows, so B7 moves them off it: the centres of a 64-row
+// block are read once, beside its coupling, and folded into the coupling
+// tile (crow = coupling - ct, the row's centre -crow: the plain version's
+// order, ct - cross - within); the 16 x 16 triangle of U that a sub-block's
+// rows add to each other is staged in shared memory by cp.async while the
+// tensor cores run. Bound (n = 1024,
+// 65,536 targets): the coupling's n(n-1) FLOP a target is 1.02 ms in FP32
+// on the CUDA cores, 0.07 ms a bf16 pass on the tensor cores (0.21 ms for
+// the three), and ct read and y written once 0.16 ms at 3.35 TB/s.
+// Reach in y: the recentred y_i = x_i - rint(ct_i) is about
+// -sum_{j>i} U_ij x_j, which exceeds bf16's exact 256 when U has large
+// entries, and B7 must decode what the FP32 sweep decodes (exact for
+// |y| < 2^24). The tile holds y1 = bf16(y), rounded to nearest; a row
+// with |y| > 256 flags its 16-row tile, and the products over flagged
+// tiles also take y2 and y3 (imhk_tc_common.cuh `WideY`), so that
+// U1..U3 x y1..y3 is exact. Unflagged tiles keep the three passes.
+// bad[0] counts the coefficients with |y| > 256 and bad[1] keeps the
+// largest |y|; neither raises. Shared memory: the draw's, the 1 KB
+// triangle and a byte a 16-row tile (75,968 bytes at n_pad 1024: still
+// three blocks an SM).
 
 #include "imhk_tc_common.cuh"
 
@@ -65,11 +92,70 @@ namespace {
 
 constexpr int PASSES = PARTS;       // bf16 passes of the coupling (all)
 
+// Babai's shared memory beyond the draw's: the staged 16 x 16 triangle
+// of U of a sub-block (1 KB), then a byte a 16-row tile
+constexpr int TRI_BYTES = SB * SB * sizeof(float);
+__host__ __device__ inline size_t babai_smem_bytes(int n_pad) {
+  return tc_smem_bytes(n_pad) + TRI_BYTES + (size_t)(n_pad / SB);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t saddr, const void* g) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(saddr),
+               "l"(g)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// B7: start copying UT[b0 + r, b0 .. b0 + 15] (U[b0 .., b0 + r], the
+// columns of the sub-block's rows) into tri[r * 16 ..], 16 bytes a thread
+__device__ __forceinline__ void tri_load(uint32_t tri, const float* UT,
+                                        int n_pad, int b0, int tid) {
+  const int r = tid >> 2, q = tid & 3;
+  cp_async16(tri + (uint32_t)(r * SB + 4 * q) * sizeof(float),
+             UT + (size_t)(b0 + r) * n_pad + b0 + 4 * q);
+}
+
+// B7: acc (rows 32 warp .. +31 of the block lo) less the centres ctin of
+// those rows into the coupling tile, ct[chain * CT_STRIDE + row] =
+// coupling - centre: the row's centre is then minus the tile's entry once
+// the rows below it in the block have added theirs
+__device__ __forceinline__ void store_ct_centred(
+    const float (&acc)[2][4][4], float* ct, const float* __restrict__ ctin,
+    long long B, long long chain0, int lo, int warp, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float v[2][4][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = lo + 32 * warp + 16 * m + g + 8 * (e >> 1);
+        const long long c = chain0 + 8 * n + 2 * t + (e & 1);
+        v[m][n][e] =
+            c < B ? __ldg(ctin + (size_t)r * (size_t)B + (size_t)c) : 0.0f;
+      }
+  float d[2][4][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        d[m][n][e] = __fsub_rn(acc[m][n][e], v[m][n][e]);
+  store_ct(d, ct, warp, lane);
+}
+
 // RING: n_rounds rounds (B6), else one (B1). DBG: each round's centres
-// also go to dbg (n_rounds n_pad, B), beside the ring.
-template <int W, bool RING, bool DBG>
+// also go to dbg (n_rounds n_pad, B), beside the ring. BABAI: B7 on the
+// centres ctin (n_pad, B), one round, no draw (W, RING, DBG unused).
+template <int W, bool RING, bool DBG, bool BABAI = false>
 __global__ void __launch_bounds__(TPB, 3)
-    klein_tc_kernel(TcOperands op, Uniforms un, float* __restrict__ yout,
+    klein_tc_kernel(TcOperands op, Uniforms un,
+                    const float* __restrict__ ctin, float* yout,
                     float* __restrict__ lw_out, float* __restrict__ dbg,
                     int* __restrict__ bad, long long B, int n_rounds,
                     uint32_t step0, uint32_t chain_offset) {
@@ -86,20 +172,45 @@ __global__ void __launch_bounds__(TPB, 3)
   const uint32_t chain_id = chain_offset + (uint32_t)chain;
   float* crow = ct + cl * CT_STRIDE;
 
+  // B7: the staged triangle of U, the flags of the 16-row tiles holding
+  // some |y| > 256
+  const size_t tri_at = tc_smem_bytes(n_pad);
+  const float* tri = reinterpret_cast<const float*>(smem + tri_at);
+  const uint32_t trism = ysm + (uint32_t)tri_at;
+  unsigned char* big = smem + tri_at + TRI_BYTES;
+  const long long chain0 = (long long)blockIdx.x * NC;
+  const WideY wide{big, yout, B, chain0};
+  if constexpr (BABAI)
+    for (int k = tid; k < n_pad / SB; k += TPB) big[k] = 0;
+  int n_big = 0;
+
   float ymax = 0.0f;
   const int rounds = RING ? n_rounds : 1;
   for (int rd = 0; rd < rounds; ++rd) {
     const uint32_t step = step0 + (uint32_t)rd;
     const long long row0 = (long long)rd * n_pad;
     double lwp = 0.0;
+    // row ih's uniform
+    const auto fetch = [&](int ih) -> float {
+      return valid ? un.get(row0 + ih, chain, chain_id, (uint32_t)ih, step,
+                            TAG_ROW)
+                   : 0.5f;
+    };
     for (int lo = n_pad - RB; lo >= 0; lo -= RB) {
       __syncthreads();   // rows >= lo + 64 drawn; the tile is free
       {
         // the block's coupling to the rows drawn (rows >= lo + 64): warp w
         // takes its rows lo + 32w .. +31
         float cacc[2][4][4];
-        couple<PASSES>(op, ysm, cacc, lo, warp, lane);
-        store_ct(cacc, ct, warp, lane);
+        if constexpr (BABAI) {
+          tri_load(trism, op.UT, n_pad, lo + RB - SB, tid);
+          couple<PASSES, false, WideY>(op, ysm, cacc, lo, warp, lane, wide);
+          store_ct_centred(cacc, ct, ctin, B, chain0, lo, warp, lane);
+          cp_async_wait_all();
+        } else {
+          couple<PASSES>(op, ysm, cacc, lo, warp, lane);
+          store_ct(cacc, ct, warp, lane);
+        }
       }
       __syncthreads();
       for (int sb = RB / SB - 1; sb >= 0; --sb) {
@@ -107,48 +218,65 @@ __global__ void __launch_bounds__(TPB, 3)
         uint4 ad[RB / SB - 1][PARTS];
         load_diag(ad, op.Ufrag, lo, sb, n_pad >> 4, lane);
         // uniforms of rows r2 (thread 0) and r2 - 1 (thread 1), one pair
-        // ahead of the draws
+        // ahead of the draws (B7 has none)
         int ih = lo + rlo + SB - 1 - h;
-        float uh = valid ? un.get(row0 + ih, chain, chain_id, (uint32_t)ih,
-                                  step, TAG_ROW)
-                         : 0.5f;
+        float uh = 0.0f;
+        if constexpr (!BABAI) uh = fetch(ih);
         for (int r2 = rlo + SB - 1; r2 > rlo; r2 -= 2) {
-          const float upair[2] = {__shfl_sync(FULL, uh, lane & ~1),
-                                  __shfl_sync(FULL, uh, lane | 1)};
-          if (r2 - 2 > rlo) {
-            ih -= 2;
-            uh = valid ? un.get(row0 + ih, chain, chain_id, (uint32_t)ih,
-                                step, TAG_ROW)
-                       : 0.5f;
+          float upair[2] = {0.0f, 0.0f};
+          if constexpr (!BABAI) {
+            upair[0] = __shfl_sync(FULL, uh, lane & ~1);
+            upair[1] = __shfl_sync(FULL, uh, lane | 1);
+            if (r2 - 2 > rlo) {
+              ih -= 2;
+              uh = fetch(ih);
+            }
           }
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int r = r2 - e;
             const int i = lo + r;
             // U[rr, i] for the sub-block's rows rr < r, by quads split by
-            // parity between the two threads, loaded before the draw
+            // parity between the two threads, loaded before the draw (B7:
+            // from the staged triangle)
             const float4* ucol = reinterpret_cast<const float4*>(
                 op.UT + (size_t)i * n_pad + lo);
+            const float4* tcol =
+                reinterpret_cast<const float4*>(tri + (r - rlo) * SB);
             float4 uq[2];
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
               const int q = (rlo >> 2) + h + 2 * j;
-              if (4 * q < r) uq[j] = __ldg(ucol + q);
+              if (4 * q < r)
+                uq[j] = BABAI ? tcol[h + 2 * j] : __ldg(ucol + q);
             }
-            const float c = __fsub_rn(__ldg(op.cs + i), crow[r]);
-            float logz;
-            const float y = draw_pair<W>(c, __ldg(op.isg + i), upair[e],
-                                         op.window, h, lane, logz);
-            lwp += (double)logz;
+            float c, y;
+            if constexpr (BABAI) {
+              c = -crow[r];
+              y = rintf(c);
+            } else {
+              c = __fsub_rn(__ldg(op.cs + i), crow[r]);
+              float logz;
+              y = draw_pair<W>(c, __ldg(op.isg + i), upair[e], op.window, h,
+                               lane, logz);
+              lwp += (double)logz;
+            }
             if (h == 0) {
               *reinterpret_cast<unsigned short*>(ytile + y_off(i, cl)) =
-                  to_bf16_bits(y);
+                  BABAI ? to_bf16_rn_bits(y) : to_bf16_bits(y);
               if (valid) {
                 const size_t at =
                     (size_t)(row0 + i) * (size_t)B + (size_t)chain;
                 yout[at] = y;
                 ymax = fmaxf(ymax, fabsf(y));
-                if (fabsf(y) > EXACT_Y) atomicAdd(bad, 1);
+                if (fabsf(y) > EXACT_Y) {
+                  if constexpr (BABAI) {
+                    big[i / SB] = 1;
+                    ++n_big;
+                  } else {
+                    atomicAdd(bad, 1);
+                  }
+                }
                 if constexpr (DBG) dbg[at] = c;
               }
             }
@@ -170,29 +298,40 @@ __global__ void __launch_bounds__(TPB, 3)
         }
         if (sb > 0) {
           __syncthreads();   // the sub-block's rows and centres written
-          sub_update<PASSES>(ad, ysm, ct, lo, sb, warp, lane);
+          if constexpr (BABAI) {
+            tri_load(trism, op.UT, n_pad, lo + rlo - SB, tid);
+            sub_update<PASSES, WideY>(ad, ysm, ct, lo, sb, warp, lane, wide);
+            cp_async_wait_all();
+          } else {
+            sub_update<PASSES>(ad, ysm, ct, lo, sb, warp, lane);
+          }
           __syncthreads();
         }
       }
     }
-    if (h == 0 && valid)
+    if (!BABAI && h == 0 && valid)
       lw_out[(size_t)rd * (size_t)B + (size_t)chain] = (float)lwp;
   }
-  if (h == 0 && valid) atomicMax(bad + 1, (int)ymax);
+  if (h == 0 && valid) {
+    if (BABAI && n_big) atomicAdd(bad, n_big);
+    atomicMax(bad + 1, (int)ymax);
+  }
 }
 
-template <int W, bool RING, bool DBG>
-int launch(const TcOperands& op, const Uniforms& un, float* y, float* lw,
-           float* dbg, int* bad, long long B, int n_rounds, uint32_t step,
-           uint32_t chain_offset, cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes(op.n_pad);
+template <int W, bool RING, bool DBG, bool BABAI = false>
+int launch(const TcOperands& op, const Uniforms& un, const float* ctin,
+           float* y, float* lw, float* dbg, int* bad, long long B,
+           int n_rounds, uint32_t step, uint32_t chain_offset,
+           cudaStream_t stream) {
+  const size_t smem =
+      BABAI ? babai_smem_bytes(op.n_pad) : tc_smem_bytes(op.n_pad);
   cudaError_t e = cudaFuncSetAttribute(
-      klein_tc_kernel<W, RING, DBG>,
+      klein_tc_kernel<W, RING, DBG, BABAI>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((B + NC - 1) / NC));
-  klein_tc_kernel<W, RING, DBG><<<grid, TPB, smem, stream>>>(
-      op, un, y, lw, dbg, bad, B, n_rounds, step, chain_offset);
+  klein_tc_kernel<W, RING, DBG, BABAI><<<grid, TPB, smem, stream>>>(
+      op, un, ctin, y, lw, dbg, bad, B, n_rounds, step, chain_offset);
   return (int)cudaGetLastError();
 }
 
@@ -202,8 +341,8 @@ int launch_by_window(const TcOperands& op, const Uniforms& un, float* y,
                      int n_rounds, uint32_t step, uint32_t chain_offset,
                      cudaStream_t st) {
 #define CALL(W)                                                          \
-  launch<W, RING, DBG>(op, un, y, lw, dbg, bad, B, n_rounds, step,      \
-                       chain_offset, st)
+  launch<W, RING, DBG>(op, un, nullptr, y, lw, dbg, bad, B, n_rounds,   \
+                       step, chain_offset, st)
   switch (op.window) {
     case 8: return CALL(8);
     case 16: return CALL(16);
@@ -213,13 +352,13 @@ int launch_by_window(const TcOperands& op, const Uniforms& un, float* y,
 #undef CALL
 }
 
-template <int W, bool RING>
+template <int W, bool RING, bool BABAI = false>
 int info(int n_pad, int* out) {
   cudaFuncAttributes fa;
-  const auto kernel = klein_tc_kernel<W, RING, false>;
+  const auto kernel = klein_tc_kernel<W, RING, false, BABAI>;
   cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = tc_smem_bytes(n_pad);
+  const size_t smem = BABAI ? babai_smem_bytes(n_pad) : tc_smem_bytes(n_pad);
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -278,13 +417,35 @@ int klein_tc_launch(const void* Ufrag, const float* UT, const float* cs,
                                        step, chain_offset, st);
 }
 
-// The resources of B1's (ring 0) or B6's (ring 1) kernel for a window at
-// n_pad: out[0] registers a thread, out[1] local (spill) bytes a thread,
-// out[2] dynamic shared memory a block, out[3] blocks per SM, out[4]
-// threads a block.
-int klein_tc_info(int n_pad, int window, int ring, int* out) {
-  return ring ? info_by_window<true>(n_pad, window, out)
-              : info_by_window<false>(n_pad, window, out);
+// B7: Babai nearest plane for B targets on the recentred centres ct
+// (n_pad, B); coefficients (recentred) into y (n_pad, B). Ufrag and UT as
+// for klein_tc_launch. bad: two ints, bad[0] incremented per coefficient
+// with |y| > 256 (decoded on the wide parts), bad[1] raised to the largest
+// |y|.
+int babai_tc_launch(const void* Ufrag, const float* UT, const float* ct,
+                    float* y, int* bad, int n_pad, long long B,
+                    void* stream) {
+  if (n_pad <= 0 || n_pad % RB != 0 || B <= 0 || bad == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const TcOperands op{static_cast<const uint4*>(Ufrag), UT, nullptr,
+                      nullptr, n_pad, 1};
+  const Uniforms un{nullptr, B, 0u, 0u};
+  return launch<0, false, false, true>(op, un, ct, y, nullptr, nullptr, bad,
+                                       B, 1, 0u, 0u,
+                                       static_cast<cudaStream_t>(stream));
+}
+
+// The resources of the kernel in mode 0 (B1), 1 (B6) or 2 (B7, any
+// window) for a window at n_pad: out[0] registers a thread, out[1] local
+// (spill) bytes a thread, out[2] dynamic shared memory a block, out[3]
+// blocks per SM, out[4] threads a block.
+int klein_tc_info(int n_pad, int window, int mode, int* out) {
+  switch (mode) {
+    case 0: return info_by_window<false>(n_pad, window, out);
+    case 1: return info_by_window<true>(n_pad, window, out);
+    case 2: return info<0, false, true>(n_pad, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* klein_tc_error_string(int code) {

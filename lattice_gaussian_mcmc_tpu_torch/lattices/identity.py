@@ -56,7 +56,8 @@ def sample_zn(seed: int, n: int, sigma, center=None, shape=(),
     """Direct i.i.d. sampling of D_{Z^n, sigma, c}, shape `shape + (n,)`.
     Exact on the window: the coordinates are independent. The uniforms are
     the caller's (`uniforms`, shape `shape + (n,)`) or Philox draws of
-    `utils/prng.py` `draw_uniforms` in flat order. On a card with a scalar
+    `utils/prng.py` `draw_uniforms` in flat order (four draws a Philox
+    call, draw 4j + w on word w of counter j). On a card with a scalar
     sigma and centre: kernel B8; otherwise the inverse-CDF path."""
     device = uniforms.device if uniforms is not None else \
         resolve_device(device)

@@ -86,11 +86,12 @@ _SIGNATURES = {
     "klein": {
         "klein_ring_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _LL, _I, _I,
                               _U32, _U32, _U32, _U32, _P],
-        "babai_decode_launch": [_P, _P, _P, _P, _I, _LL, _P],
+        "babai_decode_launch": [_P, _P, _P, _P, _P, _I, _LL, _P],
     },
     "klein_tc": {
         "klein_tc_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I,
                             _I, _U32, _U32, _U32, _U32, _P],
+        "babai_tc_launch": [_P, _P, _P, _P, _P, _I, _LL, _P],
         "klein_tc_info": [_I, _I, _I, _P],
     },
     "imhk_tc": {

@@ -1,7 +1,7 @@
 """Klein draw (B1) and its ring (B6), fused IMHK steps (B2), the IMHK
 trajectory (B3) and batched Babai decoding (B7) on Hopper: wrappers of the
-CUDA kernels in `csrc/klein_tc.cu` (B1, B6), `csrc/imhk_tc.cu` (B2, B3)
-and `csrc/klein.cu` (B7, and B1 and B6 above `KLEIN_TC_MAX_N_PAD`), their
+CUDA kernels in `csrc/klein_tc.cu` (B1, B6, B7), `csrc/imhk_tc.cu` (B2,
+B3) and `csrc/klein.cu` (B1, B6 and B7 above `KLEIN_TC_MAX_N_PAD`), their
 plain PyTorch versions, launch counts, and the operand preparation.
 
 Replaces the draw, ring, fused-MH and trajectory modes of the Pallas kernel
@@ -25,7 +25,11 @@ count the draws beyond that into an `exact_guard`; the wrapper, or the
 entry point that passed it one, raises before it returns. They keep the
 draw in shared memory, which bounds n_pad by `IMHK_TC_MAX_N_PAD`: B2 and
 B3 raise above it, and B1 and B6 take the FP32 sweep of `csrc/klein.cu`
-there (`klein_route`, by n_pad, before the launch).
+there (`klein_route`, by n_pad, before the launch). B7 is the same sweep
+with rounding in place of the draw and takes the same route; its
+coefficients are not bounded by 256, so the kernel also multiplies U into
+y's second and third bf16 parts where some |y| > 256, and decodes exactly
+for any |y| < 2^24 (`babai_decode`).
 
 Uniforms. Either the caller passes them (draw mode: row i = coordinate i,
 shape (n_pad, B); ring mode: n_pad rows per round, round r in rows
@@ -149,8 +153,9 @@ def fragment_pack(parts) -> torch.Tensor:
 
 
 def tc_fragments(ops) -> torch.Tensor:
-    """The coupling operand of B1/B2/B3/B6 (`KleinOperands`) and B4
-    (`smk_cuda.SMKOperands`), (n_pad/16, n_pad/16, 3, 32, 8) bfloat16:
+    """The coupling operand of B1/B2/B3/B6 (`KleinOperands`), B4
+    (`smk_cuda.SMKOperands`) and B7 (`BabaiOperands`), (n_pad/16, n_pad/16,
+    3, 32, 8) bfloat16:
     `fragment_pack(split_bf16(ops.U))`, built at the first call and kept on
     `ops`."""
     frag = getattr(ops, "_tc_fragments", None)
@@ -625,22 +630,30 @@ def klein_centres(ops: KleinOperands, num_chains: int, n_rounds: int = 1, *,
     return dbg, ring, lws
 
 
-def klein_tc_resources(n_pad: int, window: int, ring: bool = False) -> dict:
-    """B1's (or with `ring` B6's) tensor-core kernel for `window` at n_pad
-    on the current card: registers and local (spill) bytes a thread,
-    dynamic shared memory and threads a block, and blocks resident per
-    SM."""
+# klein_tc.cu's kernel modes, as `klein_tc_info` numbers them
+KLEIN_TC_MODES = {"b1": 0, "b6": 1, "b7": 2}
+
+
+def klein_tc_resources(n_pad: int, window: int, mode: str = "b1") -> dict:
+    """`klein_tc.cu`'s kernel in `mode` ("b1", "b6" or "b7", whose
+    instantiation takes no window) for `window` at n_pad on the current
+    card: registers and local (spill) bytes a thread, dynamic shared memory
+    and threads a block, and blocks resident per SM."""
     out = (ctypes.c_int * 5)()
     raise_on("klein_tc", load("klein_tc").klein_tc_info(
-        n_pad, window, int(ring), out), "klein_tc_info")
+        n_pad, window, KLEIN_TC_MODES[mode], out), "klein_tc_info")
     return dict(zip(("registers", "local_bytes", "shared_bytes",
                      "blocks_per_sm", "threads"), list(out)))
 
 
 def babai_decode(ops: BabaiOperands, ct: torch.Tensor) -> torch.Tensor:
     """B7: Babai nearest plane for every column of the recentred centres ct
-    (n_pad, B) in one launch; returns y (n_pad, B). CPU operands run
-    `babai_decode_plain`."""
+    (n_pad, B) in one launch; returns y (n_pad, B). The library is
+    `klein_route`'s: the tensor-core sweep up to `KLEIN_TC_MAX_N_PAD`
+    (counted in `babai_decode.launches`), the FP32 sweep above (in
+    `babai_decode.fp32_launches`). Both are exact in their operands for
+    |y| < 2^24 and raise nothing; the launch adds to the device counters
+    that `babai_y_stats` reads. CPU operands run `babai_decode_plain`."""
     if ops.device.type == "cpu":
         return babai_decode_plain(ops, ct)
     n_pad, B = ops.n_pad, ct.shape[1]
@@ -649,14 +662,44 @@ def babai_decode(ops: BabaiOperands, ct: torch.Tensor) -> torch.Tensor:
     check_cuda("U", ops.U, (n_pad, n_pad))
     check_cuda("UT", ops.UT, (n_pad, n_pad))
     check_cuda("ct", ct, (n_pad, B))
-    lib = load("klein")
     y = torch.empty_like(ct)
-    rc = lib.babai_decode_launch(
-        ptr(ops.U), ptr(ops.UT), ptr(ct), ptr(y), n_pad, B,
-        ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
-    raise_on("klein", rc, "babai_decode")
-    babai_decode.launches += 1
+    bad = _babai_counters(ops.device)
+    stream = ctypes.c_void_p(
+        torch.cuda.current_stream(ops.device).cuda_stream)
+    route = klein_route(n_pad)
+    if route == "klein_tc":
+        rc = load(route).babai_tc_launch(
+            ptr(tc_fragments(ops)), ptr(ops.UT), ptr(ct), ptr(y), ptr(bad),
+            n_pad, B, stream)
+    else:
+        rc = load(route).babai_decode_launch(
+            ptr(ops.U), ptr(ops.UT), ptr(ct), ptr(y), ptr(bad), n_pad, B,
+            stream)
+    raise_on(route, rc, "babai_decode")
+    _count(babai_decode, route)
     return y
+
+
+# device -> B7's counters since the last reset, (2,) int32: coefficients
+# with |y| > 256 (decoded on y's wide parts), largest |y|
+_BABAI_Y: dict = {}
+
+
+def _babai_counters(device) -> torch.Tensor:
+    c = _BABAI_Y.get(device)
+    if c is None:
+        c = _BABAI_Y[device] = torch.zeros(2, dtype=torch.int32,
+                                           device=device)
+    return c
+
+
+def babai_y_stats() -> dict:
+    """B7's recentred coefficients since the last `reset_launch_counts`,
+    over both routes (one synchronisation): how many had |y| > 256, and the
+    largest |y|."""
+    rows = [c.tolist() for c in _BABAI_Y.values()]
+    return {"beyond_256": sum(r[0] for r in rows),
+            "max_abs_y": max((r[1] for r in rows), default=0)}
 
 
 def exact_guard(device) -> torch.Tensor:
@@ -824,6 +867,8 @@ def reset_launch_counts():
     klein_draw.fp32_launches = 0
     klein_ring.fp32_launches = 0
     babai_decode.launches = 0
+    babai_decode.fp32_launches = 0
+    _BABAI_Y.clear()
     imhk_fused.launches = 0
     imhk_trajectory.launches = 0
     # largest |y| each tensor-core kernel drew since the reset (hazard C8)

@@ -8,9 +8,9 @@ flat, (num,), in draw order; reshape it for Z^n vectors.
 
 Randomness. Either the caller passes the uniforms, flat (num,) in draw order
 (the Pallas wrapper's `unif.reshape(-1)` lines up with its
-`out.reshape(-1)`), or the kernel draws Philox uniforms of counter
-(index low word, index high word, 0, TAG_ZN) — `utils/prng.py`
-`draw_uniforms`.
+`out.reshape(-1)`), or the kernel draws Philox uniforms: draw 4j + w takes
+output word w of counter (j low word, j high word, 0, TAG_ZN), one call for
+four draws — `utils/prng.py` `draw_uniforms`.
 
 Dispatch. A CPU device (or CPU uniforms) runs the plain version; a CUDA
 device launches the kernel or raises. It never falls back.

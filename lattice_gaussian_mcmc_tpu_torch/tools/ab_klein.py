@@ -1,4 +1,4 @@
-"""Time kernels B1-B7 of one checkout of the port at the paths' shapes,
+"""Time kernels B1-B8 of one checkout of the port at the paths' shapes,
 for comparing two trees on one card.
 
     python3 lattice_gaussian_mcmc_tpu_torch/tools/ab_klein.py TREE [RING]
@@ -23,9 +23,17 @@ rounds) at 65,536 and at 4,096 chains, with its plain version's time at
 1024; 8 rounds at 65,536 chains, 2 at 4,096 with its plain version's
 time, or the error of a tree that raises there), B6 at the suite klein
 row's shapes (NTRU-512 of seed 42, sigma 1.3 max ||b*_i||, window 24,
-65,536 chains x 8 rounds) and B7 at the decode phase's (65,536 targets
-B x* + w, noise 0.45 min ||b*_i||); and ptxas's register lines. Run it for
-parent, change, change, parent, one after another on the same card.
+65,536 chains x 8 rounds), B7 at the decode phase's (65,536 targets
+B x* + w, noise 0.45 min ||b*_i||; median of B7_REPS) and the whole
+`Lattice.nearest_plane` on those targets (median of B7_REPS, float64
+centre products included), B8 at the suite
+direct row's (65,536 x 1024 draws, sigma 5, window 48; the median of
+B8_REPS timings of B8_BATCH launches each, per launch) and there the same
+against a copy of B8 that pads its CDF at run time (`_b8_pads`); ptxas's
+register lines; and a digest of each library's SASS (`cuobjdump -sass`, the
+anonymous namespace's per-build name folded out), equal across two trees
+whose kernels compile to the same code. Run it for parent, change,
+change, parent, one after another on the same card.
 """
 
 from __future__ import annotations
@@ -41,6 +49,10 @@ PEIKERT_CHAINS, PEIKERT_CHECK_CHAINS, PEIKERT_ROUNDS = 65536, 4096, 8
 PEIKERT_CHECK_ROUNDS = 2
 SUITE_CHAINS, SUITE_ROUNDS = 65536, 8
 DECODE_TARGETS = 65536
+B7_REPS = 5
+LIBRARIES = ("imhk_tc", "klein", "klein_tc", "peikert_tc", "smk_tc", "zn")
+ZN_DRAWS, ZN_SIGMA = 65536 * 1024, 5.0
+B8_REPS, B8_BATCH = 5, 20
 STEPS = 64
 HARD_CHAINS = 131072
 HARD_STEPS = 48
@@ -59,6 +71,9 @@ def main(tree: str, ring: int = 512) -> dict:
     from lattice_gaussian_mcmc_tpu_torch.samplers import klein_precompute
     if not klein_cuda.__file__.startswith(root + os.sep):
         raise RuntimeError(f"imported {klein_cuda.__file__}, not {root}")
+    # this tool's neighbour, on TREE's `_build`: a tree without it is timed
+    # all the same
+    import sass
     _build.build_all()
     lat = ntru_lattice(ring, q=12289, seed=0,
                        cache_dir=os.path.join(root, "bench_cache"),
@@ -93,7 +108,7 @@ def main(tree: str, ring: int = 512) -> dict:
         ops_h, x, lw_h, acc_h, HARD_STEPS, 1, seed=100, step=1))
     if ring == 512:
         out_45 = _b4_b5(lat, sigma_h, ms)
-        out_45.update(_b5_wide(root, ms), **_b6_b7(root, lat, ms))
+        out_45.update(_b5_wide(root, ms), **_b6_b7_b8(root, lat, ms))
     ptxas = {name: [ln.strip() for ln in info["ptxas"].splitlines()
                     if "entry function" in ln or "registers" in ln]
              for name, info in _build.BUILD_INFO.items()}
@@ -103,6 +118,7 @@ def main(tree: str, ring: int = 512) -> dict:
            "accepted": float(acc.sum()), f"b3_{HARD_STEPS}_ms": b3,
            "b3_accepted": float(acc_h.sum()), "b3_window": ops_h.window,
            "ptxas": ptxas}
+    out["sass_digest"] = sass.digests(LIBRARIES)
     if hasattr(klein_cuda, "imhk_tc_resources"):
         out["imhk_tc_resources"] = {
             w: klein_cuda.imhk_tc_resources(ops.n_pad, w)
@@ -188,12 +204,15 @@ def _b5_wide(root, ms) -> dict:
     return out
 
 
-def _b6_b7(root, lat, ms) -> dict:
-    """B6 at the suite klein row's shapes and B7 at the decode phase's,
-    each after a warm-up launch."""
+def _b6_b7_b8(root, lat, ms) -> dict:
+    """B6 at the suite klein row's shapes, B7 at the decode phase's and B8
+    at the suite direct row's, each after a warm-up launch."""
     import torch
     from lattice_gaussian_mcmc_tpu_torch.lattices import ntru_lattice
-    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import klein_cuda
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import klein_cuda, zn_cuda
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels.peikert_cuda import (
+        suggest_peikert_window,
+    )
     from lattice_gaussian_mcmc_tpu_torch.samplers import klein_precompute
     lat42 = ntru_lattice(512, q=12289, seed=42,
                          cache_dir=os.path.join(root, "bench_cache"),
@@ -212,9 +231,76 @@ def _b6_b7(root, lat, ms) -> dict:
     ops7 = klein_cuda.babai_operands(lat.Q, lat.R)
     ct, _ = klein_cuda.babai_centres(ops7, t)
     klein_cuda.babai_decode(ops7, ct)
-    b7 = ms(lambda: klein_cuda.babai_decode(ops7, ct))
-    return {f"b6_{SUITE_CHAINS}x{SUITE_ROUNDS}_ms": b6,
-            "b6_window": ops.window, f"b7_{DECODE_TARGETS}_ms": b7}
+    b7 = [ms(lambda: klein_cuda.babai_decode(ops7, ct))
+          for _ in range(B7_REPS)]
+    del ct
+    lat.nearest_plane(t)
+    decode = [ms(lambda: lat.nearest_plane(t)) for _ in range(B7_REPS)]
+    del t, w, xs
+    W = suggest_peikert_window(ZN_SIGMA, lat.n)
+
+    def b8_batch():
+        for _ in range(B8_BATCH):
+            zn_cuda.sample_zn_draws(ZN_DRAWS, ZN_SIGMA, 0.0, W, seed=5,
+                                    device="cuda")
+
+    b8_batch()
+    b8 = [ms(b8_batch) / B8_BATCH for _ in range(B8_REPS)]
+    pads = _b8_pads(W, ms)
+    return {**pads, f"b6_{SUITE_CHAINS}x{SUITE_ROUNDS}_ms": b6,
+            "b6_window": ops.window,
+            f"b7_{DECODE_TARGETS}_ms": sorted(b7)[B7_REPS // 2],
+            "b7_each_ms": b7,
+            f"nearest_plane_{DECODE_TARGETS}_ms": sorted(decode)[B7_REPS // 2],
+            "nearest_plane_each_ms": decode,
+            f"b8_{ZN_DRAWS}_ms": sorted(b8)[B8_REPS // 2],
+            "b8_each_ms": b8, "b8_window": W}
+
+
+def _b8_pads(window, ms) -> dict:
+    """B8 at the suite direct row's shapes, as built (a window up to 64
+    takes the instantiation that pads its CDF to 64 at compile time)
+    against a copy whose every window takes the padding chosen at run
+    time, in turns compiled, run time, run time, compiled (each the median
+    of B8_REPS timings of B8_BATCH launches, per launch), with whether the
+    two wrote the same draws. A tree without the compiled instantiation
+    reports none."""
+    import ctypes
+    import shutil
+    import tempfile
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import _build, zn_cuda
+    from lattice_gaussian_mcmc_tpu_torch.utils.prng import seed_key
+    dest = tempfile.mkdtemp(prefix="zn_pad_")
+    try:
+        _build.edited_sources(dest, "zn.cu", [(
+            "if (window <= ZN_COMPILED_P)", "if (false)")])
+        libs = {"compiled": _build.load("zn"),
+                "run_time": _build.load("zn", dest)}
+    except ValueError:
+        return {}
+    finally:
+        shutil.rmtree(dest)
+    c, isg = zn_cuda._params(ZN_SIGMA, 0.0)
+    k0, k1 = seed_key(5)
+    outs = {k: torch.empty(ZN_DRAWS, device="cuda") for k in libs}
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def batch(k):
+        for _ in range(B8_BATCH):
+            rc = libs[k].zn_draw_launch(c, isg, window, None,
+                                        _build.ptr(outs[k]), ZN_DRAWS, k0,
+                                        k1, stream)
+            _build.raise_on("zn", rc, f"B8 ({k})")
+
+    out = {}
+    for k in ("compiled", "run_time", "run_time", "compiled"):
+        batch(k)
+        t = sorted(ms(lambda: batch(k)) / B8_BATCH for _ in range(B8_REPS))
+        out.setdefault(f"b8_pad_{k}_ms", []).append(t[B8_REPS // 2])
+    out["b8_pad_same_draws"] = torch.equal(outs["compiled"],
+                                           outs["run_time"])
+    return out
 
 
 if __name__ == "__main__":

@@ -10,9 +10,10 @@ Counter layout: c0 = chain id, c1 = row, c2 = step, c3 = tag (TAG_ROW for
 a coordinate draw, TAG_ACCEPT for a Metropolis accept uniform, TAG_NORMAL
 for a pair of Box-Muller normals, TAG_GUMBEL for the Gumbel-max uniforms of
 the plain Peikert draw, TAG_GIBBS for the Gibbs sweeps); key = (seed mod
-2^32, seed >> 32 mod 2^32). The Z^n draws (TAG_ZN) count draws, not chains
-and rows: c0, c1 = the low and high words of the 64-bit draw index, c2 =
-0. Uniforms use output word 0; a Box-Muller pair uses words 0 and 1.
+2^32, seed >> 32 mod 2^32). Uniforms use output word 0; a Box-Muller pair
+uses words 0 and 1. The Z^n draws (TAG_ZN) count groups of four draws, not
+chains and rows: c0, c1 = the low and high words of the 64-bit group
+index j, c2 = 0, and draw 4j + w takes output word w.
 
 uint32 arithmetic is carried in int64 tensors: every product is split into
 16-bit halves so that no intermediate leaves the int64 range.
@@ -101,11 +102,12 @@ def chain_ids(num_chains: int, chain_offset: int = 0,
 
 
 def draw_uniforms(seed: int, num: int, device=None) -> torch.Tensor:
-    """float32 uniforms of the Z^n draws 0 .. num-1: the uniform of counter
-    (index low word, index high word, 0, TAG_ZN) under `seed`."""
-    idx = torch.arange(num, dtype=torch.int64, device=device)
+    """float32 uniforms of the Z^n draws 0 .. num-1 under `seed`: draw
+    4j + w is output word w of counter (j low word, j high word, 0,
+    TAG_ZN). Draw i does not depend on num."""
+    j = torch.arange(-(-num // 4), dtype=torch.int64, device=device)
     k0, k1 = seed_key(seed)
     c2 = torch.zeros((1,), dtype=torch.int64, device=device)
     c3 = torch.full((1,), TAG_ZN, dtype=torch.int64, device=device)
-    return mantissa_uniform(philox4x32(idx & MASK32, idx >> 32, c2, c3,
-                                       k0, k1)[0])
+    words = philox4x32(j & MASK32, j >> 32, c2, c3, k0, k1)
+    return mantissa_uniform(torch.stack(words, dim=1).reshape(-1)[:num])

@@ -43,8 +43,8 @@ MUTANTS = {
     # B1/B6's coupling on U1 alone: one bf16 pass (hazard C2)
     "klein_tc_hi_only": ("klein_tc.cu", "constexpr int PASSES = PARTS;",
                          "constexpr int PASSES = 1;"),
-    # klein.cu's FP32 coupling of B7 (and of B1 and B6 above n_pad 3,456)
-    # reads U with TF32's 10-bit mantissa (hazard C2)
+    # klein.cu's FP32 coupling of B1, B6 and B7 above n_pad 3,456 reads U
+    # with TF32's 10-bit mantissa (hazard C2)
     "tf32_coupling": ("klein_common.cuh", "const float4 u = __ldg(u4 + q);",
                       "float4 u = __ldg(u4 + q); "
                       + " ".join(_tf32("u", c) for c in "xyzw")),
@@ -68,8 +68,12 @@ MUTANTS = {
                          "constexpr uint32_t KEEP = 0xFFFFE000u;",
                          "constexpr uint32_t KEEP = 0xFFFF0000u;"),
     # B7 rounds half away from zero (hazard C3)
-    "babai_roundf": ("klein.cu", "const float yi = rintf(c);",
-                     "const float yi = roundf(c);"),
+    "babai_roundf": ("klein_tc.cu", "y = rintf(c);", "y = roundf(c);"),
+    # B7's coupling to the rows decoded on U1 alone: one bf16 pass (C2)
+    "b7_hi_only": ("klein_tc.cu", "couple<PASSES, false, WideY>(",
+                   "couple<1, false, WideY>("),
+    # B7 without y's second and third bf16 parts: no tile is flagged
+    "b7_no_wide": ("klein_tc.cu", "big[i / SB] = 1;", "big[i / SB] = 0;"),
     # B6 draws every round on step 0's Philox counters
     "ring_one_step": ("klein_tc.cu",
                       "const uint32_t step = step0 + (uint32_t)rd;",
@@ -79,8 +83,11 @@ MUTANTS = {
                            "const uint32_t step_r = step + (uint32_t)r;",
                            "const uint32_t step_r = step;"),
     # B8 counts cdf_k <= u total
-    "zn_le": ("zn.cu", "if (cdf[mid] < target) lo = mid + 1;",
-              "if (cdf[mid] <= target) lo = mid + 1;"),
+    "zn_le": ("zn.cu", "idx += cdf[idx + s - 1] < target ? s : 0;",
+              "idx += cdf[idx + s - 1] <= target ? s : 0;"),
+    # B8's fourth draw of a group reads the third Philox word again
+    "zn_same_word": ("zn.cu", "u[3] = mantissa_uniform(r.w);",
+                     "u[3] = mantissa_uniform(r.z);"),
 }
 
 

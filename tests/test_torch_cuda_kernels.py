@@ -1,9 +1,9 @@
-"""The CUDA kernels B1 (Klein draw) and B6 (Klein ring; both from
-`csrc/klein_tc.cu`, and from `csrc/klein.cu` above n_pad 3,456), B2 (fused
-IMHK), B3 (IMHK trajectory; B2 and B3 from `csrc/imhk_tc.cu`), B4 (fused
-SMK, `csrc/smk_tc.cu`), B5 (Peikert, `csrc/peikert_tc.cu`), B7 (Babai) and
-B8 (Z^n) against their plain PyTorch versions on the card, and the entry
-points that must reach them. These need a CUDA device and skip without
+"""The CUDA kernels B1 (Klein draw), B6 (Klein ring) and B7 (Babai; all
+three from `csrc/klein_tc.cu`, and from `csrc/klein.cu` above n_pad
+3,456), B2 (fused IMHK), B3 (IMHK trajectory; B2 and B3 from
+`csrc/imhk_tc.cu`), B4 (fused SMK, `csrc/smk_tc.cu`), B5 (Peikert,
+`csrc/peikert_tc.cu`) and B8 (Z^n, `csrc/zn.cu`) against their plain
+PyTorch versions on the card, and the entry points that must reach them. These need a CUDA device and skip without
 one; they import nothing of JAX, so on a machine with a card and no JAX run
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest
@@ -12,6 +12,7 @@ one; they import nothing of JAX, so on a machine with a card and no JAX run
 
 import dataclasses
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -446,6 +447,8 @@ def test_b7_matches_float64_and_counts():
     klein_cuda.reset_launch_counts()
     X = lat.nearest_plane(t)
     assert klein_cuda.babai_decode.launches == 1
+    assert klein_cuda.babai_decode.fp32_launches == 0
+    assert klein_cuda.babai_y_stats()["beyond_256"] == 0
     assert torch.equal(X, xs)
     assert torch.equal(X, linalg.babai_nearest_plane(lat.Q, lat.R, t))
     # half-integer targets in 2D: decision for decision (rintf, C3)
@@ -462,20 +465,79 @@ def test_b7_matches_float64_and_counts():
 def test_b8_matches_plain_and_sample_zn_launches():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    num = 1 << 20
+    num = (1 << 20) + 3
     u = torch.rand(num, device="cuda")
     for kw in ({"uniforms": u}, {"seed": 3, "device": "cuda"}):
-        z = zn_cuda.sample_zn_draws(num, 2.5, 0.5, 32, **kw)
-        zp = zn_cuda.sample_zn_draws_plain(num, 2.5, 0.5, 32, **kw)
-        diff = z != zp
-        assert diff.float().mean().item() <= 1e-3
-        assert bool(((z - zp).abs()[diff] == 1).all())
+        # the kernel forms the plain version's CDF bit for bit: every draw
+        # is equal, including a last group of three
+        for W in (32, 100):
+            z = zn_cuda.sample_zn_draws(num, 2.5, 0.5, W, **kw)
+            zp = zn_cuda.sample_zn_draws_plain(num, 2.5, 0.5, W, **kw)
+            assert torch.equal(z, zp)
+    # a prefix of a longer run is the same draws
+    z = zn_cuda.sample_zn_draws(num, 2.5, 0.5, 32, seed=3, device="cuda")
+    assert torch.equal(zn_cuda.sample_zn_draws(
+        1001, 2.5, 0.5, 32, seed=3, device="cuda"), z[:1001])
     zn_cuda.reset_launch_counts()
     Z = sample_zn(1, 64, 3.0, shape=(1000,), device="cuda")
     assert Z.shape == (1000, 64) and zn_cuda.sample_zn_draws.launches == 1
     s = UnifiedLatticeSampler(identity_lattice(16, device="cuda"), sigma=2.0)
     s.sample(2, 100)
     assert zn_cuda.sample_zn_draws.launches == 2
+
+
+@pytest.mark.cuda
+def test_b7_decodes_beyond_256_on_its_wide_parts():
+    """`chip_smoke.py`'s reach basis: recentred coefficients pass 256 and
+    2^16; B7 decodes x* coefficient for coefficient, as float64 and its
+    plain version do, and counts the coefficients beyond 256."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    import chip_smoke
+    rng = np.random.default_rng(78)
+    basis, xstar = chip_smoke.reach_basis(rng)
+    n = basis.shape[0]
+    lat = lattice_from_numpy({"basis": basis, "Q": np.eye(n), "R": basis,
+                              "gs_norms": np.ones(n)}, device="cuda")
+    xs = torch.from_numpy(xstar(200)).cuda()
+    t = xs @ lat.basis.T + torch.from_numpy(
+        rng.choice([-0.25, 0.25], (200, n))).cuda()
+    klein_cuda.reset_launch_counts()
+    X = lat.nearest_plane(t)
+    assert torch.equal(X, xs)
+    assert torch.equal(X, linalg.babai_nearest_plane(lat.Q, lat.R, t))
+    stats = klein_cuda.babai_y_stats()
+    assert klein_cuda.babai_decode.launches == 1
+    k = torch.round(t)
+    y = xs - k
+    assert stats["beyond_256"] == int((y.abs() > 256).sum()) > 0
+    assert stats["max_abs_y"] == int(y.abs().max()) > 65536
+
+
+@pytest.mark.cuda
+def test_b7_fp32_route_above_the_tensor_core_reach():
+    """Above n_pad 3,456 B7 takes klein.cu's FP32 sweep, counted apart,
+    and matches the float64 nearest plane (dimension 3,500, its own R)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n, T = 3500, 64
+    rng = np.random.default_rng(35)
+    basis = (np.triu(rng.uniform(-0.05, 0.05, (n, n)), 1)
+             + np.diag(rng.uniform(1.0, 2.0, n)))
+    lat = lattice_from_numpy({"basis": basis, "Q": np.eye(n), "R": basis,
+                              "gs_norms": np.diag(basis)}, device="cuda")
+    xs = torch.tensor(rng.integers(-2, 3, (T, n)), dtype=torch.float64,
+                      device="cuda")
+    t = xs @ lat.basis.T + 0.05 * torch.randn(T, n, dtype=torch.float64,
+                                              device="cuda")
+    klein_cuda.reset_launch_counts()
+    X = lat.nearest_plane(t)
+    assert (klein_cuda.babai_decode.launches,
+            klein_cuda.babai_decode.fp32_launches) == (0, 1)
+    assert torch.equal(X, xs)
+    assert torch.equal(X, linalg.babai_nearest_plane(lat.Q, lat.R, t))
 
 
 @pytest.mark.cuda
