@@ -5,9 +5,10 @@
 
 Builds the CUDA kernels from `lattice_gaussian_mcmc_tpu_torch/csrc/` and
 drives the port's paths: the rows of the reference's flagship benchmark
-(`bench.py`) on the NTRU-512 secret basis (dimension 1024), the sampling
-rows of its benchmark suite (`experiments/benchmark.py`) and Babai / Gibbs
-decoding. Phases, one JSON line each:
+(`bench.py`) on the NTRU-512 secret basis (dimension 1024), its benchmark
+suite (`experiments/benchmark.py`, with the reduction rows), Babai / Gibbs
+decoding, the CVP-decoding experiment, the Klein validation suite and the
+convergence study. Phases, one JSON line each:
 
   toolchain        versions, the card, the kernel builds (one nvcc per
                    source, all started together)
@@ -36,7 +37,10 @@ decoding. Phases, one JSON line each:
                    coefficients pass 256 and 2^16 equal to float64 (its
                    wide parts), and above n_pad 3,456 (klein.cu's FP32
                    route); B8 (Z^n) against its plain version draw for
-                   draw, on host uniforms and on Philox
+                   draw, on host uniforms and on Philox; B1, B2, B5 and
+                   B6 on the suite's LLL-reduced q-ary operands at n = 16
+                   and 64 (window 104, the WIDE instantiations: fault
+                   C11), with the largest |y| each drew
   law              2D hard regime: TVD to the enumerated target and the
                    stationary acceptance 0.9904 (IMHK), TVD of SMK; B8's
                    TVD to the exact pmf; B6's per-round moments in 2D;
@@ -52,10 +56,11 @@ decoding. Phases, one JSON line each:
   peikert          PeikertSampler at 1.05 r s1(B), 65,536 chains x 8
                    rounds in one launch: samples/s, second moment, B5's
                    bound
-  suite            run_benchmarks at dimensions 256 and 1024 (klein: B6,
-                   imhk: B1 + B2, direct: B8, peikert: B5; 65,536 chains,
-                   1 warm-up, 3 timed runs) and the direct row at 16 and
-                   64: one line per row
+  suite            run_benchmarks at its default dimensions 16, 64, 256
+                   and 1024 (klein: B6, imhk: B1 + B2, direct: B8,
+                   peikert: B5; 65,536 chains, 1 warm-up, 3 timed runs;
+                   the native LLL/BKZ rows at 16, 64 and 256): one line
+                   per row
   decode           B7 through Lattice.nearest_plane on NTRU-512, 65,536
                    targets B x* + w at noise 0.05 and 0.45 min ||b*_i||,
                    held to x* and to the float64 nearest plane; B7's
@@ -63,14 +68,22 @@ decoding. Phases, one JSON line each:
                    the float64 centre products beside B7's; the f32-QR
                    centre count (hazard C7); annealed Gibbs through
                    UnifiedLatticeSampler.decode on NTRU-64
+  decoding         experiments/decoding.py run_decoding at its defaults
+                   (Babai: B7): gates, decodes/s per method, B7 against
+                   the float64 nearest plane on the same instances
+  validation       klein_validation.run_suite (full budgets; B8) and
+                   convergence_study.run_study at ConvergenceConfig's
+                   defaults, its n_samples cut to 10,000: all_passed and
+                   wall time
   timing           B1 and B2 against their plain versions at the flagship
                    shapes, B6-B8 at the suite's and the decode phase's
                    shapes, and every kernel's bound: its bytes and each
                    type of its operations at the card's rate for that
                    type (`bound`), beside the FP32-only figure
 
-Each path phase (flagship, hard_regime, smk, peikert, suite, decode) sets
-every launch count to 0 before it runs and reads them after. Then the card's name and
+Each path phase (flagship, hard_regime, smk, peikert, suite, decode,
+decoding, validation) sets every launch count to 0 before it runs and
+reads them after. Then the card's name and
 power limit, a `kernels` line, and as the last line {"ok": true, "device":
 {...}}. Any failed check exits non-zero before the last line. Imports
 nothing of JAX.
@@ -203,9 +216,22 @@ ZN_LAW_DRAWS = 1 << 22
 LAW_2D_CHAINS = 1 << 20              # UnifiedLatticeSampler(klein), sigma 2
 B6_MOMENT_CHAINS = 65_536
 B6_STD_TOL = 0.02                    # |std / (sigma sqrt(diag(G^-1))) - 1|
-SUITE_DIMS = (256, 1024)
 SUITE_CHAINS = 65_536                # the suite's default n_chains
-SUITE_DIRECT_DIMS = (16, 64)
+# B1, B2, B5 and B6 on the suite's rows below 256: the LLL-reduced
+# `qary_lattice(n, n/2, q=3329, seed 42)` at sigma 1.5 max ||b*_i||
+# (window 24 at n = 16, 104 at n = 64, n_pad 128 for both); at n = 64 ~5%
+# of the coefficients pass 256, so B1, B2 and B6 take their WIDE
+# instantiations (fault C11)
+QARY_DIMS = (16, 64)
+QARY_SEED = 42
+QARY_CHAINS = 4096
+QARY_STEPS = 4
+QARY_ROUNDS = 3
+# the convergence study's draws: its chains are plain per-row steps, one
+# launch an op (~6 ms a 2D step on the card), so ConvergenceConfig's
+# 50,000 took 381 s of a smoke run; 10,000 cuts its comparison and
+# scaling chains five-fold (its TVD decay keeps 10,000 steps)
+CONVERGENCE_SAMPLES = 10_000
 # B1 and B6 above the tensor-core sweep's reach (klein_cuda's
 # KLEIN_TC_MAX_N_PAD, 3,456) run klein.cu's FP32 sweep: checked on an
 # upper-triangular basis of dimension 3,500 (n_pad 3,584), diagonal in
@@ -649,13 +675,23 @@ def phase_toolchain(s: Smoke):
     for n in (256, 1024, s.kc.KLEIN_TC_MAX_N_PAD):
         klein_tc.setdefault(f"n_pad_{n}", {})["b7"] = \
             s.kc.klein_tc_resources(n, 1, "b7")
+    # the suite's q-ary rows (n_pad 128): window 24 at n = 16, and the
+    # WIDE instantiations at window 104, n = 64 (fault C11)
+    qary = {"n16_window_24": {
+                "b1": s.kc.klein_tc_resources(128, 24, "b1"),
+                "b6": s.kc.klein_tc_resources(128, 24, "b6"),
+                "b2": s.kc.imhk_tc_resources(128, 24)},
+            "n64_window_104_wide": {
+                "b1": s.kc.klein_tc_resources(128, 104, "b1_wide"),
+                "b6": s.kc.klein_tc_resources(128, 104, "b6_wide"),
+                "b2": s.kc.imhk_tc_resources(128, 104, wide=True)}}
     emit({"phase": "toolchain", "ok": True, "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc.strip().splitlines()[-1] if nvcc else None,
           "triton": has_triton, "card": s.card, "build_s": build_s,
           "build_s_each": built, "ptxas": ptxas,
           "imhk_tc_resources": imhk_tc, "smk_tc_resources": smk_tc,
-          "klein_tc_resources": klein_tc})
+          "klein_tc_resources": klein_tc, "qary_tc_resources": qary})
 
 
 # ---------------------------------------------------------- kernel_vs_plain
@@ -727,6 +763,109 @@ def check_b6(s: Smoke):
                 "debug_draws_equal": debug_equal,
                 "max_kernel_centre_err_over_sigma": centre,
                 "max_abs_y": max_abs_y, "rounds": R, "window": ops.window}
+
+
+def check_qary(s: Smoke):
+    """B1, B6 and B2 at the suite's klein and imhk operands below 256, B5
+    at its Peikert operands there, QARY_CHAINS chains: each against its
+    plain version on the caller's uniforms (and B1, B5 on Philox too),
+    with the largest |y| each kernel drew (hazard C8; read from a guard of
+    the check's own)."""
+    import numpy as np
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.experiments import benchmark
+    from lattice_gaussian_mcmc_tpu_torch.samplers import (
+        PeikertSampler,
+        klein_precompute,
+    )
+    kc, pc, dev, gen, B = s.kc, s.pc, s.dev, s.gen, QARY_CHAINS
+    out, ok = {}, True
+    for n in QARY_DIMS:
+        lat = benchmark.reduced_qary_lattice(n, QARY_SEED, dev)
+        max_gs = float(lat.gs_norms.max())
+        pre = klein_precompute(lat, 1.5 * max_gs, tail_budget=0.01)
+        ops = kc.kernel_operands(pre)
+        n_pad, R = ops.n_pad, QARY_ROUNDS
+        guard = kc.exact_guard(dev)
+        u1 = torch.rand(n_pad, B, device=dev, generator=gen)
+        y, lw = kc.klein_draw(ops, B, uniforms=u1, guard=guard)
+        yp, lwp = kc.klein_draw_plain(ops, B, uniforms=u1)
+        b1 = compare_draws(y, yp, lw, lwp, n)
+        yq, lq = kc.klein_draw(ops, B, seed=81, guard=guard)
+        yqp, lqp = kc.klein_draw_plain(ops, B, seed=81)
+        b1_philox = compare_draws(yq, yqp, lq, lqp, n)
+        u6 = torch.rand(R * n_pad, B, device=dev, generator=gen)
+        ring, lws = kc.klein_ring(ops, B, R, uniforms=u6, guard=guard)
+        ringp, lwsp = kc.klein_ring_plain(ops, B, R, uniforms=u6)
+        b6 = [compare_draws(ring[r * n_pad:(r + 1) * n_pad],
+                            ringp[r * n_pad:(r + 1) * n_pad], lws[r],
+                            lwsp[r], n) for r in range(R)]
+        u2 = torch.rand(QARY_STEPS * (n_pad + kc.ACCEPT_ROWS), B,
+                        device=dev, generator=gen)
+        x, lx, ax = yp.clone(), lwp.clone(), torch.zeros_like(lwp)
+        xp, lxp, axp = yp.clone(), lwp.clone(), torch.zeros_like(lwp)
+        kc.imhk_fused(ops, x, lx, ax, QARY_STEPS, uniforms=u2, guard=guard)
+        kc.imhk_fused_plain(ops, xp, lxp, axp, QARY_STEPS, uniforms=u2)
+        b2 = compare_steps(x, xp, lx, lxp, ax, axp, n, QARY_STEPS)
+        top = guard[:, 1].tolist()     # rows: B2, B3, B1, B6
+        counted = int(guard[:, 0].sum())
+        del u1, u6, u2, ring, ringp, x, xp
+        sp = PeikertSampler(lat, 3.0 * float(np.linalg.norm(
+            lat.basis.cpu().numpy(), 2)), device=dev)
+        ops_p = sp.operands
+        z = torch.randn(2 * ops_p.n_pad, B, device=dev, generator=gen)
+        u5 = torch.rand(2 * ops_p.n_pad, B, device=dev, generator=gen)
+        b5 = compare_rings(pc.peikert_rounds(ops_p, B, 2, uniforms=u5,
+                                             normals=z),
+                           pc.peikert_rounds_plain(ops_p, B, 2, uniforms=u5,
+                                                   normals=z))
+        b5_philox = compare_rings(pc.peikert_rounds(ops_p, B, 2, seed=82),
+                                  pc.peikert_rounds_plain(ops_p, B, 2,
+                                                          seed=82))
+        n_ok = (draws_ok(b1) and draws_ok(b1_philox)
+                and all(draws_ok(r) for r in b6)
+                and draws_ok(b2) and b2["accept_differing"] <= MAX_ACCEPT_SHARE
+                and b2["accept_differing_agreeing"] == 0 and counted == 0
+                and all(r["coeffs_differing"] <= MAX_COEFF_SHARE
+                        and r["ties_off_by_one"] for r in (b5, b5_philox)))
+        ok = ok and n_ok
+        for key, res in (("B1", b1), ("B2", b2), ("B6", b6[0]), ("B5", b5)):
+            s.note(key, **{f"qary{n}_coeffs_differing":
+                           res["coeffs_differing"]})
+        # each kernel at the suite row's shapes (65,536 chains; B1 the
+        # imhk row's start, B2 its 16 steps, B6 the klein row's 8 rounds,
+        # B5 the Peikert row's one round), by CUDA events
+        Bs, times = SUITE_CHAINS, {}
+        times["B1"] = cuda_ms(lambda: kc.klein_draw(ops, Bs, seed=84),
+                              reps=3)
+        times["B6"] = cuda_ms(lambda: kc.klein_ring(ops, Bs, 8, seed=84),
+                              reps=3)
+        x0, l0 = kc.klein_draw(ops, Bs, seed=84)
+        times["B2"] = cuda_ms(lambda: kc.imhk_fused(
+            ops, x0, l0, torch.zeros_like(l0), 16, seed=84, step=1), reps=3)
+        times["B5"] = cuda_ms(lambda: pc.peikert_rounds(ops_p, Bs, 1,
+                                                        seed=84), reps=3)
+        plain = {"B1": cuda_ms(lambda: kc.klein_draw_plain(ops, Bs,
+                                                           seed=84)),
+                 "B6": cuda_ms(lambda: kc.klein_ring_plain(ops, Bs, 8,
+                                                           seed=84))}
+        del x0, l0
+        for key, ms in times.items():
+            s.note(key, **{f"qary{n}_ms": ms})
+        for key, ms in plain.items():
+            s.note(key, **{f"qary{n}_plain_ms": ms})
+        out[f"n{n}"] = {
+            "ok": n_ok, "n_pad": n_pad, "window": ops.window,
+            "wide": kc.wide_y(ops), "sigma": pre.sigma.item(),
+            "max_abs_y": {"b2": top[0], "b1": top[2], "b6": top[3]},
+            "max_abs_coeff_b5": float(pc.ring_coeffs(ops_p, pc.peikert_rounds(
+                ops_p, B, 1, seed=83)).abs().max()),
+            "counted_beyond_256": counted, "b1": b1, "b1_philox": b1_philox,
+            "b6": b6, "b2": dict(b2, steps=QARY_STEPS),
+            "b5": dict(b5, window=ops_p.window), "b5_philox": b5_philox,
+            "suite_shape_ms": times,
+            "suite_shape_plain_ms": plain}
+    return ok, out
 
 
 def check_fp32_route(s: Smoke):
@@ -1339,11 +1478,12 @@ def phase_kernel_vs_plain(s: Smoke):
 
     b5w_ok, b5_wide = check_b5_wide(s)
     b6_ok, b6 = check_b6(s)
+    qary_ok, qary = check_qary(s)
     fp32_ok, fp32 = check_fp32_route(s)
     b7_ok, b7 = check_b7(s)
     b8_ok, b8 = check_b8(s)
     ok = (b1_ok and b2_ok and b3_ok and b4_ok and b5_ok and b5w_ok and b6_ok
-          and fp32_ok and b7_ok and b8_ok)
+          and qary_ok and fp32_ok and b7_ok and b8_ok)
     emit({"phase": "kernel_vs_plain", "ok": ok, "chains": B, "dim": n,
           "window": W, "plain_allow_tf32": False,
           "b1": dict(b1, max_kernel_centre_err_over_sigma=centre_b1,
@@ -1366,12 +1506,12 @@ def phase_kernel_vs_plain(s: Smoke):
                      max_kernel_centre_err_over_r=b5_centre,
                      centre_gate=MAX_PEIKERT_CENTRE_ERR),
           "b5_philox": b5_philox, "b5_ntru1024": b5_wide, "b6": b6,
-          "b7": b7, "b8": b8,
+          "b1_b2_b5_b6_qary": qary, "b7": b7, "b8": b8,
           "oks": {"b1": b1_ok, "b1_b6_b7_fp32_route": fp32_ok,
                   "b2": b2_ok,
                   "b3": b3_ok, "b4": b4_ok, "b5": b5_ok,
-                  "b5_ntru1024": b5w_ok, "b6": b6_ok, "b7": b7_ok,
-                  "b8": b8_ok}})
+                  "b5_ntru1024": b5w_ok, "b6": b6_ok,
+                  "b1_b2_b5_b6_qary": qary_ok, "b7": b7_ok, "b8": b8_ok}})
     if not ok:
         fail("kernel_vs_plain", "kernel disagrees with its plain version")
     return s2, basis2
@@ -1713,48 +1853,68 @@ def phase_peikert(s: Smoke):
 
 # ---------------------------------------------------------------- suite
 def phase_suite(s: Smoke):
-    """experiments/benchmark.py run_benchmarks at dimensions 256 and 1024,
-    all four rows at their default 65,536 chains, 1 warm-up and 3 timed
-    runs (the NTRU keys of seed 42 from bench_cache/), then the direct row
-    at 16 and 64. One line per row."""
-    import torch
+    """experiments/benchmark.py run_benchmarks at BenchmarkConfig's default
+    dimensions (16, 64, 256, 1024), all four rows at their default 65,536
+    chains, 1 warm-up and 3 timed runs (the NTRU keys of seed 42 from
+    bench_cache/ at 256 and 1024, the LLL-reduced q-ary bases below), and
+    its reduction rows at 16, 64 and 256 on the native library. One line
+    per row."""
     from lattice_gaussian_mcmc_tpu_torch.experiments import benchmark
     from lattice_gaussian_mcmc_tpu_torch.experiments.configs import (
         BenchmarkConfig,
     )
+    from lattice_gaussian_mcmc_tpu_torch.reduction import native_available
+    if not native_available():
+        fail("suite", "the native reduction library did not build")
     s.reset_counts()
-    cfg = BenchmarkConfig(
-        output_dir=os.path.join(REPO, "suite_results"),
-        dimensions=SUITE_DIMS, cache_dir=os.path.join(REPO, "bench_cache"))
+    cfg = BenchmarkConfig(output_dir=os.path.join(REPO, "suite_results"),
+                          cache_dir=os.path.join(REPO, "bench_cache"))
+    t0 = time.perf_counter()
     payload = benchmark.run_benchmarks(cfg, device=s.dev)
-    rows = list(payload["sampling"])
-    for n in SUITE_DIRECT_DIMS:
-        rows.append(benchmark.bench_algorithm(
-            "direct", n, cfg, benchmark._row_seed(cfg, "direct"), s.dev))
-        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
     launches = s.counts()
     s.launches["suite"] = launches
+    rows = payload["sampling"]
     for r in rows:
         emit({"suite_row": r["algorithm"], "dim": r["dimension"],
               "chains": r["chains"], "window": r["window"],
-              "sigma": r["sigma"], "samples_per_s": r["samples_per_sec"],
+              "sigma": r["sigma"], "samples_per_run": r["samples_per_run"],
+              "samples_per_s": r["samples_per_sec"],
               "p50_s": r["p50_s"], "min_s": r["min_s"], "max_s": r["max_s"],
               "peak_allocated_bytes": r.get("device_peak_bytes_allocated"),
-              "norm2_over_dim_sigma2": r["norm2_over_dim_sigma2"]})
+              "norm2_over_dim_sigma2": r["norm2_over_dim_sigma2"],
+              "max_abs_coeff": r["max_abs_coeff"]})
+    for r in payload["reduction"]:
+        emit({"suite_reduction_row": r})
+    # the reduced q-ary bases behind the rows below 256 and the reduction
+    # rows, by digest, to compare across hosts (the library is built with
+    # -march=native)
+    from lattice_gaussian_mcmc_tpu_torch.tools import reduction_digest
+    emit({"suite_reduction_digests": reduction_digest.port_digests(),
+          "host": reduction_digest.host()})
     klein = [r for r in rows if (r["algorithm"], r["dimension"])
-             == ("klein", max(SUITE_DIMS))][0]
-    extra_ok = all(math.isfinite(r["samples_per_sec"])
-                   and r["samples_per_sec"] > 0 for r in rows)
-    ok = (payload["all_passed"] and extra_ok
+             == ("klein", 1024)][0]
+    qary = [r for r in rows if r["dimension"] < 256
+            and r["algorithm"] != "direct"]
+    red_ok = ([r["dimension"] for r in payload["reduction"]] == [16, 64, 256]
+              and all(r["native"] and math.isfinite(r["lll_s"])
+                      and math.isfinite(r["bkz20_s"])
+                      for r in payload["reduction"]))
+    ok = (payload["all_passed"] and len(rows) == 16 and red_ok
           and abs(klein["norm2_over_dim_sigma2"] - 1) < MAX_NORM_GAP
+          and all(abs(r["norm2_over_dim_sigma2"] - 1) < MAX_NORM_GAP
+                  for r in qary)
           and all(launches[k] > 0 for k in ("klein_ring", "klein_draw",
                                             "imhk_fused", "sample_zn_draws",
                                             "peikert_rounds")))
     emit({"phase": "suite", "ok": ok, "all_passed": payload["all_passed"],
-          "rows": len(rows), "dims": list(SUITE_DIMS),
-          "direct_dims": list(SUITE_DIRECT_DIMS),
+          "rows": len(rows), "dims": list(cfg.dimensions),
+          "reduction_rows": len(payload["reduction"]), "wall_s": wall,
           "klein_1024_norm2_over_dim_sigma2": klein["norm2_over_dim_sigma2"],
-          "not_run": payload["not_run"], "launches": launches,
+          "qary_norm2_over_dim_sigma2": {
+              f"{r['algorithm']}{r['dimension']}": r["norm2_over_dim_sigma2"]
+              for r in qary},
+          "launches": launches,
           "b1_max_abs_y": s.kc.klein_draw.max_abs_y,
           "b2_max_abs_y": s.kc.imhk_fused.max_abs_y,
           "b6_max_abs_y": s.kc.klein_ring.max_abs_y, "card": s.card})
@@ -1895,6 +2055,106 @@ def phase_decode(s: Smoke):
           "launches": launches, "card": s.card})
     if not ok:
         fail("decode", "decoding failed its checks")
+
+
+# ---------------------------------------------------------------- decoding
+def phase_decoding(s: Smoke):
+    """experiments/decoding.py run_decoding at DecodingConfig's defaults
+    (LLL-reduced channel lattices of dimension 64 and 128, 64 targets at
+    six noise levels; Babai through B7, annealed Gibbs 48 sweeps x 24
+    chains, MHK 192 steps): its four gates and decodes/s per method. Then,
+    outside the counts, B7 on the same instances (the same numpy stream)
+    against the float64 nearest plane, up to counted ties."""
+    import numpy as np
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.experiments import decoding
+    from lattice_gaussian_mcmc_tpu_torch.ops import linalg
+    cfg = decoding.DecodingConfig(
+        output_dir=os.path.join(REPO, "suite_results", "decoding"))
+    s.reset_counts()
+    t0 = time.perf_counter()
+    out = decoding.run_decoding(cfg, device=s.dev)
+    wall = time.perf_counter() - t0
+    launches = s.counts()
+    s.launches["decoding"] = launches
+    rng = np.random.default_rng(cfg.seed)
+    ties = {}
+    for n in cfg.dimensions:
+        lat = decoding._channel_lattice(rng, n, s.dev)
+        basis = lat.basis.cpu().numpy()
+        min_gs = float(lat.gs_norms.min())
+        for rho in cfg.rho_grid:
+            xs = rng.integers(-cfg.symbol_range, cfg.symbol_range + 1,
+                              size=(cfg.n_targets, n)).astype(np.float64)
+            w = rng.normal(scale=rho * min_gs, size=(cfg.n_targets, n))
+            t = torch.as_tensor(xs @ basis.T + w).to(s.dev)
+            X = lat.nearest_plane(t)
+            Xo = linalg.babai_nearest_plane(lat.Q, lat.R, t)
+            ties[f"n{n}_rho{rho}"] = babai_ties(lat, t, X, Xo)
+    babai_ok = all(d == 0 or tie <= BABAI_TIE_TOL for d, tie in ties.values())
+    rates = {m: {f"n{r['n']}_rho{r['rho']}": r[f"decodes_per_sec_{m}"]
+                 for r in out["rows"]} for m in ("babai", "gibbs", "mhk")}
+    ok = (out["all_passed"] and babai_ok and launches["babai_decode"] > 0)
+    emit({"phase": "decoding", "ok": ok, "all_passed": out["all_passed"],
+          "gates": out["gates"], "dims": list(cfg.dimensions),
+          "targets": cfg.n_targets, "rhos": list(cfg.rho_grid),
+          "success": [{k: r[k] for k in ("n", "rho", "success_babai",
+                                         "success_gibbs", "success_mhk")}
+                      for r in out["rows"]],
+          "decodes_per_s": rates, "wall_s": wall,
+          "b7_vs_float64_differing_and_tie": ties,
+          "tie_tol": BABAI_TIE_TOL, "b7_y": s.kc.babai_y_stats(),
+          "launches": launches, "backend": out["backend"], "card": s.card})
+    if not ok:
+        fail("decoding", "run_decoding failed its gates or B7 its oracle")
+
+
+# -------------------------------------------------------------- validation
+def phase_validation(s: Smoke):
+    """experiments/klein_validation.py run_suite at its full budgets
+    (experiment 1 draws through B8) and experiments/convergence_study.py
+    run_study at ConvergenceConfig's defaults but CONVERGENCE_SAMPLES, on
+    the card: all_passed and the wall time of each. Their chains are the
+    plain per-row IMHK and Klein steps, one launch per row op."""
+    from lattice_gaussian_mcmc_tpu_torch.experiments import (
+        convergence_study,
+        klein_validation,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.experiments.configs import (
+        ConvergenceConfig,
+    )
+    s.reset_counts()
+    t0 = time.perf_counter()
+    val = klein_validation.run_suite(
+        output_dir=os.path.join(REPO, "suite_results", "klein_validation"),
+        device=s.dev)
+    wall_val = time.perf_counter() - t0
+    cfg = ConvergenceConfig(
+        output_dir=os.path.join(REPO, "suite_results", "convergence"),
+        n_samples=CONVERGENCE_SAMPLES)
+    t0 = time.perf_counter()
+    study = convergence_study.run_study(cfg, device=s.dev)
+    wall_study = time.perf_counter() - t0
+    launches = s.counts()
+    s.launches["validation"] = launches
+    ok = (val["all_passed"] and study["all_passed"]
+          and launches["sample_zn_draws"] > 0)
+    emit({"phase": "validation", "ok": ok,
+          "klein_validation": {k: {kk: v[kk] for kk in v
+                                   if kk != "block_rates"}
+                               for k, v in val.items() if isinstance(v, dict)},
+          "klein_validation_all_passed": val["all_passed"],
+          "klein_validation_wall_s": wall_val,
+          "convergence_all_passed": study["all_passed"],
+          "convergence_n_samples": cfg.n_samples,
+          "algorithm_comparison": study["algorithm_comparison"],
+          "dimension_scaling": study["dimension_scaling"],
+          "tvd_decay_last": study["tvd_decay"][-1],
+          "convergence_wall_s": wall_study, "launches": launches,
+          "card": s.card})
+    if not ok:
+        fail("validation", "the Klein validation suite or the convergence "
+             "study failed its gates")
 
 
 # ---------------------------------------------------------------- timing
@@ -2089,6 +2349,9 @@ def main():
     torch.cuda.empty_cache()
     phase_suite(s)
     phase_decode(s)
+    torch.cuda.empty_cache()
+    phase_decoding(s)
+    phase_validation(s)
     torch.cuda.empty_cache()
     phase_timing(s, sampler)
     kernels = kernels_line(s)

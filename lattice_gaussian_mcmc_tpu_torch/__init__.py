@@ -9,10 +9,14 @@ Ported so far: the rows of the reference's flagship benchmark — lattices,
 the Klein precomputation, IMHK (`IMHKSampler.sample_iid` and the trajectory
 `sample`), symmetric Metropolis-Klein (`MetropolisKleinSampler`), Peikert
 (`PeikertSampler`) and the MCMC diagnostics — and the benchmark suite's
-sampling rows (`experiments/benchmark.py`), Z^n (`identity_lattice`,
-`sample_zn`), `KleinSampler`, Babai and Gibbs decoding and the
-`UnifiedLatticeSampler` facade, with kernels B1-B8 (Klein draw, fused IMHK,
-IMHK trajectory, fused SMK, Peikert, Klein ring, Babai, Z^n).
+rows and reduction rows (`experiments/benchmark.py`), Z^n
+(`identity_lattice`, `sample_zn`), `KleinSampler`, Babai and Gibbs
+decoding and the `UnifiedLatticeSampler` facade, with kernels B1-B8 (Klein
+draw, fused IMHK, IMHK trajectory, fused SMK, Peikert, Klein ring, Babai,
+Z^n); lattice reduction (`reduction/`, host C++ built with g++ at first
+use), the rest of the lattice layer, the convergence, spectral and report
+diagnostics, and the experiments `experiments/decoding.py`,
+`klein_validation.py` and `convergence_study.py`.
 """
 
 __version__ = "0.1.0"

@@ -35,7 +35,12 @@
 //   16-byte load per lane, part and 16 x 16 tile), three passes over Y. Y
 //   holds integers, exact in bf16 for |y| <= 256 (hazard C8: a drawn
 //   |y| > 256 is counted into bad[0] and the wrapper raises; bad[1] keeps
-//   the largest |y| drawn).
+//   the largest |y| drawn). Fault C11: where the wrapper predicts draws
+//   beyond 256 (klein_cuda.py `wide_y`), the WIDE instantiation writes
+//   each proposal to yprop (n_pad, B) in float32 as well, flags the
+//   16-row tiles holding some |y| > 256, and multiplies their second and
+//   third bf16 parts too (imhk_tc_common.cuh `WideY`, B7's device code);
+//   an accepted proposal is copied from yprop. It counts nothing.
 // - For a 64-row block [lo, lo+64), its coupling to the rows j >= lo+64 is
 //   C = U[lo:lo+64, lo+64:] Y, a 64 x 32 x K product on mma.sync with FP32
 //   accumulation: each warp takes 32 rows, U's fragments stream from L2
@@ -79,21 +84,24 @@ namespace {
 constexpr int PASSES = PARTS;       // bf16 passes of the coupling (all)
 
 // DBG: step 0 also writes each row's centre to dbg[i, chain] and its draw
-// to dbg[n_pad + i, chain].
-template <int W, bool DBG>
+// to dbg[n_pad + i, chain]. WIDE: y's wide parts through yprop (fault
+// C11).
+template <int W, bool DBG, bool WIDE = false>
 __global__ void __launch_bounds__(TPB, 3)
     imhk_tc_kernel(TcOperands op, Uniforms un, float* __restrict__ x,
                    float* __restrict__ lw_state, float* __restrict__ acc,
                    float* __restrict__ tlw, float* __restrict__ tx,
-                   float* __restrict__ dbg, int* __restrict__ bad, int thin,
-                   long long B, int n_steps, uint32_t step0,
-                   uint32_t chain_offset) {
+                   float* __restrict__ dbg, float* yprop,
+                   int* __restrict__ bad, int thin, long long B, int n_steps,
+                   uint32_t step0, uint32_t chain_offset) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_pad = op.n_pad;
   unsigned char* ytile = smem;
   float* ct = reinterpret_cast<float*>(smem + (size_t)n_pad * Y_ROW);
   int* accepted = reinterpret_cast<int*>(ct + NC * CT_STRIDE);
   const uint32_t ysm = (uint32_t)__cvta_generic_to_shared(ytile);
+  // WIDE: a byte a 16-row tile, set where the tile holds some |y| > 256
+  unsigned char* big = smem + tc_smem_bytes(n_pad);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int cl = tid >> 1, h = tid & 1;   // chain of the block, half
@@ -102,6 +110,7 @@ __global__ void __launch_bounds__(TPB, 3)
   const bool valid = chain < B;
   const uint32_t chain_id = chain_offset + (uint32_t)chain;
   float* crow = ct + cl * CT_STRIDE;
+  const WideY wide{big, yprop, B, chain0};
 
   float lw = valid ? lw_state[chain] : 0.0f;
   float a_cnt = valid ? acc[chain] : 0.0f;
@@ -110,13 +119,19 @@ __global__ void __launch_bounds__(TPB, 3)
     const uint32_t step = step0 + (uint32_t)s;
     const long long row0 = (long long)s * (n_pad + ACCEPT_ROWS);
     double lwp = 0.0;
+    // a flag cleared here is set again only after the first barrier below
+    if constexpr (WIDE)
+      for (int k = tid; k < n_pad / SB; k += TPB) big[k] = 0;
     for (int lo = n_pad - RB; lo >= 0; lo -= RB) {
       __syncthreads();   // rows >= lo + 64 drawn; the tile is free
       {
         // the block's coupling to the rows drawn (rows >= lo + 64): warp w
         // takes its rows lo + 32w .. +31
         float cacc[2][4][4];
-        couple<PASSES>(op, ysm, cacc, lo, warp, lane);
+        if constexpr (WIDE)
+          couple<PASSES, false>(op, ysm, cacc, lo, warp, lane, wide);
+        else
+          couple<PASSES>(op, ysm, cacc, lo, warp, lane);
         store_ct(cacc, ct, warp, lane);
       }
       __syncthreads();
@@ -160,10 +175,15 @@ __global__ void __launch_bounds__(TPB, 3)
             lwp += (double)logz;
             if (h == 0) {
               *reinterpret_cast<unsigned short*>(ytile + y_off(i, cl)) =
-                  to_bf16_bits(y);
+                  WIDE ? to_bf16_rn_bits(y) : to_bf16_bits(y);
               if (valid) {
                 ymax = fmaxf(ymax, fabsf(y));
-                if (fabsf(y) > EXACT_Y) atomicAdd(bad, 1);
+                if constexpr (WIDE) {
+                  yprop[(size_t)i * (size_t)B + (size_t)chain] = y;
+                  if (fabsf(y) > EXACT_Y) big[i / SB] = 1;
+                } else {
+                  if (fabsf(y) > EXACT_Y) atomicAdd(bad, 1);
+                }
               }
               if constexpr (DBG) {
                 if (s == 0 && valid) {
@@ -190,7 +210,10 @@ __global__ void __launch_bounds__(TPB, 3)
         }
         if (sb > 0) {
           __syncthreads();   // the sub-block's rows and centres written
-          sub_update<PASSES>(ad, ysm, ct, lo, sb, warp, lane);
+          if constexpr (WIDE)
+            sub_update<PASSES>(ad, ysm, ct, lo, sb, warp, lane, wide);
+          else
+            sub_update<PASSES>(ad, ysm, ct, lo, sb, warp, lane);
           __syncthreads();
         }
       }
@@ -222,8 +245,9 @@ __global__ void __launch_bounds__(TPB, 3)
           const size_t at = (size_t)i * (size_t)B + (size_t)ch;
           float v = 0.0f;
           if (took) {
-            v = from_bf16_bits(
-                *reinterpret_cast<const unsigned short*>(ytile + y_off(i, cc)));
+            v = WIDE ? yprop[at]
+                     : from_bf16_bits(*reinterpret_cast<const unsigned short*>(
+                           ytile + y_off(i, cc)));
             x[at] = v;
           }
           if (keep && tx != nullptr) {
@@ -241,32 +265,37 @@ __global__ void __launch_bounds__(TPB, 3)
   }
 }
 
-template <int W, bool DBG>
+// WIDE's flags follow the draw's shared memory, a byte a 16-row tile
+__host__ __device__ inline size_t imhk_smem_bytes(int n_pad, bool wide) {
+  return tc_smem_bytes(n_pad) + (wide ? (size_t)(n_pad / SB) : 0);
+}
+
+template <int W, bool DBG, bool WIDE>
 int launch(const TcOperands& op, const Uniforms& un, float* x, float* lw,
-           float* acc, float* tlw, float* tx, float* dbg, int* bad, int thin,
-           long long B, int n_steps, uint32_t step, uint32_t chain_offset,
-           cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes(op.n_pad);
+           float* acc, float* tlw, float* tx, float* dbg, float* yprop,
+           int* bad, int thin, long long B, int n_steps, uint32_t step,
+           uint32_t chain_offset, cudaStream_t stream) {
+  const size_t smem = imhk_smem_bytes(op.n_pad, WIDE);
   cudaError_t e = cudaFuncSetAttribute(
-      imhk_tc_kernel<W, DBG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      imhk_tc_kernel<W, DBG, WIDE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((B + NC - 1) / NC));
-  imhk_tc_kernel<W, DBG><<<grid, TPB, smem, stream>>>(
-      op, un, x, lw, acc, tlw, tx, dbg, bad, thin, B, n_steps, step,
+  imhk_tc_kernel<W, DBG, WIDE><<<grid, TPB, smem, stream>>>(
+      op, un, x, lw, acc, tlw, tx, dbg, yprop, bad, thin, B, n_steps, step,
       chain_offset);
   return (int)cudaGetLastError();
 }
 
-template <bool DBG>
+template <bool DBG, bool WIDE = false>
 int launch_by_window(const TcOperands& op, const Uniforms& un, float* x,
                      float* lw, float* acc, float* tlw, float* tx,
-                     float* dbg, int* bad, int thin, long long B,
-                     int n_steps, uint32_t step, uint32_t chain_offset,
-                     cudaStream_t st) {
-#define CALL(W)                                                            \
-  launch<W, DBG>(op, un, x, lw, acc, tlw, tx, dbg, bad, thin, B, n_steps, \
-                 step, chain_offset, st)
+                     float* dbg, float* yprop, int* bad, int thin,
+                     long long B, int n_steps, uint32_t step,
+                     uint32_t chain_offset, cudaStream_t st) {
+#define CALL(W)                                                         \
+  launch<W, DBG, WIDE>(op, un, x, lw, acc, tlw, tx, dbg, yprop, bad,    \
+                       thin, B, n_steps, step, chain_offset, st)
   switch (op.window) {
     case 8: return CALL(8);
     case 16: return CALL(16);
@@ -276,19 +305,20 @@ int launch_by_window(const TcOperands& op, const Uniforms& un, float* x,
 #undef CALL
 }
 
-template <int W>
+template <int W, bool WIDE>
 int info(int n_pad, int* out) {
   cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, imhk_tc_kernel<W, false>);
+  const auto kernel = imhk_tc_kernel<W, false, WIDE>;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = tc_smem_bytes(n_pad);
-  e = cudaFuncSetAttribute(imhk_tc_kernel<W, false>,
+  const size_t smem = imhk_smem_bytes(n_pad, WIDE);
+  e = cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return (int)e;
   int blocks = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, imhk_tc_kernel<W, false>, TPB, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, TPB,
+                                                    smem);
   if (e != cudaSuccess) return (int)e;
   out[0] = fa.numRegs;
   out[1] = (int)fa.localSizeBytes;
@@ -308,37 +338,57 @@ extern "C" {
 // (n_steps * (n_pad + 8), B) or null. B3 writes lw every thin-th step to
 // tlw (n_steps / thin, B) and, when tx is not null, the state to tx
 // (n_steps / thin * n_pad, B). bad: two ints, bad[0] incremented per drawn
-// |y| > 256, bad[1] raised to the largest drawn |y|. dbg: null, or (2 n_pad, B) for step 0's centres and draws.
+// |y| > 256, bad[1] raised to the largest drawn |y|. dbg: null, or
+// (2 n_pad, B) for step 0's centres and draws. yprop: null, or (n_pad, B)
+// float32 for the WIDE instantiation (fault C11: y's wide parts, nothing
+// counted into bad[0]); not with dbg.
 int imhk_tc_launch(const void* Ufrag, const float* UT, const float* cs,
                    const float* isg, const float* unif, float* x, float* lw,
-                   float* acc, float* tlw, float* tx, float* dbg, int* bad,
-                   int thin, int n_pad, long long B, int window, int n_steps,
-                   uint32_t seed_lo, uint32_t seed_hi, uint32_t step,
-                   uint32_t chain_offset, void* stream) {
+                   float* acc, float* tlw, float* tx, float* dbg,
+                   float* yprop, int* bad, int thin, int n_pad, long long B,
+                   int window, int n_steps, uint32_t seed_lo,
+                   uint32_t seed_hi, uint32_t step, uint32_t chain_offset,
+                   void* stream) {
   if (n_pad <= 0 || n_pad % RB != 0 || B <= 0 || window <= 0 ||
       n_steps <= 0 || thin <= 0 || bad == nullptr ||
-      (tx != nullptr && tlw == nullptr))
+      (tx != nullptr && tlw == nullptr) ||
+      (yprop != nullptr && dbg != nullptr))
     return (int)cudaErrorInvalidValue;
   const TcOperands op{static_cast<const uint4*>(Ufrag), UT, cs, isg, n_pad,
                       window};
   const Uniforms un{unif, B, seed_lo, seed_hi};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dbg != nullptr)
-    return launch_by_window<true>(op, un, x, lw, acc, tlw, tx, dbg, bad,
-                                  thin, B, n_steps, step, chain_offset, st);
-  return launch_by_window<false>(op, un, x, lw, acc, tlw, tx, dbg, bad, thin,
-                                 B, n_steps, step, chain_offset, st);
+    return launch_by_window<true>(op, un, x, lw, acc, tlw, tx, dbg, yprop,
+                                  bad, thin, B, n_steps, step, chain_offset,
+                                  st);
+  if (yprop != nullptr)
+    return launch_by_window<false, true>(op, un, x, lw, acc, tlw, tx, dbg,
+                                         yprop, bad, thin, B, n_steps, step,
+                                         chain_offset, st);
+  return launch_by_window<false>(op, un, x, lw, acc, tlw, tx, dbg, yprop,
+                                 bad, thin, B, n_steps, step, chain_offset,
+                                 st);
 }
 
-// The kernel's resources for a window at n_pad: out[0] registers a thread,
-// out[1] local (spill) bytes a thread, out[2] dynamic shared memory a
-// block, out[3] blocks per SM, out[4] threads a block.
-int imhk_tc_info(int n_pad, int window, int* out) {
+// The kernel's resources (WIDE's when wide is not 0) for a window at
+// n_pad: out[0] registers a thread, out[1] local (spill) bytes a thread,
+// out[2] dynamic shared memory a block, out[3] blocks per SM, out[4]
+// threads a block.
+int imhk_tc_info(int n_pad, int window, int wide, int* out) {
+  if (wide) {
+    switch (window) {
+      case 8: return info<8, true>(n_pad, out);
+      case 16: return info<16, true>(n_pad, out);
+      case 24: return info<24, true>(n_pad, out);
+      default: return info<0, true>(n_pad, out);
+    }
+  }
   switch (window) {
-    case 8: return info<8>(n_pad, out);
-    case 16: return info<16>(n_pad, out);
-    case 24: return info<24>(n_pad, out);
-    default: return info<0>(n_pad, out);
+    case 8: return info<8, false>(n_pad, out);
+    case 16: return info<16, false>(n_pad, out);
+    case 24: return info<24, false>(n_pad, out);
+    default: return info<0, false>(n_pad, out);
   }
 }
 

@@ -45,7 +45,11 @@
 //   sub-block the pair adds U[rr, r] y_r in FP32. Hazard C8: y is exact in
 //   bf16 for |y| <= 256; a drawn |y| > 256 is counted into bad[0] and the
 //   wrapper (or the entry point that passed its guard) raises; bad[1]
-//   keeps the largest |y| drawn.
+//   keeps the largest |y| drawn. Fault C11: where the wrapper predicts
+//   draws beyond 256 (the LLL-reduced q-ary bases, klein_cuda.py
+//   `wide_y`), it takes the WIDE instantiation, which carries such y on
+//   their second and third bf16 parts as B7 does (below), reading them
+//   back from the round's rows of the ring, and counts nothing.
 // - Two threads draw each row (`draw_pair`, draw_row's arithmetic bit for
 //   bit), with the uniforms fetched a row pair ahead.
 // - B6's rounds run inside the block, which reuses its tiles; lw is summed
@@ -92,11 +96,13 @@ namespace {
 
 constexpr int PASSES = PARTS;       // bf16 passes of the coupling (all)
 
-// Babai's shared memory beyond the draw's: the staged 16 x 16 triangle
-// of U of a sub-block (1 KB), then a byte a 16-row tile
+// Shared memory beyond the draw's: B7's staged 16 x 16 triangle of U of
+// a sub-block (1 KB), then, for B7 and WIDE, a byte a 16-row tile
 constexpr int TRI_BYTES = SB * SB * sizeof(float);
-__host__ __device__ inline size_t babai_smem_bytes(int n_pad) {
-  return tc_smem_bytes(n_pad) + TRI_BYTES + (size_t)(n_pad / SB);
+__host__ __device__ inline size_t klein_smem_bytes(int n_pad, bool babai,
+                                                   bool wide) {
+  return tc_smem_bytes(n_pad) + (babai ? TRI_BYTES : 0) +
+         ((babai || wide) ? (size_t)(n_pad / SB) : 0);
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t saddr, const void* g) {
@@ -152,7 +158,8 @@ __device__ __forceinline__ void store_ct_centred(
 // RING: n_rounds rounds (B6), else one (B1). DBG: each round's centres
 // also go to dbg (n_rounds n_pad, B), beside the ring. BABAI: B7 on the
 // centres ctin (n_pad, B), one round, no draw (W, RING, DBG unused).
-template <int W, bool RING, bool DBG, bool BABAI = false>
+// WIDE: B1/B6 with y's wide parts (fault C11).
+template <int W, bool RING, bool DBG, bool BABAI = false, bool WIDE = false>
 __global__ void __launch_bounds__(TPB, 3)
     klein_tc_kernel(TcOperands op, Uniforms un,
                     const float* __restrict__ ctin, float* yout,
@@ -172,16 +179,14 @@ __global__ void __launch_bounds__(TPB, 3)
   const uint32_t chain_id = chain_offset + (uint32_t)chain;
   float* crow = ct + cl * CT_STRIDE;
 
-  // B7: the staged triangle of U, the flags of the 16-row tiles holding
-  // some |y| > 256
+  // B7: the staged triangle of U; B7 and WIDE: the flags of the 16-row
+  // tiles holding some |y| > 256
+  constexpr bool WIDE_ON = BABAI || WIDE;
   const size_t tri_at = tc_smem_bytes(n_pad);
   const float* tri = reinterpret_cast<const float*>(smem + tri_at);
   const uint32_t trism = ysm + (uint32_t)tri_at;
-  unsigned char* big = smem + tri_at + TRI_BYTES;
+  unsigned char* big = smem + tri_at + (BABAI ? TRI_BYTES : 0);
   const long long chain0 = (long long)blockIdx.x * NC;
-  const WideY wide{big, yout, B, chain0};
-  if constexpr (BABAI)
-    for (int k = tid; k < n_pad / SB; k += TPB) big[k] = 0;
   int n_big = 0;
 
   float ymax = 0.0f;
@@ -189,6 +194,11 @@ __global__ void __launch_bounds__(TPB, 3)
   for (int rd = 0; rd < rounds; ++rd) {
     const uint32_t step = step0 + (uint32_t)rd;
     const long long row0 = (long long)rd * n_pad;
+    // the round's rows of y, where the wide parts are read back; a flag
+    // cleared here is set again only after the first barrier below
+    const WideY wide{big, yout + (size_t)row0 * (size_t)B, B, chain0};
+    if constexpr (WIDE_ON)
+      for (int k = tid; k < n_pad / SB; k += TPB) big[k] = 0;
     double lwp = 0.0;
     // row ih's uniform
     const auto fetch = [&](int ih) -> float {
@@ -208,7 +218,10 @@ __global__ void __launch_bounds__(TPB, 3)
           store_ct_centred(cacc, ct, ctin, B, chain0, lo, warp, lane);
           cp_async_wait_all();
         } else {
-          couple<PASSES>(op, ysm, cacc, lo, warp, lane);
+          if constexpr (WIDE)
+            couple<PASSES, false>(op, ysm, cacc, lo, warp, lane, wide);
+          else
+            couple<PASSES>(op, ysm, cacc, lo, warp, lane);
           store_ct(cacc, ct, warp, lane);
         }
       }
@@ -263,14 +276,14 @@ __global__ void __launch_bounds__(TPB, 3)
             }
             if (h == 0) {
               *reinterpret_cast<unsigned short*>(ytile + y_off(i, cl)) =
-                  BABAI ? to_bf16_rn_bits(y) : to_bf16_bits(y);
+                  WIDE_ON ? to_bf16_rn_bits(y) : to_bf16_bits(y);
               if (valid) {
                 const size_t at =
                     (size_t)(row0 + i) * (size_t)B + (size_t)chain;
                 yout[at] = y;
                 ymax = fmaxf(ymax, fabsf(y));
                 if (fabsf(y) > EXACT_Y) {
-                  if constexpr (BABAI) {
+                  if constexpr (WIDE_ON) {
                     big[i / SB] = 1;
                     ++n_big;
                   } else {
@@ -302,6 +315,8 @@ __global__ void __launch_bounds__(TPB, 3)
             tri_load(trism, op.UT, n_pad, lo + rlo - SB, tid);
             sub_update<PASSES, WideY>(ad, ysm, ct, lo, sb, warp, lane, wide);
             cp_async_wait_all();
+          } else if constexpr (WIDE) {
+            sub_update<PASSES>(ad, ysm, ct, lo, sb, warp, lane, wide);
           } else {
             sub_update<PASSES>(ad, ysm, ct, lo, sb, warp, lane);
           }
@@ -318,31 +333,30 @@ __global__ void __launch_bounds__(TPB, 3)
   }
 }
 
-template <int W, bool RING, bool DBG, bool BABAI = false>
+template <int W, bool RING, bool DBG, bool BABAI = false, bool WIDE = false>
 int launch(const TcOperands& op, const Uniforms& un, const float* ctin,
            float* y, float* lw, float* dbg, int* bad, long long B,
            int n_rounds, uint32_t step, uint32_t chain_offset,
            cudaStream_t stream) {
-  const size_t smem =
-      BABAI ? babai_smem_bytes(op.n_pad) : tc_smem_bytes(op.n_pad);
+  const size_t smem = klein_smem_bytes(op.n_pad, BABAI, WIDE);
   cudaError_t e = cudaFuncSetAttribute(
-      klein_tc_kernel<W, RING, DBG, BABAI>,
+      klein_tc_kernel<W, RING, DBG, BABAI, WIDE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((B + NC - 1) / NC));
-  klein_tc_kernel<W, RING, DBG, BABAI><<<grid, TPB, smem, stream>>>(
+  klein_tc_kernel<W, RING, DBG, BABAI, WIDE><<<grid, TPB, smem, stream>>>(
       op, un, ctin, y, lw, dbg, bad, B, n_rounds, step, chain_offset);
   return (int)cudaGetLastError();
 }
 
-template <bool RING, bool DBG>
+template <bool RING, bool DBG, bool WIDE = false>
 int launch_by_window(const TcOperands& op, const Uniforms& un, float* y,
                      float* lw, float* dbg, int* bad, long long B,
                      int n_rounds, uint32_t step, uint32_t chain_offset,
                      cudaStream_t st) {
 #define CALL(W)                                                          \
-  launch<W, RING, DBG>(op, un, nullptr, y, lw, dbg, bad, B, n_rounds,   \
-                       step, chain_offset, st)
+  launch<W, RING, DBG, false, WIDE>(op, un, nullptr, y, lw, dbg, bad, B, \
+                                    n_rounds, step, chain_offset, st)
   switch (op.window) {
     case 8: return CALL(8);
     case 16: return CALL(16);
@@ -352,13 +366,13 @@ int launch_by_window(const TcOperands& op, const Uniforms& un, float* y,
 #undef CALL
 }
 
-template <int W, bool RING, bool BABAI = false>
+template <int W, bool RING, bool BABAI = false, bool WIDE = false>
 int info(int n_pad, int* out) {
   cudaFuncAttributes fa;
-  const auto kernel = klein_tc_kernel<W, RING, false, BABAI>;
+  const auto kernel = klein_tc_kernel<W, RING, false, BABAI, WIDE>;
   cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = BABAI ? babai_smem_bytes(n_pad) : tc_smem_bytes(n_pad);
+  const size_t smem = klein_smem_bytes(n_pad, BABAI, WIDE);
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -374,13 +388,13 @@ int info(int n_pad, int* out) {
   return 0;
 }
 
-template <bool RING>
+template <bool RING, bool WIDE = false>
 int info_by_window(int n_pad, int window, int* out) {
   switch (window) {
-    case 8: return info<8, RING>(n_pad, out);
-    case 16: return info<16, RING>(n_pad, out);
-    case 24: return info<24, RING>(n_pad, out);
-    default: return info<0, RING>(n_pad, out);
+    case 8: return info<8, RING, false, WIDE>(n_pad, out);
+    case 16: return info<16, RING, false, WIDE>(n_pad, out);
+    case 24: return info<24, RING, false, WIDE>(n_pad, out);
+    default: return info<0, RING, false, WIDE>(n_pad, out);
   }
 }
 
@@ -394,19 +408,29 @@ extern "C" {
 // UT float32. unif: (n_rounds n_pad, B) or null for Philox (round r at
 // step + r). bad: two ints, bad[0] incremented per drawn |y| > 256, bad[1]
 // raised to the largest drawn |y|. dbg: null, or (n_rounds n_pad, B) for
-// each round's centres (the ring instantiation, any n_rounds).
+// each round's centres (the ring instantiation, any n_rounds). wide: take
+// the WIDE instantiation (y's wide parts, nothing counted into bad[0]);
+// not with dbg.
 int klein_tc_launch(const void* Ufrag, const float* UT, const float* cs,
                     const float* isg, const float* unif, float* y, float* lw,
                     float* dbg, int* bad, int n_pad, long long B, int window,
                     int n_rounds, uint32_t seed_lo, uint32_t seed_hi,
-                    uint32_t step, uint32_t chain_offset, void* stream) {
+                    uint32_t step, uint32_t chain_offset, int wide,
+                    void* stream) {
   if (n_pad <= 0 || n_pad % RB != 0 || B <= 0 || window <= 0 ||
-      n_rounds <= 0 || bad == nullptr)
+      n_rounds <= 0 || bad == nullptr || (wide && dbg != nullptr))
     return (int)cudaErrorInvalidValue;
   const TcOperands op{static_cast<const uint4*>(Ufrag), UT, cs, isg, n_pad,
                       window};
   const Uniforms un{unif, B, seed_lo, seed_hi};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide && n_rounds == 1)
+    return launch_by_window<false, false, true>(op, un, y, lw, dbg, bad, B,
+                                                1, step, chain_offset, st);
+  if (wide)
+    return launch_by_window<true, false, true>(op, un, y, lw, dbg, bad, B,
+                                               n_rounds, step, chain_offset,
+                                               st);
   if (dbg != nullptr)
     return launch_by_window<true, true>(op, un, y, lw, dbg, bad, B, n_rounds,
                                         step, chain_offset, st);
@@ -435,15 +459,17 @@ int babai_tc_launch(const void* Ufrag, const float* UT, const float* ct,
                                        static_cast<cudaStream_t>(stream));
 }
 
-// The resources of the kernel in mode 0 (B1), 1 (B6) or 2 (B7, any
-// window) for a window at n_pad: out[0] registers a thread, out[1] local
-// (spill) bytes a thread, out[2] dynamic shared memory a block, out[3]
-// blocks per SM, out[4] threads a block.
+// The resources of the kernel in mode 0 (B1), 1 (B6), 2 (B7, any
+// window), 3 (B1's WIDE) or 4 (B6's WIDE) for a window at n_pad: out[0]
+// registers a thread, out[1] local (spill) bytes a thread, out[2] dynamic
+// shared memory a block, out[3] blocks per SM, out[4] threads a block.
 int klein_tc_info(int n_pad, int window, int mode, int* out) {
   switch (mode) {
     case 0: return info_by_window<false>(n_pad, window, out);
     case 1: return info_by_window<true>(n_pad, window, out);
     case 2: return info<0, false, true>(n_pad, out);
+    case 3: return info_by_window<false, true>(n_pad, window, out);
+    case 4: return info_by_window<true, true>(n_pad, window, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -12,11 +12,22 @@ from lattice_gaussian_mcmc_tpu_torch.lattices.base import (  # noqa: F401
 )
 
 from lattice_gaussian_mcmc_tpu_torch.lattices.ntru import (  # noqa: F401
+    ducas_prest_bound,
     ntru_keygen,
     ntru_lattice,
     ntru_secret_basis,
+    verify_ntru_basis,
 )
 from lattice_gaussian_mcmc_tpu_torch.lattices.qary import (  # noqa: F401
+    dilithium_parameters,
+    estimate_bkz_security,
+    estimate_security_from_lattice,
     falcon_parameters,
+    hnf,
+    lattice_volume_qary,
+    lwe_lattice,
+    module_lattice,
+    qary_from_matrix,
     qary_lattice,
+    rlwe_lattice,
 )

@@ -319,3 +319,31 @@ def ntru_lattice(n: int, q: int = 12289, seed: int = 0, secret: bool = True,
         meta={"kind": "ntru", "q": int(key["q"]), "ring_n": int(key["n"]),
               "secret": secret},
         dtype=dtype, device=device)
+
+
+def ducas_prest_bound(n: int, q: int) -> float:
+    """Design bound on the max GS norm of a good NTRU secret basis:
+    ~1.17 sqrt(q) (reference checks max||b*|| vs sigma sqrt(2n),
+    ntru.py:724-747)."""
+    return 1.17 * math.sqrt(q)
+
+
+def verify_ntru_basis(key: Dict[str, np.ndarray]) -> Dict[str, bool]:
+    """Structural checks (reference verify_basis, ntru.py:749-801):
+    f G - g F = q, h f = g mod q, |det B| = q^n (via GS norms)."""
+    n, q = int(key["n"]), int(key["q"])
+    f = [int(c) for c in key["f"]]
+    g = [int(c) for c in key["g"]]
+    F = [int(c) for c in key["F"]]
+    G = [int(c) for c in key["G"]]
+    chk = np.array(_polymul_negacyclic(f, G, n), dtype=object) - np.array(
+        _polymul_negacyclic(g, F, n), dtype=object)
+    ok_solve = int(chk[0]) == q and all(int(c) == 0 for c in chk[1:])
+    ntt = NegacyclicNTT(n, q)
+    ok_h = bool(np.all(ntt.mul(key["h"], key["f"]) % q
+                       == np.asarray(key["g"]) % q))
+    B = ntru_secret_basis(key).astype(np.float64)
+    sign, logdet = np.linalg.slogdet(B)
+    ok_det = abs(logdet - n * math.log(q)) < 1e-6 * n * math.log(q) + 1e-6
+    return {"ntru_solve": ok_solve, "public_key": ok_h,
+            "determinant": bool(ok_det)}

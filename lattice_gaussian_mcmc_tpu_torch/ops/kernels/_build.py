@@ -90,14 +90,15 @@ _SIGNATURES = {
     },
     "klein_tc": {
         "klein_tc_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _LL, _I,
-                            _I, _U32, _U32, _U32, _U32, _P],
+                            _I, _U32, _U32, _U32, _U32, _I, _P],
         "babai_tc_launch": [_P, _P, _P, _P, _P, _I, _LL, _P],
         "klein_tc_info": [_I, _I, _I, _P],
     },
     "imhk_tc": {
         "imhk_tc_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _LL, _I, _I, _U32, _U32, _U32, _U32, _P],
-        "imhk_tc_info": [_I, _I, _P],
+                           _P, _I, _I, _LL, _I, _I, _U32, _U32, _U32, _U32,
+                           _P],
+        "imhk_tc_info": [_I, _I, _I, _P],
     },
     "smk_tc": {
         "smk_tc_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -75,6 +75,8 @@ BLOCK = 128        # n is padded to a multiple of this
 ROW_BLOCK = 64     # rows per block of the backward substitution
 ACCEPT_ROWS = 8    # host-uniform rows per fused step beyond n_pad
 EXACT_Y = 256      # |y| up to which the bf16 draw tile is exact (hazard C8)
+# predicted standard deviations of a coefficient that `wide_y` covers
+WIDE_TAIL = 7.0
 # the largest n_pad whose draw tile fits one block's shared memory:
 # imhk_tc_common.cuh's tc_smem_bytes, 64 n_pad + 9,344 bytes, within the
 # 227 KB (232,448 bytes) a block of sm_90 may take, rounded down to a
@@ -181,6 +183,33 @@ def kernel_operands(pre: KleinPrecomp, dtype=torch.float32) -> KleinOperands:
     return KleinOperands(U=U, UT=U.T.contiguous(), cs=cs_eff.to(dtype),
                          isg=(1.0 / ppre.sigmas.to(torch.float64)).to(dtype),
                          shift=k.to(dtype), n=n_real, window=ppre.window)
+
+
+def wide_y(ops: KleinOperands) -> bool:
+    """Whether draws on `ops` are predicted to pass EXACT_Y (fault C11), so
+    that B1, B2 and B6 take their WIDE instantiations, which carry y's
+    second and third bf16 parts. A Klein draw's recentred coefficients are
+    about y = U^-1 (cs + z), z_i ~ N(0, sigma_i^2); the prediction is
+    max_i |mean_i| + WIDE_TAIL std_i + window / 2, in float64. It is kept
+    on `ops` with the versions of U, cs and isg, and made again once any of
+    them was changed in place. The LLL-reduced q-ary basis of the suite's
+    n = 64 row predicts ~2,800 (std up to ~400); NTRU-512 at FALCON's
+    sigma stays far below 256. A draw beyond the prediction on the narrow
+    instantiation still raises (hazard C8)."""
+    key = (ops.U._version, ops.cs._version, ops.isg._version)
+    kept = getattr(ops, "_wide_y", None)
+    if kept is None or kept[0] != key:
+        n = ops.n
+        U = ops.U[:n, :n].to(torch.float64)
+        eye = torch.eye(n, dtype=torch.float64, device=U.device)
+        Ui = torch.linalg.solve_triangular(U, eye, upper=True)
+        sig = 1.0 / ops.isg[:n].to(torch.float64)
+        mean = Ui @ ops.cs[:n].to(torch.float64)
+        std = torch.sqrt((Ui * Ui) @ (sig * sig))
+        top = float((mean.abs() + WIDE_TAIL * std).max())
+        kept = (key, top + ops.window / 2 > EXACT_Y)
+        ops._wide_y = kept
+    return kept[1]
 
 
 def to_kernel_layout(ops: KleinOperands, coeffs: torch.Tensor) -> torch.Tensor:
@@ -520,11 +549,12 @@ def _klein_launch(ops: KleinOperands, num_chains: int, n_rounds: int,
     route = klein_route(n_pad)
     if route == "klein_tc":
         check_cuda("bad", bad, (2,), torch.int32)
+        wide = dbg is None and wide_y(ops)
         rc = load(route).klein_tc_launch(
             ptr(tc_fragments(ops)), ptr(ops.UT), ptr(ops.cs), ptr(ops.isg),
             unif, ptr(ring), ptr(lws), ptr(dbg) if dbg is not None else None,
             ptr(bad), n_pad, num_chains, ops.window, n_rounds, k0, k1, step,
-            chain_offset, stream)
+            chain_offset, int(wide), stream)
     else:
         if dbg is not None:
             raise ValueError(f"{what}: the centres are written by the "
@@ -631,12 +661,13 @@ def klein_centres(ops: KleinOperands, num_chains: int, n_rounds: int = 1, *,
 
 
 # klein_tc.cu's kernel modes, as `klein_tc_info` numbers them
-KLEIN_TC_MODES = {"b1": 0, "b6": 1, "b7": 2}
+KLEIN_TC_MODES = {"b1": 0, "b6": 1, "b7": 2, "b1_wide": 3, "b6_wide": 4}
 
 
 def klein_tc_resources(n_pad: int, window: int, mode: str = "b1") -> dict:
-    """`klein_tc.cu`'s kernel in `mode` ("b1", "b6" or "b7", whose
-    instantiation takes no window) for `window` at n_pad on the current
+    """`klein_tc.cu`'s kernel in `mode` ("b1", "b6", "b7", whose
+    instantiation takes no window, or the WIDE instantiations "b1_wide" and
+    "b6_wide") for `window` at n_pad on the current
     card: registers and local (spill) bytes a thread, dynamic shared memory
     and threads a block, and blocks resident per SM."""
     out = (ctypes.c_int * 5)()
@@ -747,13 +778,17 @@ def _imhk_tc_launch(ops: KleinOperands, x, lw, acc, n_steps: int, seed: int,
                    (n_steps * (ops.n_pad + ACCEPT_ROWS), B))
     lib = load("imhk_tc")
     k0, k1 = seed_key(seed)
+    # the WIDE instantiation's float32 proposals (fault C11)
+    yprop = (torch.empty_like(x) if dbg is None and wide_y(ops) else None)
     rc = lib.imhk_tc_launch(
         ptr(tc_fragments(ops)), ptr(ops.UT), ptr(ops.cs), ptr(ops.isg),
         ptr(uniforms) if uniforms is not None else None,
         ptr(x), ptr(lw), ptr(acc),
         ptr(tlw) if tlw is not None else None,
         ptr(tx) if tx is not None else None,
-        ptr(dbg) if dbg is not None else None, ptr(bad), thin, ops.n_pad, B,
+        ptr(dbg) if dbg is not None else None,
+        ptr(yprop) if yprop is not None else None, ptr(bad), thin, ops.n_pad,
+        B,
         ops.window, n_steps, k0, k1, step, chain_offset,
         ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
     raise_on("imhk_tc", rc, what)
@@ -844,12 +879,14 @@ def imhk_centres(ops: KleinOperands, x, lw, *, seed: int = 0,
     return dbg[:ops.n_pad], dbg[ops.n_pad:]
 
 
-def imhk_tc_resources(n_pad: int, window: int) -> dict:
-    """B2/B3's kernel for `window` at n_pad on the current card: registers
-    and local (spill) bytes a thread, dynamic shared memory and threads a
-    block, and blocks resident per SM."""
+def imhk_tc_resources(n_pad: int, window: int, wide: bool = False) -> dict:
+    """B2/B3's kernel (its WIDE instantiation with `wide`) for `window` at
+    n_pad on the current card: registers and local (spill) bytes a thread,
+    dynamic shared memory and threads a block, and blocks resident per
+    SM."""
     out = (ctypes.c_int * 5)()
-    raise_on("imhk_tc", load("imhk_tc").imhk_tc_info(n_pad, window, out),
+    raise_on("imhk_tc", load("imhk_tc").imhk_tc_info(n_pad, window,
+                                                      int(wide), out),
              "imhk_tc_info")
     return dict(zip(("registers", "local_bytes", "shared_bytes",
                      "blocks_per_sm", "threads"), list(out)))

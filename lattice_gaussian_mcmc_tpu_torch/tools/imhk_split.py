@@ -77,7 +77,7 @@ def main(steps: int) -> dict:
         a.record()
         rc = lib.imhk_tc_launch(
             p(frag), p(ops.UT), p(ops.cs), p(ops.isg), None, p(x), p(lw),
-            p(acc), None, None, None, p(bad), 1, ops.n_pad, CHAINS,
+            p(acc), None, None, None, None, p(bad), 1, ops.n_pad, CHAINS,
             ops.window, n_steps, k0, k1, 1, 0,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         b.record()

@@ -22,6 +22,13 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def synchronize(device: torch.device):
+    """Wait for the card's work on `device` (nothing to wait for on the
+    CPU), so that a host clock read after it covers the work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def check_backend(backend: str, device: torch.device):
     """A sampler's `backend`: "auto" runs the kernels on a card and their
     plain versions on the CPU; "cuda" raises unless the device is a card."""

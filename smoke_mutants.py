@@ -72,8 +72,12 @@ MUTANTS = {
     # B7's coupling to the rows decoded on U1 alone: one bf16 pass (C2)
     "b7_hi_only": ("klein_tc.cu", "couple<PASSES, false, WideY>(",
                    "couple<1, false, WideY>("),
-    # B7 without y's second and third bf16 parts: no tile is flagged
+    # B7 (and B1/B6's WIDE instantiations) without y's second and third
+    # bf16 parts: no tile is flagged
     "b7_no_wide": ("klein_tc.cu", "big[i / SB] = 1;", "big[i / SB] = 0;"),
+    # B2's WIDE instantiation without them (fault C11; the q-ary check at
+    # n = 64)
+    "b2_no_wide": ("imhk_tc.cu", "big[i / SB] = 1;", "big[i / SB] = 0;"),
     # B6 draws every round on step 0's Philox counters
     "ring_one_step": ("klein_tc.cu",
                       "const uint32_t step = step0 + (uint32_t)rd;",

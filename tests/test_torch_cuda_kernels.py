@@ -135,28 +135,51 @@ def test_b2_matches_plain_decisions_2d_hard_regime():
 
 @pytest.mark.cuda
 def test_b2_b3_raise_beyond_the_exact_range():
-    """Hazard C8: a proposal coefficient with |y| > 256 is not exact in
-    bf16, so the wrapper raises; near 200 it runs and reports the range."""
+    """Hazard C8: a proposal coefficient with |y| > 256 is not exact in the
+    narrow instantiation's bf16 tile, so the wrapper raises where the
+    operands predict narrow draws (`wide_y`) and a draw passes 256
+    (`far_operands`). Near 200 it runs and reports the range; a centre of
+    300 is predicted (fault C11) and runs on the WIDE instantiation."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    chains = 256
+
+    def state(ops):
+        return (torch.zeros(ops.n_pad, chains, device="cuda"),
+                torch.zeros(chains, device="cuda"),
+                torch.zeros(chains, device="cuda"))
+
     lat = lattice_from_basis(np.array([[1.0, 0.5], [0.0, 1.0]]),
                              device="cuda")
     ops = klein_cuda.kernel_operands(klein_precompute(lat, 0.35))
-    chains = 256
-    for centre, raises in ((200.0, False), (300.0, True)):
+    for centre, wide in ((200.0, False), (300.0, True)):
         ops.cs[0] = centre       # the recentred centre of row 0
-        x = torch.zeros(ops.n_pad, chains, device="cuda")
-        lw = torch.zeros(chains, device="cuda")
-        acc = torch.zeros(chains, device="cuda")
+        assert klein_cuda.wide_y(ops) == wide
+        x, lw, acc = state(ops)
         klein_cuda.reset_launch_counts()
-        if raises:
-            with pytest.raises(RuntimeError, match="C8"):
-                klein_cuda.imhk_fused(ops, x, lw, acc, 1, seed=1)
-            with pytest.raises(RuntimeError, match="C8"):
-                klein_cuda.imhk_trajectory(ops, x, lw, acc, 2, seed=1)
-        else:
-            klein_cuda.imhk_fused(ops, x, lw, acc, 1, seed=1)
-            assert 195 <= klein_cuda.imhk_fused.max_abs_y <= 205
+        klein_cuda.imhk_fused(ops, x, lw, acc, 1, seed=1)
+        assert centre - 5 <= klein_cuda.imhk_fused.max_abs_y <= centre + 5
+    far = klein_cuda.kernel_operands(klein_precompute(far_lattice(), 0.02))
+    far_centres(far)
+    x, lw, acc = state(far)
+    with pytest.raises(RuntimeError, match="C8"):
+        klein_cuda.imhk_fused(far, x, lw, acc, 1, seed=1)
+    with pytest.raises(RuntimeError, match="C8"):
+        klein_cuda.imhk_trajectory(far, x, lw, acc, 2, seed=1)
+
+
+def far_lattice():
+    """[[1, 1000], [0, 1]]: U's 1000 carries row 1's draw into row 0."""
+    return lattice_from_basis(np.array([[1.0, 1000.0], [0.0, 1.0]]),
+                              device="cuda")
+
+
+def far_centres(ops):
+    """Recentred centres (500, 0.5) at sigma 0.02: row 1 draws 0 or 1,
+    which puts row 0 at +-500, though row 0's predicted mean is 0 and its
+    spread ~20, so `wide_y` predicts narrow draws."""
+    ops.cs[0], ops.cs[1] = 500.0, 0.5
+    assert not klein_cuda.wide_y(ops)
 
 
 @pytest.mark.cuda
@@ -183,13 +206,12 @@ def test_b2_b3_raise_above_their_largest_n_pad():
 @pytest.mark.cuda
 def test_sample_reads_the_c8_guard_once():
     """The entry points pass one guard to every launch and raise from it
-    before they return."""
+    before they return, here on draws past 256 that the operands did not
+    predict (`far_centres`)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    lat = lattice_from_basis(np.array([[1.0, 0.5], [0.0, 1.0]]),
-                             device="cuda")
-    s = IMHKSampler(lat, 0.35, burn_in=3, device="cuda")
-    s.operands.cs[0] = 300.0     # every proposal's row 0 beyond |y| = 256
+    s = IMHKSampler(far_lattice(), 0.02, burn_in=3, device="cuda")
+    far_centres(s.operands)
     with pytest.raises(RuntimeError, match="IMHKSampler.sample_iid.*C8"):
         s.sample_iid(1, 256, return_coeffs=True)
     with pytest.raises(RuntimeError, match="IMHKSampler.sample.*C8"):
@@ -609,29 +631,31 @@ def test_b1_b6_centres_within_the_gate_of_float64():
 @pytest.mark.cuda
 def test_b1_b6_raise_beyond_the_exact_range():
     """Hazard C8 for B1 and B6: a drawn |y| > 256 is not exact in their
-    bf16 tile, so the wrapper (or the entry point, reading its one guard)
-    raises; near 200 they run and report the range."""
+    narrow bf16 tile, so the wrapper (or the entry point, reading its one
+    guard) raises where the operands predict narrow draws and a draw passes
+    256 (`far_centres`). Near 200 they run and report the range; a centre
+    of 300 is predicted (fault C11) and runs on the WIDE instantiation."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     lat = lattice_from_basis(np.array([[1.0, 0.5], [0.0, 1.0]]),
                              device="cuda")
-    ks = KleinSampler(lat, 0.35)
-    ops = ks.operands
-    for centre, raises in ((200.0, False), (300.0, True)):
+    ops = KleinSampler(lat, 0.35).operands
+    for centre, wide in ((200.0, False), (300.0, True)):
         ops.cs[0] = centre       # the recentred centre of row 0
+        assert klein_cuda.wide_y(ops) == wide
         klein_cuda.reset_launch_counts()
-        if raises:
-            with pytest.raises(RuntimeError, match="klein_draw.*C8"):
-                klein_cuda.klein_draw(ops, 256, seed=1)
-            with pytest.raises(RuntimeError, match="klein_ring.*C8"):
-                klein_cuda.klein_ring(ops, 256, 2, seed=1)
-            with pytest.raises(RuntimeError, match="KleinSampler.*C8"):
-                ks.sample(1, 256)
-        else:
-            klein_cuda.klein_draw(ops, 256, seed=1)
-            klein_cuda.klein_ring(ops, 256, 2, seed=1)
-            assert 195 <= klein_cuda.klein_draw.max_abs_y <= 205
-            assert 195 <= klein_cuda.klein_ring.max_abs_y <= 205
+        klein_cuda.klein_draw(ops, 256, seed=1)
+        klein_cuda.klein_ring(ops, 256, 2, seed=1)
+        for wrapper in (klein_cuda.klein_draw, klein_cuda.klein_ring):
+            assert centre - 5 <= wrapper.max_abs_y <= centre + 5
+    ks = KleinSampler(far_lattice(), 0.02)
+    far_centres(ks.operands)
+    with pytest.raises(RuntimeError, match="klein_draw.*C8"):
+        klein_cuda.klein_draw(ks.operands, 256, seed=1)
+    with pytest.raises(RuntimeError, match="klein_ring.*C8"):
+        klein_cuda.klein_ring(ks.operands, 256, 2, seed=1)
+    with pytest.raises(RuntimeError, match="KleinSampler.*C8"):
+        ks.sample(1, 256)
 
 
 @pytest.mark.cuda
@@ -705,3 +729,40 @@ def test_b5_matches_plain_at_ntru1024():
     assert float((c[:n].double() - c64).abs().max()) / r <= 2e-3
     X = s.sample(9, B, return_coeffs=True)
     assert X.shape == (B, n) and bool(torch.isfinite(X).all())
+
+
+@pytest.mark.cuda
+def test_b1_b2_b6_wide_match_plain_on_the_reduced_qary_basis():
+    """Fault C11: on the LLL-reduced q-ary basis of the suite's n = 64 row
+    (window 104) ~5% of the drawn coefficients pass 256. The wrappers
+    predict it (`wide_y`) and take the WIDE instantiations, which carry y's
+    wide parts: B1, B6 and B2 match their plain versions there, and nothing
+    raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lattice_gaussian_mcmc_tpu_torch.experiments.benchmark import (
+        reduced_qary_lattice,
+    )
+    lat = reduced_qary_lattice(64, 42, "cuda")
+    pre = klein_precompute(lat, 1.5 * float(lat.gs_norms.max()),
+                           tail_budget=1e-2)
+    ops = klein_cuda.kernel_operands(pre)
+    assert ops.window == 104 and klein_cuda.wide_y(ops)
+    n, chains = ops.n, 2048
+    klein_cuda.reset_launch_counts()
+    y, lw = klein_cuda.klein_draw(ops, chains, seed=3)
+    yp, lwp = klein_cuda.klein_draw_plain(ops, chains, seed=3)
+    assert klein_cuda.klein_draw.max_abs_y > 256
+    same = (y[:n] == yp[:n]).all(dim=0)
+    assert 1 - same.float().mean().item() <= MAX_CHAINS_DIFFERING
+    torch.testing.assert_close(lw[same], lwp[same], atol=1e-3, rtol=0)
+    ring, lws = klein_cuda.klein_ring(ops, chains, 2, seed=3)
+    assert torch.equal(ring[:ops.n_pad], y) and torch.equal(lws[0], lw)
+    x, l, a = y.clone(), lw.clone(), torch.zeros_like(lw)
+    xp, lp, ap = y.clone(), lw.clone(), torch.zeros_like(lw)
+    klein_cuda.imhk_fused(ops, x, l, a, 4, seed=5, step=1)
+    klein_cuda.imhk_fused_plain(ops, xp, lp, ap, 4, seed=5, step=1)
+    same = (x[:n] == xp[:n]).all(dim=0)
+    assert 1 - same.float().mean().item() <= 4 * MAX_CHAINS_DIFFERING
+    assert float(a.sum()) > 0 and abs(float(a.sum()) - float(ap.sum())) \
+        <= 0.01 * float(ap.sum())

@@ -189,3 +189,21 @@ def test_exact_guard_raises_once_read():
     with pytest.raises(RuntimeError, match="entry: 3 drawn.*C8"):
         klein_cuda.check_exact(guard, "entry")
     klein_cuda.reset_launch_counts()
+
+
+def test_wide_y_is_made_again_after_an_in_place_change():
+    """Fault C11's prediction is kept on the operands and made again once
+    U, cs or isg was changed in place. On [[1, 1000], [0, 1]] at sigma
+    0.02, centres 0 predict narrow draws and a row-0 centre of 300 wide
+    ones; centres (500, 0.5) keep row 0's mean at 0 and predict narrow,
+    though the draws reach +-500 (the case the C8 guard catches)."""
+    lat = lattice_from_basis(np.array([[1.0, 1000.0], [0.0, 1.0]]),
+                             device="cpu")
+    ops = klein_cuda.kernel_operands(klein_precompute(lat, 0.02))
+    assert not klein_cuda.wide_y(ops)
+    ops.cs[0] = 300.0
+    assert klein_cuda.wide_y(ops)
+    ops.cs[0], ops.cs[1] = 500.0, 0.5
+    assert not klein_cuda.wide_y(ops)
+    y, _ = klein_cuda.klein_draw_plain(ops, 64, seed=1)
+    assert float(y[0].abs().max()) == 500.0
