@@ -40,7 +40,9 @@ convergence study. Phases, one JSON line each:
                    draw, on host uniforms and on Philox; B1, B2, B5 and
                    B6 on the suite's LLL-reduced q-ary operands at n = 16
                    and 64 (window 104, the WIDE instantiations: fault
-                   C11), with the largest |y| each drew
+                   C11), with the largest |y| each drew; B1 and B2 at
+                   the cli phase's shapes (Z^2048 at 2 eta, NTRU-512's
+                   adaptation start, the crypto rows that sample)
   law              2D hard regime: TVD to the enumerated target and the
                    stationary acceptance 0.9904 (IMHK), TVD of SMK; B8's
                    TVD to the exact pmf; B6's per-round moments in 2D;
@@ -75,6 +77,14 @@ convergence study. Phases, one JSON line each:
                    convergence_study.run_study at ConvergenceConfig's
                    defaults, its n_samples cut to 10,000: all_passed and
                    wall time
+  cli              the port's CLI (experiments/cli.py main) at its
+                   defaults on scaling (B1 draws up to Z^2048 at 65,536
+                   chains, B2), crypto (B1 + B2 on the identity,
+                   checkerboard, reduced q-ary and NTRU-64/256/512 rows),
+                   sensitivity (B1 + B2) and adaptation (B1 start, B4
+                   windows on NTRU-512 at 65,536 chains): exit 0, every
+                   experiment's gates, its launch counts against the draws
+                   and windows it made, and one line of its numbers
   timing           B1 and B2 against their plain versions at the flagship
                    shapes, B6-B8 at the suite's and the decode phase's
                    shapes, and every kernel's bound: its bytes and each
@@ -82,8 +92,8 @@ convergence study. Phases, one JSON line each:
                    type (`bound`), beside the FP32-only figure
 
 Each path phase (flagship, hard_regime, smk, peikert, suite, decode,
-decoding, validation) sets every launch count to 0 before it runs and
-reads them after. Then the card's name and
+decoding, validation, and each experiment of cli) sets every launch count
+to 0 before it runs and reads them after. Then the card's name and
 power limit, a `kernels` line, and as the last line {"ok": true, "device":
 {...}}. Any failed check exits non-zero before the last line. Imports
 nothing of JAX.
@@ -244,6 +254,8 @@ FP32_ROUTE_ROUNDS = 2
 # B5 at NTRU-1024 (dimension 2048: n_pad above 1,792, 16 chains a block),
 # bench.py's Peikert row at BENCH_N = 1024
 PEIKERT_WIDE_RING = 1024
+# the cli phase: the port's CLI at its defaults, these experiments
+CLI_EXPERIMENTS = ("scaling", "crypto", "sensitivity", "adaptation")
 
 
 def emit(obj):
@@ -868,6 +880,98 @@ def check_qary(s: Smoke):
     return ok, out
 
 
+def check_cli_shapes(s: Smoke):
+    """B1 and B2 at the cli phase's shapes that the checks above do not
+    reach, on the blocked route's own operands (`blocked_operands`),
+    CHECK_CHAINS chains, each against its plain version on the caller's
+    uniforms and on Philox (the path's own numbers): B1 on Z^2048 at 2 eta
+    (the asymptotics' largest draw: W 56 on B1's run-time window loop, one
+    block an SM), B1 on NTRU-512 at max||b*_i|| (the adaptation's start),
+    and B1 then QARY_STEPS B2 steps on every crypto row that samples
+    (identity and checkerboard 64, the BKZ-20 q-ary 64, NTRU-64/256/512 at
+    the suite's sigma). check_qary's gates, with the largest |y| each
+    kernel drew and the count beyond 256 (hazard C8) from a guard of the
+    check's own."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.experiments import cryptographic
+    from lattice_gaussian_mcmc_tpu_torch.experiments.adaptation import (
+        AdaptationConfig,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.experiments.configs import (
+        CryptoConfig,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.lattices import (
+        identity_lattice,
+        ntru_lattice,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.lattices.base import (
+        smoothing_parameter,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.samplers import klein_precompute
+    from lattice_gaussian_mcmc_tpu_torch.samplers.klein_blocked import (
+        blocked_operands,
+    )
+    kc, dev, gen, B = s.kc, s.dev, s.gen, CHECK_CHAINS
+    z = identity_lattice(2048, device=dev)
+    ad = AdaptationConfig()
+    ntru = ntru_lattice(ad.ntru_n, q=ad.ntru_q, seed=ad.seed,
+                        cache_dir=os.path.join(REPO, ad.cache_dir),
+                        device=dev)
+    shapes = [("z2048_asymptotics", z, 2.0 * float(smoothing_parameter(z)),
+               0),
+              ("ntru512_adaptation_start", ntru,
+               ad.sigma_factor * float(torch.max(ntru.gs_norms)), 0)]
+    cfg = CryptoConfig(qary_dims=(64,),
+                       cache_dir=os.path.join(REPO, CryptoConfig.cache_dir))
+    for name, lat in cryptographic.build_lattice_suite(cfg, dev).items():
+        shapes.append((f"crypto_{name}", lat, cryptographic.suite_sigma(lat),
+                       QARY_STEPS))
+    out, ok = {}, True
+    for name, lat, sigma, steps in shapes:
+        pre = klein_precompute(lat, sigma)
+        if pre.clamped:                      # the driver skips the row
+            out[name] = {"window_clamped": True}
+            continue
+        ops = blocked_operands(pre)
+        n, n_pad = ops.n, ops.n_pad
+        guard = kc.exact_guard(dev)
+        u1 = torch.rand(n_pad, B, device=dev, generator=gen)
+        y, lw = kc.klein_draw(ops, B, uniforms=u1, guard=guard)
+        yp, lwp = kc.klein_draw_plain(ops, B, uniforms=u1)
+        res = {"b1": compare_draws(y, yp, lw, lwp, n)}
+        y, lw = kc.klein_draw(ops, B, seed=91, guard=guard)
+        yp, lwp = kc.klein_draw_plain(ops, B, seed=91)
+        res["b1_philox"] = compare_draws(y, yp, lw, lwp, n)
+        del u1, y, lw
+        if steps:
+            # both from the plain draw, as the drivers step from their draw
+            u2 = torch.rand(steps * (n_pad + kc.ACCEPT_ROWS), B, device=dev,
+                            generator=gen)
+            for key, kw in (("b2", {"uniforms": u2}),
+                            ("b2_philox", {"seed": 91, "step": 1})):
+                x, lx, ax = yp.clone(), lwp.clone(), torch.zeros_like(lwp)
+                xp, lxp, axp = yp.clone(), lwp.clone(), torch.zeros_like(lwp)
+                kc.imhk_fused(ops, x, lx, ax, steps, guard=guard, **kw)
+                kc.imhk_fused_plain(ops, xp, lxp, axp, steps, **kw)
+                res[key] = dict(compare_steps(x, xp, lx, lxp, ax, axp, n,
+                                              steps), steps=steps)
+            del u2, x, xp
+        top = guard[:, 1].tolist()     # rows: B2, B3, B1, B6
+        counted = int(guard[:, 0].sum())
+        n_ok = (all(draws_ok(r) for r in res.values()) and counted == 0
+                and all(r["accept_differing"] <= MAX_ACCEPT_SHARE
+                        and r["accept_differing_agreeing"] == 0
+                        for k, r in res.items() if k.startswith("b2")))
+        ok = ok and n_ok
+        out[name] = dict(res, ok=n_ok, dim=n, n_pad=n_pad, sigma=sigma,
+                         window=ops.window, wide=kc.wide_y(ops),
+                         route=kc.klein_route(n_pad),
+                         max_abs_y={"b1": top[2], "b2": top[0]},
+                         counted_beyond_256=counted)
+        del yp, lwp, ops, pre
+    return ok, out
+
+
 def check_fp32_route(s: Smoke):
     """B1, B6 and B7 above the tensor-core sweep's reach, where the
     wrappers take klein.cu's FP32 sweep: an upper-triangular basis of
@@ -1479,11 +1583,12 @@ def phase_kernel_vs_plain(s: Smoke):
     b5w_ok, b5_wide = check_b5_wide(s)
     b6_ok, b6 = check_b6(s)
     qary_ok, qary = check_qary(s)
+    cli_ok, cli_shapes = check_cli_shapes(s)
     fp32_ok, fp32 = check_fp32_route(s)
     b7_ok, b7 = check_b7(s)
     b8_ok, b8 = check_b8(s)
     ok = (b1_ok and b2_ok and b3_ok and b4_ok and b5_ok and b5w_ok and b6_ok
-          and qary_ok and fp32_ok and b7_ok and b8_ok)
+          and qary_ok and cli_ok and fp32_ok and b7_ok and b8_ok)
     emit({"phase": "kernel_vs_plain", "ok": ok, "chains": B, "dim": n,
           "window": W, "plain_allow_tf32": False,
           "b1": dict(b1, max_kernel_centre_err_over_sigma=centre_b1,
@@ -1506,12 +1611,14 @@ def phase_kernel_vs_plain(s: Smoke):
                      max_kernel_centre_err_over_r=b5_centre,
                      centre_gate=MAX_PEIKERT_CENTRE_ERR),
           "b5_philox": b5_philox, "b5_ntru1024": b5_wide, "b6": b6,
-          "b1_b2_b5_b6_qary": qary, "b7": b7, "b8": b8,
+          "b1_b2_b5_b6_qary": qary, "b1_b2_cli_shapes": cli_shapes,
+          "b7": b7, "b8": b8,
           "oks": {"b1": b1_ok, "b1_b6_b7_fp32_route": fp32_ok,
                   "b2": b2_ok,
                   "b3": b3_ok, "b4": b4_ok, "b5": b5_ok,
                   "b5_ntru1024": b5w_ok, "b6": b6_ok,
-                  "b1_b2_b5_b6_qary": qary_ok, "b7": b7_ok, "b8": b8_ok}})
+                  "b1_b2_b5_b6_qary": qary_ok,
+                  "b1_b2_cli_shapes": cli_ok, "b7": b7_ok, "b8": b8_ok}})
     if not ok:
         fail("kernel_vs_plain", "kernel disagrees with its plain version")
     return s2, basis2
@@ -2157,6 +2264,163 @@ def phase_validation(s: Smoke):
              "study failed its gates")
 
 
+# ---------------------------------------------------------------- cli
+def cli_expected_launches(results):
+    """The least launch counts of each experiment's kernels, from what it
+    did (its payload): one B1 launch a blocked draw, one B2 launch a
+    blocked step call, B4 one a window or probe, as the drivers make them
+    at their defaults."""
+    from lattice_gaussian_mcmc_tpu_torch.experiments.adaptation import (
+        AdaptationConfig,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.experiments.configs import (
+        ScalingConfig,
+    )
+    sc = ScalingConfig()
+    scaling_b1 = (4 * len(sc.dimensions)                     # throughput
+                  + len([d for d in sc.dimensions if d <= 128])  # 1/delta
+                  + 4                                        # condition
+                  + 2 * len(sc.n_chains_grid)                # parallel
+                  + 2 * len(sc.asymptotic_dims))             # asymptotics
+    crypto = results["crypto"]["results"]
+    evaluated = len([r for r in crypto["suite"].values()
+                     if "skipped" not in r])
+    sens = len(crypto["sigma_sensitivity"]) - 1      # less the gate row
+    sensitivity = results["sensitivity"]["results"]
+    sweep = len(sensitivity["sigma_sweep"]["rows"])
+    reduced = len([r for r in sensitivity["reduction_sensitivity"]
+                   if "skipped" not in r])
+    centres = len(sensitivity["center_sensitivity"])
+    windows = AdaptationConfig().n_windows
+    return {"scaling": {"klein_draw": scaling_b1, "imhk_fused": 4},
+            "crypto": {"klein_draw": evaluated + sens,
+                       "imhk_fused": evaluated + sens},
+            "sensitivity": {"klein_draw": sweep + reduced + centres,
+                            "imhk_fused": sweep},
+            "adaptation": {"klein_draw": 3, "smk_steps": windows + 2}}
+
+
+def phase_cli(s: Smoke):
+    """The port's CLI in-process at its defaults (not --quick):
+    `cli.main(["--experiments", scaling, crypto, sensitivity, adaptation,
+    "--output-dir", ...])` on the card. Checks exit 0, every experiment ok
+    in run_summary.json, and each experiment's own launch counts (every
+    count set to 0 before it and read after it) against the blocked draws,
+    step calls and SMK windows it made: a blocked route that ran a plain
+    version fails. One line: each experiment's wall seconds, the
+    asymptotics (samples/s, B1's route and resources, the exponent), the
+    adaptation (adapted width, acceptances, schedule, aggregate rate) and
+    the crypto rows with the reduced q-ary bases' digests (hazard C12)."""
+    import shutil
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.experiments import cli
+    out_dir = os.path.join(REPO, "suite_results", "cli")
+    shutil.rmtree(out_dir, ignore_errors=True)   # no merged old summary
+    results, per = {}, {}
+    run_experiment = cli.run_experiment
+
+    def counted(name, output_dir, quick, cpu):
+        s.reset_counts()
+        try:
+            r = run_experiment(name, output_dir, quick, cpu)
+            results[name] = r
+            return r
+        finally:
+            torch.cuda.synchronize()
+            per[name] = s.counts()
+
+    # the host's reduction seconds inside crypto and sensitivity
+    from lattice_gaussian_mcmc_tpu_torch.experiments import (
+        cryptographic,
+        parameter_sensitivity,
+    )
+    reduction_s = {"crypto": 0.0, "sensitivity": 0.0}
+    reducers = [(mod, name, getattr(mod, name), key)
+                for mod, key in ((cryptographic, "crypto"),
+                                 (parameter_sensitivity, "sensitivity"))
+                for name in ("lll_reduce", "bkz_reduce")]
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                reduction_s[key] += time.perf_counter() - t
+        return run
+
+    cwd = os.getcwd()
+    cli.run_experiment = counted
+    for mod, name, fn, key in reducers:
+        setattr(mod, name, timed(fn, key))
+    try:
+        os.chdir(REPO)    # the drivers read the NTRU keys of bench_cache/
+        t0 = time.perf_counter()
+        rc = cli.main(["--experiments", *CLI_EXPERIMENTS,
+                       "--output-dir", out_dir])
+        wall = time.perf_counter() - t0
+    finally:
+        cli.run_experiment = run_experiment
+        for mod, name, fn, _ in reducers:
+            setattr(mod, name, fn)
+        os.chdir(cwd)
+    s.launches["cli"] = {k: sum(c[k] for c in per.values())
+                         for k in s.counts()}
+    with open(os.path.join(out_dir, "run_summary.json")) as f:
+        summary = {r["experiment"]: r for r in json.load(f)}
+    ok = (rc == 0 and sorted(summary) == sorted(CLI_EXPERIMENTS)
+          and all(r["ok"] and r["gates_passed"] for r in summary.values())
+          and sorted(results) == sorted(CLI_EXPERIMENTS))
+    line = {"phase": "cli", "rc": rc, "wall_s": wall,
+            "summary": summary, "host_reduction_s": reduction_s,
+            "launches": per, "card": s.card}
+    if ok:
+        expected = cli_expected_launches(results)
+        line["expected_min_launches"] = expected
+        ok = all(per[e][k] >= n > 0 for e, want in expected.items()
+                 for k, n in want.items())
+        scaling = results["scaling"]["results"]
+        line["asymptotics"] = [
+            {k: r.get(k) for k in ("dimension", "window", "chains",
+                                   "samples_per_sec", "first_call_s",
+                                   "n_pad", "route", "kernel_resources",
+                                   "device_peak_bytes_allocated")}
+            for r in scaling["asymptotics"]]
+        line["complexity_exponent_fit"] = scaling["asymptotics"][-1][
+            "complexity_exponent_fit"]
+        line["complexity_gate"] = scaling["asymptotics"][-1][
+            "complexity_gate"]
+        line["throughput"] = scaling["throughput"]
+        ad = results["adaptation"]["results"]
+        line["adaptation"] = {k: ad[k] for k in (
+            "sigma_target", "rwm_optimal_scaling_start",
+            "sigma_prop_adapted", "acceptance_final",
+            "acceptance_at_2x_width", "acceptance_at_half_width",
+            "window_schedule", "samples_per_sec_aggregate",
+            "samples_per_sec_last_window", "gates", "backend")}
+        line["adaptation"]["history"] = [
+            {k: h[k] for k in ("sigma_prop", "acceptance", "window_steps",
+                               "window_s", "b4_window")}
+            for h in ad["history"]]
+        crypto = results["crypto"]["results"]
+        line["crypto_rows"] = {
+            name: {k: r.get(k) for k in (
+                "dimension", "window", "acceptance",
+                "coeff_std_over_expected", "window_clamped", "passed",
+                "basis_digest", "skipped")}
+            for name, r in crypto["suite"].items()}
+        line["crypto_sigma_sensitivity"] = crypto["sigma_sensitivity"]
+        line["sensitivity_phase_transition_at"] = results["sensitivity"][
+            "results"]["sigma_sweep"]["phase_transition_at"]
+        from lattice_gaussian_mcmc_tpu_torch.tools import reduction_digest
+        line["host"] = reduction_digest.host()
+    line["ok"] = ok
+    emit(line)
+    if not ok:
+        fail("cli", "the CLI run failed, or a blocked route did not launch "
+             "its kernels")
+
+
 # ---------------------------------------------------------------- timing
 def time_b6_b7_b8(s: Smoke):
     """B6, B7 and B8 by CUDA events at the suite's and the decode phase's
@@ -2352,6 +2616,8 @@ def main():
     torch.cuda.empty_cache()
     phase_decoding(s)
     phase_validation(s)
+    torch.cuda.empty_cache()
+    phase_cli(s)
     torch.cuda.empty_cache()
     phase_timing(s, sampler)
     kernels = kernels_line(s)

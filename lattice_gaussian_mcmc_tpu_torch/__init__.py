@@ -15,8 +15,11 @@ decoding and the `UnifiedLatticeSampler` facade, with kernels B1-B8 (Klein
 draw, fused IMHK, IMHK trajectory, fused SMK, Peikert, Klein ring, Babai,
 Z^n); lattice reduction (`reduction/`, host C++ built with g++ at first
 use), the rest of the lattice layer, the convergence, spectral and report
-diagnostics, and the experiments `experiments/decoding.py`,
-`klein_validation.py` and `convergence_study.py`.
+diagnostics, the sampler utilities, precision dispatch
+(`samplers/adaptive.py`) and sigma adaptation (`samplers/adaptation.py`),
+and the experiments `decoding`, `klein_validation`, `convergence_study`,
+`dimension_scaling`, `cryptographic`, `parameter_sensitivity` and
+`adaptation` with the `lattice-mcmc-torch` CLI (`experiments/cli.py`).
 """
 
 __version__ = "0.1.0"
@@ -36,5 +39,7 @@ from lattice_gaussian_mcmc_tpu_torch.samplers import (  # noqa: F401
     SMKSampler,
     UnifiedLatticeSampler,
     identity_lattice,
+    imhk_chain,
     klein_precompute,
+    klein_sample,
 )

@@ -68,6 +68,8 @@ class CryptoConfig(ExperimentConfig):
     n_samples: int = 20_000
     n_chains: int = 1024
     checkpoint_every: int = 5        # experiments between checkpoint writes
+    # the cached NTRU keys (the JAX package reads "bench_cache" too)
+    cache_dir: str = "bench_cache"
 
 
 @dataclass

@@ -31,3 +31,6 @@ from lattice_gaussian_mcmc_tpu_torch.lattices.qary import (  # noqa: F401
     qary_lattice,
     rlwe_lattice,
 )
+from lattice_gaussian_mcmc_tpu_torch.lattices.identity import (  # noqa: F401,E501
+    identity_lattice,
+)

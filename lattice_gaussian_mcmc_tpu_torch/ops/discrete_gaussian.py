@@ -72,11 +72,20 @@ def sample_dgauss(u, center, sigma, window: int = DEFAULT_WINDOW):
     center[..., None]), Gumbel noise g = -log(-log(max(u, tiny))),
     z = support[argmax(logits + g)]. Exact categorical sampling on the
     window, the JAX package's law."""
+    z, _ = sample_dgauss_with_logz(u, center, sigma, window)
+    return z
+
+
+def sample_dgauss_with_logz(u, center, sigma, window: int = DEFAULT_WINDOW):
+    """`sample_dgauss`'s Gumbel-max draw z from the uniforms u (..., W),
+    and log Z of the window, the value `log_partition_window` gives.
+    Returns (z, log_Z), z a float tensor of integer values."""
     support, logits = dgauss_logits(center, sigma, window)
     u = torch.as_tensor(u, dtype=logits.dtype, device=logits.device)
     u = torch.clamp(u, min=torch.finfo(logits.dtype).tiny)
     idx = torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
-    return torch.take_along_dim(support, idx[..., None], dim=-1)[..., 0]
+    z = torch.take_along_dim(support, idx[..., None], dim=-1)[..., 0]
+    return z, torch.logsumexp(logits, dim=-1)
 
 
 def sample_dgauss_inverse_cdf(u, center, sigma, window: int = DEFAULT_WINDOW):

@@ -108,7 +108,9 @@ def smk_operands(pre: KleinPrecomp, sigma_prop: float, dtype=torch.float32,
                  ) -> SMKOperands:
     """Operands of `pre` (the TARGET precomputation) with the proposal
     width `sigma_prop`. `klein_ops`, B1's operands of the same `pre`, are
-    reused when given."""
+    reused when given; on a card the result shares their U fragments
+    (`klein_cuda.tc_fragments`), so operands made again for another
+    sigma_prop do not pack U again."""
     n = pre.n
     sigma = float(pre.sigma)
     sigmas_prop = pre.sigmas.to(torch.float64) * (float(sigma_prop) / sigma)
@@ -121,9 +123,12 @@ def smk_operands(pre: KleinPrecomp, sigma_prop: float, dtype=torch.float32,
     sp[:n] = sigmas_prop.to(dev)
     wqt = torch.zeros(n_pad, dtype=torch.float64, device=dev)
     wqt[:n] = 1.0 / (pre.sigmas.to(torch.float64).to(dev) * math.sqrt(2.0))
-    return SMKOperands(U=kops.U, UT=kops.UT, cse=kops.cs,
-                       isgp=(1.0 / sp).to(dtype), wqt=wqt.to(dtype),
-                       shift=kops.shift, n=n, window=int(window))
+    ops = SMKOperands(U=kops.U, UT=kops.UT, cse=kops.cs,
+                      isgp=(1.0 / sp).to(dtype), wqt=wqt.to(dtype),
+                      shift=kops.shift, n=n, window=int(window))
+    if dev.type == "cuda":
+        ops._tc_fragments = klein_cuda.tc_fragments(kops)
+    return ops
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,7 @@ from lattice_gaussian_mcmc_tpu_torch.samplers.klein import (  # noqa: F401
     klein_points,
     klein_precomp_from_numpy,
     klein_precompute,
+    klein_sample,
     klein_sample_batch,
     suggest_window,
     suggest_window_budget,
@@ -36,6 +37,7 @@ from lattice_gaussian_mcmc_tpu_torch.samplers.peikert import (  # noqa: F401
     PeikertSampler,
     peikert_precomp_from_numpy,
     peikert_precompute,
+    peikert_sample,
     peikert_sample_batch,
 )
 from lattice_gaussian_mcmc_tpu_torch.samplers.gibbs import (  # noqa: F401
@@ -48,4 +50,9 @@ from lattice_gaussian_mcmc_tpu_torch.lattices.identity import (  # noqa: F401
 )
 from lattice_gaussian_mcmc_tpu_torch.samplers.unified import (  # noqa: F401
     UnifiedLatticeSampler,
+)
+from lattice_gaussian_mcmc_tpu_torch.samplers.adaptive import (  # noqa: F401
+    adaptive_klein_sample,
+    choose_precision,
+    f32_law_distortion_bound,
 )

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Optional
 
 import torch
@@ -34,6 +35,7 @@ from lattice_gaussian_mcmc_tpu_torch.samplers.klein import (
 from lattice_gaussian_mcmc_tpu_torch.utils.device import (
     check_backend,
     resolve_device,
+    synchronize,
 )
 from lattice_gaussian_mcmc_tpu_torch.utils.prng import (
     TAG_ACCEPT,
@@ -234,13 +236,20 @@ class IMHKSampler:
                         else self._auto_burn_in())
 
     def _auto_burn_in(self) -> int:
-        # quick MC gap estimate from a small Klein batch: kernel B1 on a
-        # card, the plain per-row draw on the CPU
+        # quick MC gap estimate from a small Klein batch
+        return estimate_burn_in(self.estimate_spectral_gap(0, 256))
+
+    def estimate_spectral_gap(self, seed: int, num_samples: int = 1000
+                              ) -> float:
+        """Monte-Carlo spectral gap (`spectral_gap_mc`) of num_samples Klein
+        log-weights at `seed`: kernel B1 on a card, the plain per-row draw
+        on the CPU."""
         if self.device.type == "cuda":
-            _, lw = klein_cuda.klein_draw(self.operands, 256, seed=0)
+            _, lw = klein_cuda.klein_draw(self.operands, num_samples,
+                                          seed=seed)
         else:
-            _, lw = klein_sample_batch(self.pre, 256, seed=0)
-        return estimate_burn_in(float(spectral_gap_mc(lw)))
+            _, lw = klein_sample_batch(self.pre, num_samples, seed=seed)
+        return float(spectral_gap_mc(lw))
 
     @property
     def operands(self) -> klein_cuda.KleinOperands:
@@ -329,6 +338,27 @@ class IMHKSampler:
         self._last_state = None
         return self._output(klein_cuda.from_kernel_layout(ops, x),
                             return_coeffs)
+
+    def diagnose_convergence(self, seed: int, num_samples: int = 1000
+                             ) -> dict:
+        """`sample(seed, num_samples)` (one chain: B1 start, B2 burn-in, B3
+        trajectory on a card), timed to its end, with its acceptance, the
+        spectral-gap estimate at seed + 1 and the points' moments."""
+        synchronize(self.device)
+        t0 = time.perf_counter()
+        pts = self.sample(seed, num_samples)
+        synchronize(self.device)
+        dt = time.perf_counter() - t0
+        return {
+            "acceptance_rate": self.acceptance_rate,
+            "spectral_gap_estimate": self.estimate_spectral_gap(
+                seed + 1, min(num_samples, 1000)),
+            "empirical_mean": torch.mean(pts, dim=0),
+            "empirical_std": torch.std(pts, dim=0, correction=0),
+            "theoretical_std": self.sigma * torch.ones(
+                self.lattice.n, dtype=pts.dtype, device=pts.device),
+            "samples_per_second": num_samples / dt,
+        }
 
 
 class MetropolisKleinSampler:

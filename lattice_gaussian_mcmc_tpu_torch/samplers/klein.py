@@ -176,6 +176,18 @@ def klein_sample_batch(pre: KleinPrecomp, num_samples: int, seed: int = 0,
     return X, lw
 
 
+def klein_sample(pre: KleinPrecomp, seed: int = 0, step: int = 0,
+                 chain: int = 0):
+    """One Klein draw: chain `chain` of `klein_sample_batch` at the same
+    seed and step (row c of a batch drawn from chain 0 is
+    `klein_sample(pre, seed, step, chain=c)`). Returns (coeffs (n,),
+    log_w scalar), log_w = sum_i log Z_i the IMHK log importance
+    weight."""
+    X, lw = klein_sample_batch(pre, 1, seed=seed, step=step,
+                               chain_offset=chain)
+    return X[0], lw[0]
+
+
 def klein_points(basis, coeffs):
     """Map integer coefficients to lattice points: basis @ x (batched)."""
     return coeffs.to(basis.dtype) @ basis.T

@@ -121,6 +121,12 @@ def peikert_sample_batch(pre: PeikertPrecomp, num_samples: int,
     return sample_dgauss(u, centers, pre.r, W)
 
 
+def peikert_sample(pre: PeikertPrecomp, seed: int = 0, chain: int = 0):
+    """One draw: chain `chain` of `peikert_sample_batch` at the same seed.
+    Returns integer-valued coefficients (n,)."""
+    return peikert_sample_batch(pre, 1, seed=seed, chain_offset=chain)[0]
+
+
 class PeikertSampler:
     """Peikert's sampler on one lattice, with its validity check
     sigma >= r s1(B). `sample` draws through kernel B5 on a card and its

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Check that `chip_smoke.py`'s kernel-vs-plain gates catch broken kernels.
 
-    python3 smoke_mutants.py
+    python3 smoke_mutants.py [NAME ...]
 
-For each mutant below, copies the checkout into a temporary directory,
-breaks one kernel source of `csrc/` there, runs `chip_smoke.py` on the card
-and requires it to fail in its `kernel_vs_plain` phase. Prints that phase's
-JSON line per mutant and exits non-zero if a mutant got through. Needs a CUDA card; never
-touches the checkout itself.
+For each mutant below (or each one named), copies the checkout into a temporary directory,
+breaks one file there, runs `chip_smoke.py` on the card and requires it to
+fail in the phase named for that mutant: a kernel source of `csrc/` in its
+`kernel_vs_plain` phase, a route of the Python package in the phase that
+drives it. Prints that phase's JSON line per mutant and exits non-zero if
+a mutant got through. Needs a CUDA card; never touches the checkout itself.
 """
 
 from __future__ import annotations
@@ -95,31 +96,72 @@ MUTANTS = {
 }
 
 
-def run_mutant(name, fname, old, new):
+# Mutants of the package's Python routes: (file, [(old, new), ...], the
+# phase that must fail)
+ROUTE_MUTANTS = {
+    # fault R1: the blocked route runs B1's and B2's plain versions on the
+    # card (the cli phase's launch counts)
+    "r1_blocked_plain": (
+        os.path.join("lattice_gaussian_mcmc_tpu_torch", "samplers",
+                     "klein_blocked.py"),
+        [("klein_cuda.klein_draw(ops,", "klein_cuda.klein_draw_plain(ops,"),
+         ("klein_cuda.imhk_fused(ops,", "klein_cuda.imhk_fused_plain(ops,")],
+        "cli"),
+}
+
+
+def edit_file(path, edits):
+    """Make the (old, new) `edits` in `path`, each old string found there
+    exactly once."""
+    with open(path) as f:
+        src = f.read()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise ValueError(f"edit site not found once in {path}: {old!r}")
+        src = src.replace(old, new)
+    with open(path, "w") as f:
+        f.write(src)
+
+
+def run_mutant(name, mutate, phase_name):
+    """Run the smoke on a copy of the checkout that `mutate(root)` broke;
+    caught if it exits non-zero with `phase_name`'s own line not ok."""
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "repo")
         shutil.copytree(REPO, root, ignore=shutil.ignore_patterns(
             ".git", "_build", "chiprun_out", "__pycache__"))
-        edited_sources(os.path.join(root, CSRC), fname, [(old, new)])
+        mutate(root)
         r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root,
-                           capture_output=True, text=True, timeout=900)
+                           capture_output=True, text=True, timeout=1200)
     phase = None
     for line in r.stdout.splitlines():
         if line.startswith("{"):
             obj = json.loads(line)
-            if obj.get("phase") == "kernel_vs_plain" and "ok" in obj \
+            if obj.get("phase") == phase_name and "ok" in obj \
                     and "error" not in obj:
                 phase = obj
     caught = r.returncode != 0 and phase is not None and not phase["ok"]
     print(json.dumps({"mutant": name, "caught": caught, "rc": r.returncode,
-                      "kernel_vs_plain": phase}), flush=True)
+                      phase_name: phase}), flush=True)
     return caught
 
 
-def main():
-    caught = [run_mutant(name, *edit) for name, edit in MUTANTS.items()]
+def main(names):
+    known = set(MUTANTS) | set(ROUTE_MUTANTS)
+    names = set(names) or known
+    if names - known:
+        raise SystemExit(f"unknown mutants: {sorted(names - known)}")
+    caught = [run_mutant(name, lambda root, f=fname, e=[(old, new)]:
+                         edited_sources(os.path.join(root, CSRC), f, e),
+                         "kernel_vs_plain")
+              for name, (fname, old, new) in MUTANTS.items()
+              if name in names]
+    caught += [run_mutant(name, lambda root, p=path, e=edits:
+                          edit_file(os.path.join(root, p), e), phase)
+               for name, (path, edits, phase) in ROUTE_MUTANTS.items()
+               if name in names]
     return 0 if all(caught) else 1
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -766,3 +766,101 @@ def test_b1_b2_b6_wide_match_plain_on_the_reduced_qary_basis():
     assert 1 - same.float().mean().item() <= 4 * MAX_CHAINS_DIFFERING
     assert float(a.sum()) > 0 and abs(float(a.sum()) - float(ap.sum())) \
         <= 0.01 * float(ap.sum())
+
+
+def _ntru16_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return ntru_lattice(16, seed=42, cache_dir=os.path.join(REPO,
+                                                            "bench_cache"),
+                        device="cuda")
+
+
+@pytest.mark.cuda
+def test_blocked_route_launches_b1_and_b2(monkeypatch):
+    """Repair R1: on CUDA tensors `klein_sample_batch_blocked` and
+    `imhk_steps_batch_blocked` launch B1 and B2 (one launch a call, on
+    operands built once for the precomputation), never the plain versions;
+    the draws agree with B1's plain version in float64 on the CPU."""
+    from lattice_gaussian_mcmc_tpu_torch.samplers import klein_blocked
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    lat = _ntru16_card()
+    pre = klein_precompute(lat, 1.2 * float(lat.gs_norms.max()))
+    monkeypatch.setattr(klein_cuda, "klein_draw_plain", plain)
+    monkeypatch.setattr(klein_cuda, "imhk_fused_plain", plain)
+    klein_cuda.reset_launch_counts()
+    X, lw = klein_blocked.klein_sample_batch_blocked(pre, B, seed=3)
+    X2, lw2, acc = klein_blocked.imhk_steps_batch_blocked(pre, X, lw, 6,
+                                                          seed=3, step=1)
+    assert klein_cuda.klein_draw.launches == 1
+    assert klein_cuda.imhk_fused.launches == 1
+    assert klein_blocked.blocked_operands(pre).U.dtype == torch.float32
+    assert X.is_cuda and X2.shape == (B, lat.n) and acc.dtype == torch.int32
+    assert 0 < int(acc.sum()) <= 6 * B
+    monkeypatch.undo()
+    Xp, lwp = klein_blocked.klein_sample_batch_blocked(pre.to("cpu"), B,
+                                                       seed=3)
+    same = (X.cpu() == Xp).all(dim=1)
+    assert 1 - same.double().mean().item() <= MAX_CHAINS_DIFFERING
+    torch.testing.assert_close(lw.cpu().double()[same], lwp[same],
+                               atol=LW_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_adapt_sigma_smk_launches_b4_on_disjoint_steps(monkeypatch):
+    """`adapt_sigma_smk` starts on B1 and runs one B4 launch a window, the
+    windows on consecutive, disjoint Philox step ranges, each history row
+    with the window B4 took; two windows at the same width from the same
+    state, at the first two windows' steps, give different acceptance
+    counts chain by chain (one stream replayed would give equal ones)."""
+    from lattice_gaussian_mcmc_tpu_torch.samplers import adaptation
+    lat = _ntru16_card()
+    sigma = float(lat.gs_norms.max())
+    calls = []
+    real = smk_cuda.smk_steps
+
+    def record(ops, x, acc, n_steps, **kw):
+        calls.append((kw["step"], n_steps))
+        return real(ops, x, acc, n_steps, **kw)
+
+    monkeypatch.setattr(smk_cuda, "smk_steps", record)
+    klein_cuda.reset_launch_counts()
+    smk_cuda.reset_launch_counts()
+    st = adaptation.adapt_sigma_smk(lat, sigma, n_windows=6, window_steps=4,
+                                    n_chains=4096, warmup_windows=3,
+                                    max_window_steps=16, seed=7)
+    assert klein_cuda.klein_draw.launches == 1
+    assert smk_cuda.smk_steps.launches == 6
+    assert calls == [(1, 4), (5, 4), (9, 4), (13, 16), (29, 16), (45, 16)]
+    assert st.coeffs.shape == (4096, lat.n) and st.coeffs.is_cuda
+    assert 0 < st.history[-1]["acceptance"] < 1
+    pre = klein_precompute(lat, sigma)
+    kops, x0, _ = adaptation._smk_start_card(pre, 4096, 7)
+    assert [h["b4_window"] for h in st.history] == [
+        smk_cuda.smk_operands(pre, h["sigma_prop"], klein_ops=kops).window
+        for h in st.history]
+    sops = smk_cuda.smk_operands(pre, st.sigma, klein_ops=kops)
+    accs = []
+    for step, k in calls[:2]:
+        x, acc = x0.clone(), torch.zeros(4096, device="cuda")
+        real(sops, x, acc, k, seed=7, step=step)
+        accs.append(acc)
+    assert (accs[0] != accs[1]).double().mean().item() > 0.2
+
+
+@pytest.mark.cuda
+def test_diagnose_convergence_runs_b1_b2_b3():
+    lat = _ntru16_card()
+    s = IMHKSampler(lat, 1.5 * float(lat.gs_norms.max()), burn_in=5,
+                    device="cuda")
+    klein_cuda.reset_launch_counts()
+    d = s.diagnose_convergence(3, 300)
+    assert klein_cuda.klein_draw.launches == 2     # the start, the gap
+    assert klein_cuda.imhk_fused.launches == 1     # the burn-in
+    assert klein_cuda.imhk_trajectory.launches == 1
+    assert 0 < d["acceptance_rate"] <= 1
+    assert 0 < d["spectral_gap_estimate"] <= 1
+    assert d["empirical_std"].shape == (lat.n,)
