@@ -85,6 +85,14 @@ convergence study. Phases, one JSON line each:
                    windows on NTRU-512 at 65,536 chains): exit 0, every
                    experiment's gates, its launch counts against the draws
                    and windows it made, and one line of its numbers
+  mesh             the port of parallel/: world size 1 under NCCL, the
+                   sharded flagship (B1 + 64 B2 steps, 524,288 chains)
+                   and Peikert row (B5) equal bit for bit to the
+                   unsharded routes; two gloo ranks on the card whose
+                   gathered digests equal world size 1's; the CLI's mesh
+                   experiment at its defaults; the dry run on 2 ranks;
+                   klein_scaling (B1), the Ising and GMRF models, a
+                   checkpoint round trip and the tables
   timing           B1 and B2 against their plain versions at the flagship
                    shapes, B6-B8 at the suite's and the decode phase's
                    shapes, and every kernel's bound: its bytes and each
@@ -92,8 +100,8 @@ convergence study. Phases, one JSON line each:
                    type (`bound`), beside the FP32-only figure
 
 Each path phase (flagship, hard_regime, smk, peikert, suite, decode,
-decoding, validation, and each experiment of cli) sets every launch count
-to 0 before it runs and reads them after. Then the card's name and
+decoding, validation, each experiment of cli, and each counted step of
+mesh) sets every launch count to 0 before it runs and reads them after. Then the card's name and
 power limit, a `kernels` line, and as the last line {"ok": true, "device":
 {...}}. Any failed check exits non-zero before the last line. Imports
 nothing of JAX.
@@ -256,6 +264,24 @@ FP32_ROUTE_ROUNDS = 2
 PEIKERT_WIDE_RING = 1024
 # the cli phase: the port's CLI at its defaults, these experiments
 CLI_EXPERIMENTS = ("scaling", "crypto", "sensitivity", "adaptation")
+# the mesh phase: the sharded paths (parallel/) at the flagship's and the
+# Peikert row's shapes at world size 1 under NCCL, two gloo ranks on the
+# card on half of RANK_CHAINS each (Peikert RANK_ROUNDS rounds a chain),
+# the CLI's mesh experiment, the dry run on 2 ranks and the modules with
+# no kernel of their own
+MESH_SEED = 11
+RANK_CHAINS = 65_536
+RANK_ROUNDS = 2
+RANK_TIMEOUT_S = 300
+KLEIN_SCALING_DIMS = (16, 32, 64, 128)
+KLEIN_SCALING_SAMPLES = 50_000
+KLEIN_SCALING_SEED = 42
+ISING_SHAPE = (1024, 1024)
+ISING_SWEEPS = 200
+ISING_BETA = 0.44
+GMRF_GRID = (64, 64)
+GMRF_SAMPLES = 256
+MAX_GMRF_QUAD_GAP = 0.01     # |E x^T Q x / n - 1|, x ~ N(0, Q^-1)
 
 
 def emit(obj):
@@ -880,18 +906,65 @@ def check_qary(s: Smoke):
     return ok, out
 
 
+def blocked_vs_plain(s: Smoke, pre, B, steps, philox, hard=False):
+    """B1 on the blocked route's own operands (`blocked_operands(pre)`), B
+    chains, then `steps` B2 steps from the plain draw (as the drivers step
+    from their draw), each against its plain version on the caller's
+    uniforms and on Philox (`philox`: the seed and the first chain).
+    check_qary's gates, B2 at a hard sigma held as in the 2D hard regime
+    (`hard_decisions_ok`), with the largest |y| each kernel drew and the
+    count beyond 256 (hazard C8) from a guard of the check's own.
+    Returns (ok, result)."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.samplers.klein_blocked import (
+        blocked_operands,
+    )
+    kc, dev, gen = s.kc, s.dev, s.gen
+    ops = blocked_operands(pre)
+    n, n_pad = ops.n, ops.n_pad
+    guard = kc.exact_guard(dev)
+    u1 = torch.rand(n_pad, B, device=dev, generator=gen)
+    y, lw = kc.klein_draw(ops, B, uniforms=u1, guard=guard)
+    yp, lwp = kc.klein_draw_plain(ops, B, uniforms=u1)
+    res = {"b1": compare_draws(y, yp, lw, lwp, n)}
+    y, lw = kc.klein_draw(ops, B, guard=guard, **philox)
+    yp, lwp = kc.klein_draw_plain(ops, B, **philox)
+    res["b1_philox"] = compare_draws(y, yp, lw, lwp, n)
+    del u1, y, lw
+    if steps:
+        u2 = torch.rand(steps * (n_pad + kc.ACCEPT_ROWS), B, device=dev,
+                        generator=gen)
+        for key, kw in (("b2", {"uniforms": u2}),
+                        ("b2_philox", dict(philox, step=1))):
+            x, lx, ax = yp.clone(), lwp.clone(), torch.zeros_like(lwp)
+            xp, lxp, axp = yp.clone(), lwp.clone(), torch.zeros_like(lwp)
+            kc.imhk_fused(ops, x, lx, ax, steps, guard=guard, **kw)
+            kc.imhk_fused_plain(ops, xp, lxp, axp, steps, **kw)
+            res[key] = dict(compare_steps(x, xp, lx, lxp, ax, axp, n,
+                                          steps), steps=steps)
+        del u2, x, xp
+    top = guard[:, 1].tolist()     # rows: B2, B3, B1, B6
+    counted = int(guard[:, 0].sum())
+    ok = (all(draws_ok(r) for r in res.values()) and counted == 0
+          and all(hard_decisions_ok(r, B) if hard else
+                  r["accept_differing"] <= MAX_ACCEPT_SHARE
+                  and r["accept_differing_agreeing"] == 0
+                  for k, r in res.items() if k.startswith("b2")))
+    return ok, dict(res, ok=ok, dim=n, chains=B, n_pad=n_pad,
+                    sigma=pre.sigma.item(), window=ops.window,
+                    wide=kc.wide_y(ops), route=kc.klein_route(n_pad),
+                    max_abs_y={"b1": top[2], "b2": top[0]},
+                    counted_beyond_256=counted)
+
+
 def check_cli_shapes(s: Smoke):
     """B1 and B2 at the cli phase's shapes that the checks above do not
-    reach, on the blocked route's own operands (`blocked_operands`),
-    CHECK_CHAINS chains, each against its plain version on the caller's
-    uniforms and on Philox (the path's own numbers): B1 on Z^2048 at 2 eta
+    reach (`blocked_vs_plain`, CHECK_CHAINS chains): B1 on Z^2048 at 2 eta
     (the asymptotics' largest draw: W 56 on B1's run-time window loop, one
     block an SM), B1 on NTRU-512 at max||b*_i|| (the adaptation's start),
     and B1 then QARY_STEPS B2 steps on every crypto row that samples
     (identity and checkerboard 64, the BKZ-20 q-ary 64, NTRU-64/256/512 at
-    the suite's sigma). check_qary's gates, with the largest |y| each
-    kernel drew and the count beyond 256 (hazard C8) from a guard of the
-    check's own."""
+    the suite's sigma)."""
     import torch
     from lattice_gaussian_mcmc_tpu_torch.experiments import cryptographic
     from lattice_gaussian_mcmc_tpu_torch.experiments.adaptation import (
@@ -908,10 +981,7 @@ def check_cli_shapes(s: Smoke):
         smoothing_parameter,
     )
     from lattice_gaussian_mcmc_tpu_torch.samplers import klein_precompute
-    from lattice_gaussian_mcmc_tpu_torch.samplers.klein_blocked import (
-        blocked_operands,
-    )
-    kc, dev, gen, B = s.kc, s.dev, s.gen, CHECK_CHAINS
+    dev = s.dev
     z = identity_lattice(2048, device=dev)
     ad = AdaptationConfig()
     ntru = ntru_lattice(ad.ntru_n, q=ad.ntru_q, seed=ad.seed,
@@ -932,43 +1002,67 @@ def check_cli_shapes(s: Smoke):
         if pre.clamped:                      # the driver skips the row
             out[name] = {"window_clamped": True}
             continue
-        ops = blocked_operands(pre)
-        n, n_pad = ops.n, ops.n_pad
-        guard = kc.exact_guard(dev)
-        u1 = torch.rand(n_pad, B, device=dev, generator=gen)
-        y, lw = kc.klein_draw(ops, B, uniforms=u1, guard=guard)
-        yp, lwp = kc.klein_draw_plain(ops, B, uniforms=u1)
-        res = {"b1": compare_draws(y, yp, lw, lwp, n)}
-        y, lw = kc.klein_draw(ops, B, seed=91, guard=guard)
-        yp, lwp = kc.klein_draw_plain(ops, B, seed=91)
-        res["b1_philox"] = compare_draws(y, yp, lw, lwp, n)
-        del u1, y, lw
-        if steps:
-            # both from the plain draw, as the drivers step from their draw
-            u2 = torch.rand(steps * (n_pad + kc.ACCEPT_ROWS), B, device=dev,
-                            generator=gen)
-            for key, kw in (("b2", {"uniforms": u2}),
-                            ("b2_philox", {"seed": 91, "step": 1})):
-                x, lx, ax = yp.clone(), lwp.clone(), torch.zeros_like(lwp)
-                xp, lxp, axp = yp.clone(), lwp.clone(), torch.zeros_like(lwp)
-                kc.imhk_fused(ops, x, lx, ax, steps, guard=guard, **kw)
-                kc.imhk_fused_plain(ops, xp, lxp, axp, steps, **kw)
-                res[key] = dict(compare_steps(x, xp, lx, lxp, ax, axp, n,
-                                              steps), steps=steps)
-            del u2, x, xp
-        top = guard[:, 1].tolist()     # rows: B2, B3, B1, B6
-        counted = int(guard[:, 0].sum())
-        n_ok = (all(draws_ok(r) for r in res.values()) and counted == 0
-                and all(r["accept_differing"] <= MAX_ACCEPT_SHARE
-                        and r["accept_differing_agreeing"] == 0
-                        for k, r in res.items() if k.startswith("b2")))
+        n_ok, out[name] = blocked_vs_plain(s, pre, CHECK_CHAINS, steps,
+                                           {"seed": 91})
         ok = ok and n_ok
-        out[name] = dict(res, ok=n_ok, dim=n, n_pad=n_pad, sigma=sigma,
-                         window=ops.window, wide=kc.wide_y(ops),
-                         route=kc.klein_route(n_pad),
-                         max_abs_y={"b1": top[2], "b2": top[0]},
-                         counted_beyond_256=counted)
-        del yp, lwp, ops, pre
+        del pre
+    return ok, out
+
+
+def check_mesh_shapes(s: Smoke):
+    """B1, B2 and B5 at the mesh phase's shapes that the checks above do
+    not reach, on the paths' own operands: B1 at every klein_scaling
+    dimension (its LLL-reduced random basis at 1.5 max||b*_i||,
+    KLEIN_SCALING_SAMPLES chains); B1, the kernel rows' KERNEL_STEPS B2
+    steps and PEIKERT_ROUNDS B5 rounds on the CLI card rows' n = 8
+    unit-triangular basis; the same on the dry run's n = 8 integer basis
+    at its hard sigma, where B2 rejects and Philox reads rank 1's chains.
+    B1/B2 by `blocked_vs_plain` (CHECK_CHAINS chains at n = 8); B5 against
+    its plain version on the caller's uniforms and normals and on Philox,
+    check_qary's gates."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.experiments import mesh_scaling
+    from lattice_gaussian_mcmc_tpu_torch.experiments.klein_scaling import (
+        stage_precompute,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.parallel import dryrun
+    pc, dev, gen = s.pc, s.dev, s.gen
+    card_pre, card_ops = mesh_scaling.kernel_row_problem(dev)
+    hard_pre, hard_ops = dryrun.hard_problem(dev)
+    # (name, Klein precomputation, chains, B2 steps, Peikert operands,
+    #  B5 rounds, Philox's first chain, B2 at a hard sigma)
+    shapes = [(f"klein_scaling_{n}", stage_precompute(n, KLEIN_SCALING_SEED,
+                                                      device=dev)[0],
+               KLEIN_SCALING_SAMPLES, 0, None, 0, 0, False)
+              for n in KLEIN_SCALING_DIMS]
+    shapes += [("cli_card_rows", card_pre, CHECK_CHAINS,
+                mesh_scaling.KERNEL_STEPS, card_ops,
+                mesh_scaling.PEIKERT_ROUNDS, 0, False),
+               ("dryrun_hard", hard_pre, CHECK_CHAINS, dryrun.KERNEL_STEPS,
+                hard_ops, dryrun.PEIKERT_ROUNDS,
+                dryrun.KERNEL_CHAINS_PER_RANK, True)]
+    out, ok = {}, True
+    for name, pre, B, steps, ops_p, rounds, offset, hard in shapes:
+        philox = {"seed": 92, "chain_offset": offset}
+        n_ok, res = blocked_vs_plain(s, pre, B, steps, philox, hard)
+        if rounds:
+            z = torch.randn(rounds * ops_p.n_pad, B, device=dev, generator=gen)
+            u5 = torch.rand(rounds * ops_p.n_pad, B, device=dev, generator=gen)
+            res["b5"] = compare_rings(
+                pc.peikert_rounds(ops_p, B, rounds, uniforms=u5, normals=z),
+                pc.peikert_rounds_plain(ops_p, B, rounds, uniforms=u5,
+                                        normals=z))
+            res["b5_philox"] = compare_rings(
+                pc.peikert_rounds(ops_p, B, rounds, **philox),
+                pc.peikert_rounds_plain(ops_p, B, rounds, **philox))
+            n_ok = n_ok and all(r["coeffs_differing"] <= MAX_COEFF_SHARE
+                                and r["ties_off_by_one"]
+                                for r in (res["b5"], res["b5_philox"]))
+            res["b5_shape"] = {"rounds": rounds, "n_pad": ops_p.n_pad,
+                               "window": ops_p.window}
+            del z, u5
+        ok = ok and n_ok
+        out[name] = dict(res, ok=n_ok, philox_chain_offset=offset)
     return ok, out
 
 
@@ -1584,11 +1678,12 @@ def phase_kernel_vs_plain(s: Smoke):
     b6_ok, b6 = check_b6(s)
     qary_ok, qary = check_qary(s)
     cli_ok, cli_shapes = check_cli_shapes(s)
+    mesh_ok, mesh_shapes = check_mesh_shapes(s)
     fp32_ok, fp32 = check_fp32_route(s)
     b7_ok, b7 = check_b7(s)
     b8_ok, b8 = check_b8(s)
     ok = (b1_ok and b2_ok and b3_ok and b4_ok and b5_ok and b5w_ok and b6_ok
-          and qary_ok and cli_ok and fp32_ok and b7_ok and b8_ok)
+          and qary_ok and cli_ok and mesh_ok and fp32_ok and b7_ok and b8_ok)
     emit({"phase": "kernel_vs_plain", "ok": ok, "chains": B, "dim": n,
           "window": W, "plain_allow_tf32": False,
           "b1": dict(b1, max_kernel_centre_err_over_sigma=centre_b1,
@@ -1612,13 +1707,15 @@ def phase_kernel_vs_plain(s: Smoke):
                      centre_gate=MAX_PEIKERT_CENTRE_ERR),
           "b5_philox": b5_philox, "b5_ntru1024": b5_wide, "b6": b6,
           "b1_b2_b5_b6_qary": qary, "b1_b2_cli_shapes": cli_shapes,
+          "b1_b2_b5_mesh_shapes": mesh_shapes,
           "b7": b7, "b8": b8,
           "oks": {"b1": b1_ok, "b1_b6_b7_fp32_route": fp32_ok,
                   "b2": b2_ok,
                   "b3": b3_ok, "b4": b4_ok, "b5": b5_ok,
                   "b5_ntru1024": b5w_ok, "b6": b6_ok,
                   "b1_b2_b5_b6_qary": qary_ok,
-                  "b1_b2_cli_shapes": cli_ok, "b7": b7_ok, "b8": b8_ok}})
+                  "b1_b2_cli_shapes": cli_ok,
+                  "b1_b2_b5_mesh_shapes": mesh_ok, "b7": b7_ok, "b8": b8_ok}})
     if not ok:
         fail("kernel_vs_plain", "kernel disagrees with its plain version")
     return s2, basis2
@@ -2421,6 +2518,308 @@ def phase_cli(s: Smoke):
              "its kernels")
 
 
+# ---------------------------------------------------------------- mesh
+def mesh_expected_launches():
+    """The least launches of the mesh phase's counted steps: the sharded
+    flagship (B1, B2) and Peikert row (B5) and the world-size-1 digests'
+    run (B1, B2, B5); the CLI's card rows, a warm-up and a timed run each
+    (B1 2, B2 2, B5 2); klein_scaling one B1 draw a dimension."""
+    return {"klein_draw": 1 + 1 + 2 + len(KLEIN_SCALING_DIMS),
+            "imhk_fused": 1 + 1 + 2, "peikert_rounds": 1 + 1 + 2}
+
+
+def phase_mesh(s: Smoke):
+    """The port of parallel/ on the card.
+    (a) World size 1 under NCCL: `sharded_imhk_blocked` on the flagship
+        (524,288 chains, sigma 165.7, 64 B2 steps) equal bit for bit to the
+        unsharded blocked route (coefficients, log-weights, accept counts),
+        its all-reduced acceptance equal to the local one; `sharded_peikert`
+        at the Peikert row (65,536 chains x 8 rounds) equal to
+        `peikert_rounds`, its pooled moments to the local ones; B1/B2 (the
+        route) and B5 by CUDA events beside the sharded calls.
+    (b) Two gloo ranks on the card (`parallel/_multihost_worker.py`), each
+        B1 + B2 and B5 on half of 65,536 flagship chains: the gathered
+        digests equal world size 1's (under (a)'s group).
+    (c) `cli.main(["--experiments", "mesh"])` at its defaults: exit 0 and
+        all_passed (card rows at world size 1 under NCCL, 1/2/4/8 gloo CPU
+        ranks, 1 and 2 processes).
+    (d) The dry run on 2 ranks (gloo, CUDA tensors).
+    (e) klein_scaling at dims 16-128 with 50,000 draws (B1), all_passed;
+        ising_sample at 1024 x 1024 for 200 sweeps; gmrf_sample on a
+        64 x 64 grid (E x^T Q x / n within 1%); a checkpoint round trip of
+        a 4,096-chain flagship state; generate_tables on the cli phase's
+        results. Every rank spawn has its own timeout."""
+    import traceback
+
+    import numpy as np
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.experiments import cli
+    from lattice_gaussian_mcmc_tpu_torch.experiments.klein_scaling import (
+        run_klein_scaling,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.experiments.reporting import (
+        generate_tables,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.models import (
+        gmrf_precision,
+        gmrf_sample,
+        ising_sample,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.parallel import (
+        _multihost_worker,
+        collectives,
+        dryrun,
+        runtime,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.parallel.mesh import all_reduce_sum
+    from lattice_gaussian_mcmc_tpu_torch.samplers import (
+        PeikertSampler,
+        klein_precompute,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.samplers.imhk import (
+        STEPS_PER_LAUNCH,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.samplers.klein_blocked import (
+        imhk_steps_batch_blocked,
+        klein_sample_batch_blocked,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.utils.checkpoint import (
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    kc, pc = s.kc, s.pc
+    C, T = FLAGSHIP_CHAINS, STEPS_PER_LAUNCH
+    out_dir = os.path.join(REPO, "suite_results", "mesh")
+    cache = os.path.join(REPO, "bench_cache")
+    total = {k: 0 for k in s.counts()}
+    line = {"phase": "mesh", "errors": {}, "seconds": {}}
+    checks = {}
+
+    def counted(fn):
+        """fn() on the main path: counts set to 0 before, read after."""
+        s.reset_counts()
+        try:
+            return fn()
+        finally:
+            torch.cuda.synchronize()
+            for k, v in s.counts().items():
+                total[k] += v
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        try:
+            fn()
+        except Exception:
+            line["errors"][name] = traceback.format_exc()[-3000:]
+            checks[name] = False
+        line["seconds"][name] = time.perf_counter() - t0
+
+    def world_1():
+        pre = klein_precompute(s.lat, FALCON_SIGMA, tail_budget=0.01)
+        sampler = PeikertSampler(s.lat, s.peikert_sigma()[0], device=s.dev)
+        ops = sampler.operands
+        # operands, fragments and guards built before the timed calls
+        X0, lw0 = klein_sample_batch_blocked(pre, CHECK_CHAINS, seed=1)
+        imhk_steps_batch_blocked(pre, X0, lw0, 1, seed=1, step=1)
+        pc.peikert_rounds(ops, CHECK_CHAINS, 1, seed=1)
+        runtime.init_runtime(f"tcp://127.0.0.1:{runtime.free_port()}", 1, 0,
+                             device=s.dev)
+        try:
+            m = runtime.global_mesh(s.dev)
+            line["world_1_backend"] = m.backend
+            # NCCL sets up its communicator at the group's first collective
+            t0 = time.perf_counter()
+            all_reduce_sum(torch.zeros(1, device=s.dev), m)
+            torch.cuda.synchronize()
+            line["group_setup_s"] = time.perf_counter() - t0
+            res = []
+
+            def unsharded():
+                r1, r2 = [], []
+                b1 = cuda_ms(lambda: r1.append(klein_sample_batch_blocked(
+                    pre, C, seed=MESH_SEED)))
+                X0, lw0 = r1.pop()
+                b2 = cuda_ms(lambda: r2.append(imhk_steps_batch_blocked(
+                    pre, X0, lw0, T, seed=MESH_SEED, step=1)))
+                return (b1, b2), r2.pop()
+
+            t0 = time.perf_counter()
+            ms = counted(lambda: cuda_ms(lambda: res.append(
+                collectives.sharded_imhk_blocked(pre, C, T, m,
+                                                 seed=MESH_SEED))))
+            wall = time.perf_counter() - t0
+            X, lw, acc, rate = res.pop()
+            # the unsharded route on the same seed, B1 then B2
+            (b1, b2), (Xu, lwu, accu) = unsharded()
+            local = float(np.float32(int(accu.sum())) / np.float32(C * T))
+            checks["flagship_equal"] = bool(
+                torch.equal(X, Xu) and torch.equal(lw, lwu)
+                and torch.equal(acc, accu))
+            checks["flagship_acceptance"] = (rate == local
+                                             and 0.99 < rate < 1.0)
+            line["flagship"] = {"chains": C, "steps": T, "sharded_ms": ms,
+                                "wall_s": wall,
+                                "samples_per_s": C * T / wall,
+                                "acceptance": rate, "local_acceptance": local,
+                                "b1_route_ms": b1, "b2_route_ms": b2}
+            s.note("B1", mesh_ms=b1)
+            s.note("B2", mesh_ms=b2)
+            state = {"coeffs": X[:CHECK_CHAINS].clone(),
+                     "log_w": lw[:CHECK_CHAINS].clone(), "step": T}
+            del X, lw, acc, Xu, lwu, accu
+            torch.cuda.empty_cache()
+            Bp, R = PEIKERT_CHAINS, PEIKERT_ROUNDS
+
+            def rounds():
+                ring = []
+                b5 = cuda_ms(lambda: ring.append(pc.peikert_rounds(
+                    ops, Bp, R, seed=MESH_SEED)))
+                return b5, pc.ring_coeffs(ops, ring.pop()).transpose(
+                    0, 1).reshape(Bp * R, ops.n)
+
+            t0 = time.perf_counter()
+            ms = counted(lambda: cuda_ms(lambda: res.append(
+                collectives.sharded_peikert(ops, Bp, m, R, seed=MESH_SEED))))
+            wall = time.perf_counter() - t0
+            Xp, mean, var = res.pop()
+            b5, want = rounds()
+            mean_l = want.sum(0, dtype=torch.float64) / (Bp * R)
+            var_l = (want.to(torch.float64).square_().sum(0) / (Bp * R)
+                     - mean_l * mean_l)
+            checks["peikert_equal"] = bool(
+                torch.equal(Xp, want) and torch.equal(mean, mean_l)
+                and torch.equal(var, var_l))
+            line["peikert"] = {"chains": Bp, "rounds": R, "sharded_ms": ms,
+                               "wall_s": wall,
+                               "samples_per_s": Bp * R / wall,
+                               "b5_ms": b5,
+                               "pooled_var_max": float(var.max())}
+            s.note("B5", mesh_ms=b5)
+            del Xp, want, mean, var
+            torch.cuda.empty_cache()
+            line["world_1_digests"] = counted(
+                lambda: _multihost_worker.run_paths(
+                    m, "ntru", RANK_CHAINS, T, RANK_ROUNDS,
+                    cache_dir=cache))
+        finally:
+            runtime.shutdown_runtime()
+        # (e) a checkpoint round trip of a flagship state
+        ck = os.path.join(out_dir, "checkpoint")
+        save_checkpoint(ck, state, T)
+        back, got_step = restore_checkpoint(ck, {
+            "coeffs": torch.zeros(1, device=s.dev),
+            "log_w": torch.zeros(1, device=s.dev), "step": 0})
+        checks["checkpoint"] = (got_step == T and back["step"] == T and all(
+            torch.equal(back[k], state[k]) for k in ("coeffs", "log_w")))
+
+    def two_ranks():
+        ranks = runtime.run_ranks(
+            "lattice_gaussian_mcmc_tpu_torch.parallel._multihost_worker", 2,
+            ["--device", s.dev.type, "--problem", "ntru", "--cache-dir", cache,
+             "--chains", RANK_CHAINS, "--steps", T, "--rounds", RANK_ROUNDS,
+             "--imhk-samples", 0], timeout=RANK_TIMEOUT_S)
+        one = line["world_1_digests"]
+        line["two_ranks"] = ranks
+        checks["two_ranks_digests"] = all(
+            r[p]["digest"] == one[p]["digest"]
+            for r in ranks for p in ("blocked", "peikert"))
+        checks["two_ranks_launched"] = all(
+            r["backend"] == "gloo" and r["device"].startswith(s.dev.type)
+            and r["launches"]["klein_draw"] > 0
+            and r["launches"]["imhk_fused"] > 0
+            and r["launches"]["peikert_rounds"] > 0 for r in ranks)
+
+    def cli_mesh():
+        import shutil
+        shutil.rmtree(os.path.join(out_dir, "cli"), ignore_errors=True)
+        rc = counted(lambda: cli.main(["--experiments", "mesh",
+                                       "--output-dir",
+                                       os.path.join(out_dir, "cli")]))
+        with open(os.path.join(out_dir, "cli", "mesh",
+                               "mesh_scaling.json")) as f:
+            payload = json.load(f)
+        line["cli"] = {"rc": rc, "all_passed": payload["all_passed"],
+                       "card_rows": payload["card_rows"],
+                       "cpu_rank_rows": {k: payload[k] for k in (
+                           "rows", "pallas_rows", "peikert_rows")},
+                       "process_rows": payload["process_rows"]}
+        checks["cli"] = rc == 0 and payload["all_passed"] is True
+
+    def dry_run():
+        line["dryrun"] = dryrun.dryrun_multichip(2, s.dev,
+                                                 timeout=RANK_TIMEOUT_S)
+        checks["dryrun"] = line["dryrun"]["n_ranks"] == 2
+
+    def rest():
+        t0 = time.perf_counter()
+        rows = counted(lambda: run_klein_scaling(
+            KLEIN_SCALING_DIMS, KLEIN_SCALING_SAMPLES, KLEIN_SCALING_SEED,
+            output_dir=os.path.join(out_dir, "klein_scaling"),
+            make_plots=False, device=s.dev))
+        line["klein_scaling"] = {
+            "wall_s": time.perf_counter() - t0,
+            "rows": [{k: r[k] for k in (
+                "dimension", "sigma", "marginal_tvd_last_coord", "passed",
+                "lll_s", "sample_s", "samples_per_sec")} for r in rows]}
+        checks["klein_scaling"] = all(r["passed"] for r in rows)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spins, energy, mag = ising_sample(ISING_SHAPE, ISING_BETA,
+                                          ISING_SWEEPS, seed=MESH_SEED,
+                                          device=s.dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        sites = ISING_SHAPE[0] * ISING_SHAPE[1]
+        line["ising"] = {"shape": ISING_SHAPE, "sweeps": ISING_SWEEPS,
+                         "beta": ISING_BETA, "wall_s": wall,
+                         "site_updates_per_s": sites * ISING_SWEEPS / wall,
+                         "energy_per_site": float(energy) / sites,
+                         "magnetization": float(mag)}
+        checks["ising"] = (bool(torch.isin(spins, spins.new_tensor(
+            [-1.0, 1.0])).all()) and -2.0 <= float(energy) / sites <= 0.0
+            and -1.0 <= float(mag) <= 1.0)
+        Q = gmrf_precision(GMRF_GRID, device=s.dev)
+        gen = torch.Generator(device=s.dev).manual_seed(MESH_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = gmrf_sample(Q, shape=(GMRF_SAMPLES,), generator=gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        quad = float(((x @ Q) * x).sum(1).mean()) / Q.shape[0]
+        line["gmrf"] = {"grid": GMRF_GRID, "samples": GMRF_SAMPLES,
+                        "wall_s": wall, "samples_per_s": GMRF_SAMPLES / wall,
+                        "quad_over_n": quad}
+        checks["gmrf"] = (bool(torch.isfinite(x).all())
+                          and abs(quad - 1) < MAX_GMRF_QUAD_GAP)
+        tables = generate_tables(os.path.join(REPO, "suite_results", "cli"),
+                                 os.path.join(out_dir, "tables"))
+        line["tables"] = [os.path.basename(t) for t in tables]
+        checks["tables"] = {"table_1_algorithm_comparison.tex",
+                            "table_4_sigma_sensitivity.tex",
+                            "table_5_scaling_analysis.tex"} <= set(
+                                line["tables"])
+
+    step("world_1", world_1)
+    if "world_1" not in line["errors"]:
+        step("two_ranks", two_ranks)
+    step("cli", cli_mesh)
+    step("dryrun", dry_run)
+    step("rest", rest)
+    s.launches["mesh"] = total
+    expected = mesh_expected_launches()
+    checks["launches"] = all(total[k] >= n > 0 for k, n in expected.items())
+    ok = all(checks.values()) and not line["errors"]
+    first = line.get("flagship", {})
+    line.update(ok=ok, checks=checks, launches=total,
+                expected_min_launches=expected,
+                samples_per_s=first.get("samples_per_s"),
+                wall_s=sum(line["seconds"].values()), card=s.card)
+    emit(line)
+    if not ok:
+        fail("mesh", "a sharded path disagreed with its unsharded route or "
+             "world size 1, or a step of the phase failed")
+
+
 # ---------------------------------------------------------------- timing
 def time_b6_b7_b8(s: Smoke):
     """B6, B7 and B8 by CUDA events at the suite's and the decode phase's
@@ -2618,6 +3017,8 @@ def main():
     phase_validation(s)
     torch.cuda.empty_cache()
     phase_cli(s)
+    torch.cuda.empty_cache()
+    phase_mesh(s)
     torch.cuda.empty_cache()
     phase_timing(s, sampler)
     kernels = kernels_line(s)

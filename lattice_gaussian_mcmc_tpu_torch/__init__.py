@@ -5,7 +5,8 @@ imports none of it and no JAX. Its kernels are hand-written CUDA for Hopper
 (`csrc/`), built with nvcc at first use. Entry points run on the CUDA card
 unless given `device="cpu"`, where the kernels' plain PyTorch versions run.
 
-Ported so far: the rows of the reference's flagship benchmark — lattices,
+It does everything the JAX package does: the rows of the reference's
+flagship benchmark — lattices,
 the Klein precomputation, IMHK (`IMHKSampler.sample_iid` and the trajectory
 `sample`), symmetric Metropolis-Klein (`MetropolisKleinSampler`), Peikert
 (`PeikertSampler`) and the MCMC diagnostics — and the benchmark suite's
@@ -17,9 +18,13 @@ Z^n); lattice reduction (`reduction/`, host C++ built with g++ at first
 use), the rest of the lattice layer, the convergence, spectral and report
 diagnostics, the sampler utilities, precision dispatch
 (`samplers/adaptive.py`) and sigma adaptation (`samplers/adaptation.py`),
-and the experiments `decoding`, `klein_validation`, `convergence_study`,
-`dimension_scaling`, `cryptographic`, `parameter_sensitivity` and
-`adaptation` with the `lattice-mcmc-torch` CLI (`experiments/cli.py`).
+the experiments `decoding`, `klein_validation`, `convergence_study`,
+`dimension_scaling`, `cryptographic`, `parameter_sensitivity`,
+`adaptation`, `mesh_scaling` and `klein_scaling` with the
+`lattice-mcmc-torch` CLI (`experiments/cli.py`) and the tables and figures
+(`experiments/reporting.py`), sharded chains on `torch.distributed`
+(`parallel/`), the GMRF, CAR and Ising models (`models/`), checkpoints,
+profiling and plots (`utils/`, `visualization/`).
 """
 
 __version__ = "0.1.0"

@@ -8,9 +8,10 @@ Usage:
 Every experiment runs in-process on the CUDA card; `--cpu` passes
 `device="cpu"` to every driver, which then runs the kernels' plain
 versions. Without `--cpu` and with no card, each experiment fails with
-`utils/device.resolve_device`'s error: there is no fallback. `mesh` waits
-for the port of `parallel/` (ROADMAP A15) and raises until then, so
-`--experiments all` exits 1.
+`utils/device.resolve_device`'s error: there is no fallback. `mesh`
+(`experiments/mesh_scaling.py`) measures its card rows at world size 1
+under NCCL and the reference's curve on 1, 2, 4 and 8 gloo CPU ranks;
+with `--cpu` every rank is a CPU rank.
 """
 
 from __future__ import annotations
@@ -100,9 +101,12 @@ def _dispatch(name: str, output_dir: str, quick: bool, device=None):
         out = run_suite(output_dir=os.path.join(output_dir, name),
                         quick=quick, device=device)
     elif name == "mesh":
-        raise NotImplementedError(
-            "the mesh experiment waits for the port of parallel/ "
-            "(ROADMAP A15)")
+        from lattice_gaussian_mcmc_tpu_torch.experiments.configs import (
+            ExperimentConfig,
+        )
+        from lattice_gaussian_mcmc_tpu_torch.experiments.mesh_scaling import run_mesh_scaling  # noqa: E501
+        out = run_mesh_scaling(ExperimentConfig(
+            output_dir=os.path.join(output_dir, name)), device=device)
     elif name == "benchmark":
         from lattice_gaussian_mcmc_tpu_torch.experiments.benchmark import (
             run_benchmarks,

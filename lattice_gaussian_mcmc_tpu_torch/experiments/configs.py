@@ -1,8 +1,8 @@
 """Typed experiment configuration (counterpart of the JAX package's
 `experiments/configs.py`). The kernels compute in float32 and the host QR
 in float64; neither is a setting here, so the JAX configs' `dtype` is not
-a field. `n_devices` waits for the port of `parallel/` and `save_samples`
-for the experiments that read it.
+a field. No JAX driver reads `n_devices` or `save_samples`, so they are
+not fields either (the mesh experiment's world sizes are its own).
 """
 
 from __future__ import annotations

@@ -1,12 +1,78 @@
-"""Memory statistics for the benchmark rows (the part of the JAX package's
-`utils/profiling.py` the suite needs): host peak RSS and the CUDA caching
-allocator's counters."""
+"""Sampling statistics, timing, tracing and cost counts (counterpart of the
+JAX package's `utils/profiling.py`): `SamplingStats`, `timed` (the clock
+read after the device is synchronised), `profile_trace` (a Chrome trace by
+`torch.profiler`), `memory_snapshot` (host peak RSS and the CUDA caching
+allocator's counters) and `compiled_cost` (FLOPs counted by
+`torch.utils.flop_counter`)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import contextlib
+import dataclasses
+import os
+import time
+from typing import Any, Dict, Optional
 
 import torch
+
+from lattice_gaussian_mcmc_tpu_torch.utils.device import synchronize
+
+
+@dataclasses.dataclass
+class SamplingStats:
+    """Samples, seconds, acceptance and ESS of a run, with the rates."""
+
+    samples_generated: int = 0
+    time_elapsed: float = 0.0
+    acceptance_rate: float = 0.0
+    ess: float = 0.0
+
+    @property
+    def samples_per_second(self) -> float:
+        return (self.samples_generated / self.time_elapsed
+                if self.time_elapsed else 0.0)
+
+    @property
+    def ess_per_second(self) -> float:
+        return self.ess / self.time_elapsed if self.time_elapsed else 0.0
+
+    def as_dict(self) -> Dict[str, float]:
+        return {**dataclasses.asdict(self),
+                "samples_per_second": self.samples_per_second,
+                "ess_per_second": self.ess_per_second}
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str] = None):
+    """`torch.profiler` over the block (CPU, and CUDA when a card is
+    present), its Chrome trace written to `log_dir/trace.json`; a no-op
+    when log_dir is None. Yields the profiler (None when off)."""
+    if log_dir is None:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+@contextlib.contextmanager
+def timed(stats: SamplingStats, n_samples: int, device=None):
+    """Add the block's wall seconds and n_samples to `stats`; the clock is
+    read after `device`'s work (a card's queue) is done, at both ends."""
+    device = torch.device(device) if device is not None else None
+    if device is not None:
+        synchronize(device)
+    t0 = time.perf_counter()
+    yield
+    if device is not None:
+        synchronize(device)
+    stats.time_elapsed += time.perf_counter() - t0
+    stats.samples_generated += n_samples
 
 
 def memory_snapshot() -> Dict[str, Any]:
@@ -30,3 +96,16 @@ def memory_snapshot() -> Dict[str, Any]:
         out["device_peak_bytes_allocated"] = stats.get(
             "allocated_bytes.all.peak", 0)
     return out
+
+
+def compiled_cost(fn, *args) -> Dict[str, Any]:
+    """FLOPs of one call `fn(*args)` as `torch.utils.flop_counter` counts
+    them (matrix products, convolutions, attention), under the JAX
+    package's keys; torch counts no bytes or transcendentals, so those
+    are None, and so are the FLOPs when it counted none."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        fn(*args)
+    flops = counter.get_total_flops()
+    return {"flops": flops or None, "bytes_accessed": None,
+            "transcendentals": None}

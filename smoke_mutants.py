@@ -107,6 +107,13 @@ ROUTE_MUTANTS = {
         [("klein_cuda.klein_draw(ops,", "klein_cuda.klein_draw_plain(ops,"),
          ("klein_cuda.imhk_fused(ops,", "klein_cuda.imhk_fused_plain(ops,")],
         "cli"),
+    # every rank runs chains from 0: the sharded paths drop the rank's
+    # chain_offset (the mesh phase's two-rank digests)
+    "mesh_no_offset": (
+        os.path.join("lattice_gaussian_mcmc_tpu_torch", "parallel",
+                     "collectives.py"),
+        [("return chains.start, len(chains)", "return 0, len(chains)")],
+        "mesh"),
 }
 
 

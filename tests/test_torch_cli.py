@@ -6,8 +6,8 @@ experiment is dispatched with (field for field, but the JAX base config's
 dtype, n_devices and save_samples, the JAX benchmark config's unread
 n_samples and block, and the port's cache_dir, which the JAX drivers fix
 to bench_cache/), and `_gates_passed` on the same payloads. The exits: 1 on
-a gate failure, an exception, `mesh` (not ported yet) and, without
-`--cpu`, on a machine with no card."""
+a gate failure, an exception and, without `--cpu`, on a machine with no
+card; 0 for `mesh --cpu` (gloo CPU ranks)."""
 
 import dataclasses
 import json
@@ -124,11 +124,20 @@ def test_gate_failure_and_exception_exit_nonzero(tmp_path, monkeypatch):
     assert summary["crypto"]["error"] == "boom"
 
 
-def test_mesh_raises_until_parallel_is_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="A15"):
-        cli._dispatch("mesh", str(tmp_path), True, "cpu")
+def test_mesh_cpu_run_writes_mesh_scaling(tmp_path, monkeypatch):
+    """`--experiments mesh --cpu`: exit 0 and mesh_scaling.json with its
+    environment and all_passed, the CPU-rank curve cut to 1 and 2 ranks
+    (the smoke runs 1, 2, 4 and 8)."""
+    from lattice_gaussian_mcmc_tpu_torch.experiments import mesh_scaling
+    monkeypatch.setattr(mesh_scaling, "CPU_RANK_COUNTS", (1, 2))
     assert cli.main(["--experiments", "mesh", "--cpu",
-                     "--output-dir", str(tmp_path)]) == 1
+                     "--output-dir", str(tmp_path)]) == 0
+    out = json.loads((tmp_path / "mesh" / "mesh_scaling.json").read_text())
+    assert out["environment"] == "gloo_cpu_ranks"
+    assert out["all_passed"] is True and out["card_rows"] == []
+    assert [r["n_devices"] for r in out["pallas_rows"]] == [1, 2]
+    assert all(r["device"] == "cpu" for r in out["rows"])
+    assert [r["process_count"] for r in out["process_rows"]] == [1, 2]
 
 
 def test_no_fallback_without_a_card(tmp_path):

@@ -864,3 +864,45 @@ def test_diagnose_convergence_runs_b1_b2_b3():
     assert 0 < d["acceptance_rate"] <= 1
     assert 0 < d["spectral_gap_estimate"] <= 1
     assert d["empirical_std"].shape == (lat.n,)
+
+
+@pytest.mark.cuda
+def test_sharded_paths_launch_b1_b2_and_b5(monkeypatch):
+    """At world size 1 on the card `sharded_imhk_blocked` launches B1 and
+    B2 once each and `sharded_peikert` B5 once, never the plain versions,
+    and give the unsharded routes' bits; the same at a world-size-2
+    rank's range, which is the unsharded batch's second half."""
+    from lattice_gaussian_mcmc_tpu_torch.parallel import collectives, mesh
+    from lattice_gaussian_mcmc_tpu_torch.samplers import klein_blocked
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    lat = _ntru16_card()
+    pre = klein_precompute(lat, 1.2 * float(lat.gs_norms.max()))
+    ops = peikert_cuda.peikert_operands(
+        PeikertSampler(lat, 3.0 * float(np.linalg.norm(
+            lat.basis.cpu().numpy(), 2))).pre)
+    for name in ("klein_draw_plain", "imhk_fused_plain"):
+        monkeypatch.setattr(klein_cuda, name, plain)
+    monkeypatch.setattr(peikert_cuda, "peikert_rounds_plain", plain)
+    klein_cuda.reset_launch_counts()
+    peikert_cuda.reset_launch_counts()
+    m = mesh.make_mesh("cuda")
+    X, lw, acc, rate = collectives.sharded_imhk_blocked(pre, B, 6, m, seed=3)
+    Xp, _, var = collectives.sharded_peikert(ops, B, m, n_rounds=2, seed=4)
+    assert klein_cuda.klein_draw.launches == 1
+    assert klein_cuda.imhk_fused.launches == 1
+    assert peikert_cuda.peikert_rounds.launches == 1
+    assert 0.0 < rate <= 1.0 and X.is_cuda and Xp.shape == (2 * B, lat.n)
+    assert bool(torch.isfinite(var).all()) and float(var.max()) > 0
+    X0, lw0 = klein_blocked.klein_sample_batch_blocked(pre, B, seed=3)
+    Xu, lwu, accu = klein_blocked.imhk_steps_batch_blocked(pre, X0, lw0, 6,
+                                                           seed=3, step=1)
+    assert torch.equal(X, Xu) and torch.equal(lw, lwu)
+    assert torch.equal(acc, accu)
+    half = mesh.ChainMesh(None, 1, 2, m.device)
+    X1, _, _, _ = collectives.sharded_imhk_blocked(pre, B, 6, half, seed=3)
+    assert torch.equal(X1, Xu[B // 2:])
+    X1p, _, _ = collectives.sharded_peikert(ops, B, half, n_rounds=2, seed=4)
+    assert torch.equal(X1p, Xp[B:])
