@@ -58,6 +58,12 @@ convergence study. Phases, one JSON line each:
   peikert          PeikertSampler at 1.05 r s1(B), 65,536 chains x 8
                    rounds in one launch: samples/s, second moment, B5's
                    bound
+  scale_validation tools/validate_scale.py at dimension 1024: B1 + B2
+                   (smooth and hard regimes), B1 + B4 (SMK) and B5
+                   (Peikert) against the per-row float64 route on the card:
+                   per-coordinate moments, the log-weight law (3 KS seeds
+                   in the hard regime), acceptance, the float32 centre
+                   error, Peikert's analytic covariance; one line a gate
   suite            run_benchmarks at its default dimensions 16, 64, 256
                    and 1024 (klein: B6, imhk: B1 + B2, direct: B8,
                    peikert: B5; 65,536 chains, 1 warm-up, 3 timed runs;
@@ -75,7 +81,7 @@ convergence study. Phases, one JSON line each:
                    the float64 nearest plane on the same instances
   validation       klein_validation.run_suite (full budgets; B8) and
                    convergence_study.run_study at ConvergenceConfig's
-                   defaults, its n_samples cut to 10,000: all_passed and
+                   defaults, its n_samples cut to 5,000: all_passed and
                    wall time
   cli              the port's CLI (experiments/cli.py main) at its
                    defaults on scaling (B1 draws up to Z^2048 at 65,536
@@ -99,9 +105,9 @@ convergence study. Phases, one JSON line each:
                    type of its operations at the card's rate for that
                    type (`bound`), beside the FP32-only figure
 
-Each path phase (flagship, hard_regime, smk, peikert, suite, decode,
-decoding, validation, each experiment of cli, and each counted step of
-mesh) sets every launch count to 0 before it runs and reads them after. Then the card's name and
+Each path phase (flagship, hard_regime, smk, peikert, scale_validation,
+suite, decode, decoding, validation, each experiment of cli, and each
+counted step of mesh) sets every launch count to 0 before it runs and reads them after. Then the card's name and
 power limit, a `kernels` line, and as the last line {"ok": true, "device":
 {...}}. Any failed check exits non-zero before the last line. Imports
 nothing of JAX.
@@ -247,9 +253,10 @@ QARY_STEPS = 4
 QARY_ROUNDS = 3
 # the convergence study's draws: its chains are plain per-row steps, one
 # launch an op (~6 ms a 2D step on the card), so ConvergenceConfig's
-# 50,000 took 381 s of a smoke run; 10,000 cuts its comparison and
-# scaling chains five-fold (its TVD decay keeps 10,000 steps)
-CONVERGENCE_SAMPLES = 10_000
+# 50,000 took 381 s of a smoke run; 5,000 cuts its comparison and
+# scaling chains ten-fold (its TVD decay keeps 10,000 steps), which keeps
+# the smoke under 900 s with the scale_validation phase
+CONVERGENCE_SAMPLES = 5000
 # B1 and B6 above the tensor-core sweep's reach (klein_cuda's
 # KLEIN_TC_MAX_N_PAD, 3,456) run klein.cu's FP32 sweep: checked on an
 # upper-triangular basis of dimension 3,500 (n_pad 3,584), diagonal in
@@ -2055,6 +2062,65 @@ def phase_peikert(s: Smoke):
         fail("peikert", "Peikert row failed its checks")
 
 
+# -------------------------------------------------------- scale_validation
+def scale_validation_expected(sizes):
+    """The launches of one `validate_scale.run_validation` at dimension
+    1024: B1 a Klein batch (smooth, hard and its extra KS seeds, the SMK
+    start), B2 one 16-step launch a Klein/IMHK regime, B4 one, B5 one; the
+    float64 route none."""
+    expected = {k: 0 for k in ("klein_draw", "klein_draw_fp32",
+                               "klein_ring_fp32", "imhk_fused",
+                               "imhk_trajectory", "smk_steps",
+                               "peikert_rounds", "klein_ring",
+                               "babai_decode", "babai_decode_fp32",
+                               "sample_zn_draws")}
+    expected.update(klein_draw=2 + sizes.ks_seeds, imhk_fused=2,
+                    smk_steps=1, peikert_rounds=1)
+    return expected
+
+
+def phase_scale_validation(s: Smoke):
+    """tools/validate_scale.py (the port of scripts/validate_pallas_scale.py)
+    on NTRU-512 at its full sizes: B1 + B2 in the smooth (sigma 165.7) and
+    hard (0.45 max ||b*_i||, 3 KS seeds) regimes, B1 + B4 (SMK), B5
+    (Peikert), each against the per-row float64 route on the card. One line
+    a gate, then the phase line; fails on any gate, on a launch count off
+    the expected, or on a launch inside the float64 route."""
+    from lattice_gaussian_mcmc_tpu_torch.tools import validate_scale as vs
+    sizes = vs.Sizes()
+    s.reset_counts()
+    t0 = time.perf_counter()
+    res = vs.run_validation(s.lat, 512, sizes, log=lambda msg: None)
+    wall = time.perf_counter() - t0
+    launches = s.counts()
+    s.launches["scale_validation"] = launches
+    for name in vs.REGIMES:
+        for check, val in res[name].items():
+            if isinstance(val, dict):
+                emit({"phase": "scale_validation_gate", "regime": name,
+                      "check": check, **val})
+    expected = scale_validation_expected(sizes)
+    vs.write_results(res, os.path.join(REPO, "suite_results",
+                                       "torch_validation"))
+    regimes = {k: res[k]["passed"] for k in vs.REGIMES}
+    ok = res["all_passed"] and launches == expected
+    emit({"phase": "scale_validation", "ok": ok, "dim": res["dim"],
+          "passed": regimes, "f64_route_launches": res["f64_route_launches"],
+          "windows": {k: res[k]["window"] for k in vs.REGIMES},
+          "sigmas": {k: res[k]["sigma"] for k in vs.REGIMES},
+          "f64_s": {"smooth": res["smooth"]["f64_klein_s"]
+                    + res["smooth"]["f64_imhk_s"],
+                    "hard": res["hard"]["f64_klein_s"]
+                    + res["hard"]["f64_imhk_s"],
+                    "smk": res["smk"]["f64_s"],
+                    "peikert": res["peikert"]["f64_s"]},
+          "wall_s": wall, "launches": launches,
+          "expected_launches": expected, "card": s.card})
+    if not ok:
+        fail("scale_validation", "a kernel failed the float64 law at "
+             "dimension 1024, or the launches are off")
+
+
 # ---------------------------------------------------------------- suite
 def phase_suite(s: Smoke):
     """experiments/benchmark.py run_benchmarks at BenchmarkConfig's default
@@ -2373,12 +2439,15 @@ def cli_expected_launches(results):
     from lattice_gaussian_mcmc_tpu_torch.experiments.configs import (
         ScalingConfig,
     )
+    from lattice_gaussian_mcmc_tpu_torch.experiments.dimension_scaling \
+        import ASYMPTOTIC_REPS
     sc = ScalingConfig()
     scaling_b1 = (4 * len(sc.dimensions)                     # throughput
                   + len([d for d in sc.dimensions if d <= 128])  # 1/delta
                   + 4                                        # condition
                   + 2 * len(sc.n_chains_grid)                # parallel
-                  + 2 * len(sc.asymptotic_dims))             # asymptotics
+                  + (1 + ASYMPTOTIC_REPS)
+                  * len(sc.asymptotic_dims))                 # asymptotics
     crypto = results["crypto"]["results"]
     evaluated = len([r for r in crypto["suite"].values()
                      if "skipped" not in r])
@@ -2479,7 +2548,8 @@ def phase_cli(s: Smoke):
         scaling = results["scaling"]["results"]
         line["asymptotics"] = [
             {k: r.get(k) for k in ("dimension", "window", "chains",
-                                   "samples_per_sec", "first_call_s",
+                                   "samples_per_sec", "rep_times_s",
+                                   "first_call_s",
                                    "n_pad", "route", "kernel_resources",
                                    "device_peak_bytes_allocated")}
             for r in scaling["asymptotics"]]
@@ -3009,6 +3079,8 @@ def main():
     phase_hard_regime(s)
     phase_smk(s)
     phase_peikert(s)
+    torch.cuda.empty_cache()
+    phase_scale_validation(s)
     torch.cuda.empty_cache()
     phase_suite(s)
     phase_decode(s)

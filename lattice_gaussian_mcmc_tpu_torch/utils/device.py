@@ -37,3 +37,23 @@ def check_backend(backend: str, device: torch.device):
     if backend == "cuda" and device.type != "cuda":
         raise RuntimeError("backend='cuda' needs the sampler on a CUDA "
                            f"device, it is on {device}")
+
+
+def device_from_argv(argv):
+    """A script's device option taken out of its arguments: `--device X`
+    or `--cpu` (the same as `--device cpu`); (the other arguments, the
+    device or None for the card)."""
+    rest, device = [], None
+    args = iter(argv)
+    for a in args:
+        if a == "--cpu":
+            device = "cpu"
+        elif a == "--device":
+            device = next(args, None)
+            if device is None:
+                raise SystemExit("--device needs a value")
+        elif a.startswith("--device="):
+            device = a.split("=", 1)[1]
+        else:
+            rest.append(a)
+    return rest, device

@@ -7,8 +7,9 @@ For each mutant below (or each one named), copies the checkout into a temporary 
 breaks one file there, runs `chip_smoke.py` on the card and requires it to
 fail in the phase named for that mutant: a kernel source of `csrc/` in its
 `kernel_vs_plain` phase, a route of the Python package in the phase that
-drives it. Prints that phase's JSON line per mutant and exits non-zero if
-a mutant got through. Needs a CUDA card; never touches the checkout itself.
+drives it, after the phases it must pass (for a fault that the kernels
+and their plain versions share). Prints that phase's JSON line per mutant
+and exits non-zero if a mutant got through. Needs a CUDA card; never touches the checkout itself.
 """
 
 from __future__ import annotations
@@ -97,7 +98,7 @@ MUTANTS = {
 
 
 # Mutants of the package's Python routes: (file, [(old, new), ...], the
-# phase that must fail)
+# phase that must fail, the phases that must pass before it)
 ROUTE_MUTANTS = {
     # fault R1: the blocked route runs B1's and B2's plain versions on the
     # card (the cli phase's launch counts)
@@ -106,14 +107,25 @@ ROUTE_MUTANTS = {
                      "klein_blocked.py"),
         [("klein_cuda.klein_draw(ops,", "klein_cuda.klein_draw_plain(ops,"),
          ("klein_cuda.imhk_fused(ops,", "klein_cuda.imhk_fused_plain(ops,")],
-        "cli"),
+        "cli", ()),
     # every rank runs chains from 0: the sharded paths drop the rank's
     # chain_offset (the mesh phase's two-rank digests)
     "mesh_no_offset": (
         os.path.join("lattice_gaussian_mcmc_tpu_torch", "parallel",
                      "collectives.py"),
         [("return chains.start, len(chains)", "return 0, len(chains)")],
-        "mesh"),
+        "mesh", ()),
+    # the operands that B1/B2 and their plain versions share narrow the
+    # last row's width by 1.25 at dimension >= 1024: kernel_vs_plain and
+    # the 2D laws cannot see it, the float64 law at dimension 1024 can
+    "operands_row_width": (
+        os.path.join("lattice_gaussian_mcmc_tpu_torch", "ops", "kernels",
+                     "klein_cuda.py"),
+        [("isg=(1.0 / ppre.sigmas.to(torch.float64)).to(dtype),",
+          "isg=(1.0 / ppre.sigmas.to(torch.float64) * torch.where("
+          "(torch.arange(len(ppre.sigmas), device=ppre.sigmas.device) "
+          "== n_real - 1) & (n_real >= 1024), 1.25, 1.0)).to(dtype),")],
+        "scale_validation", ("kernel_vs_plain",)),
 }
 
 
@@ -130,9 +142,10 @@ def edit_file(path, edits):
         f.write(src)
 
 
-def run_mutant(name, mutate, phase_name):
+def run_mutant(name, mutate, phase_name, must_pass=()):
     """Run the smoke on a copy of the checkout that `mutate(root)` broke;
-    caught if it exits non-zero with `phase_name`'s own line not ok."""
+    caught if it exits non-zero with `phase_name`'s own line not ok and
+    the lines of the phases in `must_pass` ok."""
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "repo")
         shutil.copytree(REPO, root, ignore=shutil.ignore_patterns(
@@ -140,16 +153,19 @@ def run_mutant(name, mutate, phase_name):
         mutate(root)
         r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root,
                            capture_output=True, text=True, timeout=1200)
-    phase = None
+    lines = {}
     for line in r.stdout.splitlines():
         if line.startswith("{"):
             obj = json.loads(line)
-            if obj.get("phase") == phase_name and "ok" in obj \
-                    and "error" not in obj:
-                phase = obj
-    caught = r.returncode != 0 and phase is not None and not phase["ok"]
+            if "phase" in obj and "ok" in obj and "error" not in obj:
+                lines[obj["phase"]] = obj
+    phase = lines.get(phase_name)
+    passed = {p: bool(lines.get(p, {}).get("ok")) for p in must_pass}
+    caught = (r.returncode != 0 and phase is not None and not phase["ok"]
+              and all(passed.values()))
     print(json.dumps({"mutant": name, "caught": caught, "rc": r.returncode,
-                      phase_name: phase}), flush=True)
+                      phase_name: phase, "passed_before": passed}),
+          flush=True)
     return caught
 
 
@@ -164,9 +180,10 @@ def main(names):
               for name, (fname, old, new) in MUTANTS.items()
               if name in names]
     caught += [run_mutant(name, lambda root, p=path, e=edits:
-                          edit_file(os.path.join(root, p), e), phase)
-               for name, (path, edits, phase) in ROUTE_MUTANTS.items()
-               if name in names]
+                          edit_file(os.path.join(root, p), e), phase,
+                          must_pass)
+               for name, (path, edits, phase, must_pass)
+               in ROUTE_MUTANTS.items() if name in names]
     return 0 if all(caught) else 1
 
 
