@@ -47,6 +47,12 @@ convergence study. Phases, one JSON line each:
                    stationary acceptance 0.9904 (IMHK), TVD of SMK; B8's
                    TVD to the exact pmf; B6's per-round moments in 2D;
                    UnifiedLatticeSampler(klein) TVD at sigma 2
+  captured_chains  each plain chain function (imhk_chain, smk_chains,
+                   gibbs_chain, annealed_gibbs_decode, _mhk_decode_batch)
+                   as replays of one captured CUDA graph a step or sweep
+                   (utils/graphs.py) bit for bit against its eager run,
+                   on a short prefix at the drivers' shapes: replays and
+                   ms a step of both; the 2D IMHK step's replay alone
   flagship         IMHKSampler.sample_iid at 524,288 chains, sigma 165.7,
                    64 fused steps per launch: samples/s, acceptance
   hard_regime      sigma = 0.45 max ||b*_i||, 131,072 chains: B3 trajectory
@@ -77,12 +83,13 @@ convergence study. Phases, one JSON line each:
                    centre count (hazard C7); annealed Gibbs through
                    UnifiedLatticeSampler.decode on NTRU-64
   decoding         experiments/decoding.py run_decoding at its defaults
-                   (Babai: B7): gates, decodes/s per method, B7 against
-                   the float64 nearest plane on the same instances
+                   (Babai: B7; Gibbs and MHK captured): gates, decodes/s
+                   per method, B7 against the float64 nearest plane on
+                   the same instances
   validation       klein_validation.run_suite (full budgets; B8) and
                    convergence_study.run_study at ConvergenceConfig's
-                   defaults, its n_samples cut to 5,000: all_passed and
-                   wall time
+                   defaults (50,000 draws), their chains captured:
+                   all_passed and wall time
   cli              the port's CLI (experiments/cli.py main) at its
                    defaults on scaling (B1 draws up to Z^2048 at 65,536
                    chains, B2), crypto (B1 + B2 on the identity,
@@ -105,12 +112,14 @@ convergence study. Phases, one JSON line each:
                    type of its operations at the card's rate for that
                    type (`bound`), beside the FP32-only figure
 
-Each path phase (flagship, hard_regime, smk, peikert, scale_validation,
-suite, decode, decoding, validation, each experiment of cli, and each
-counted step of mesh) sets every launch count to 0 before it runs and reads them after. Then the card's name and
-power limit, a `kernels` line, and as the last line {"ok": true, "device":
-{...}}. Any failed check exits non-zero before the last line. Imports
-nothing of JAX.
+Each path phase (captured_chains, flagship, hard_regime, smk, peikert,
+scale_validation, suite, decode, decoding, validation, each experiment of
+cli, and each counted step of mesh) sets every launch count (and the
+captured graphs' captures and replays) to 0 before it runs and reads them
+after; decoding, validation and mesh require replays (`captured`). Then
+the card's name and power limit, a `kernels` line, and as the last line
+{"ok": true, "device": {...}}. Any failed check exits non-zero before the
+last line. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -251,12 +260,19 @@ QARY_SEED = 42
 QARY_CHAINS = 4096
 QARY_STEPS = 4
 QARY_ROUNDS = 3
-# the convergence study's draws: its chains are plain per-row steps, one
-# launch an op (~6 ms a 2D step on the card), so ConvergenceConfig's
-# 50,000 took 381 s of a smoke run; 5,000 cuts its comparison and
-# scaling chains ten-fold (its TVD decay keeps 10,000 steps), which keeps
-# the smoke under 900 s with the scale_validation phase
-CONVERGENCE_SAMPLES = 5000
+# the convergence study's draws: ConvergenceConfig's default, now that its
+# chains run as captured graphs (they took 381 s of a smoke run eagerly)
+CONVERGENCE_SAMPLES = 50_000
+# captured_chains: each plain chain function against its eager run on a
+# short prefix at the drivers' shapes
+CAPTURED_SIGMA = 0.35                # klein_validation's 2D hard regime
+CAPTURED_2D_STEPS = 256
+CAPTURED_SMK = (8, 64)               # chains, steps
+CAPTURED_GIBBS_CHAIN = (24, 8)       # chains, sweeps at n = 64
+CAPTURED_ANNEALED = (64, 24, 4)      # targets, chains, sweeps at n = 64
+CAPTURED_MHK = (64, 8)               # targets, steps at n = 128
+CAPTURED_RHO = 0.35                  # run_decoding's middle noise
+CAPTURED_REPLAYS = 1000              # 2D IMHK replays timed alone
 # B1 and B6 above the tensor-core sweep's reach (klein_cuda's
 # KLEIN_TC_MAX_N_PAD, 3,456) run klein.cu's FP32 sweep: checked on an
 # upper-triangular basis of dimension 3,500 (n_pad 3,584), diagonal in
@@ -630,8 +646,10 @@ class Smoke:
             smk_cuda,
             zn_cuda,
         )
+        from lattice_gaussian_mcmc_tpu_torch.utils import graphs
         self.kc, self.sc, self.pc = klein_cuda, smk_cuda, peikert_cuda
         self.zc = zn_cuda
+        self.graphs = graphs
         # the plain versions' matrix products run in full float32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -649,6 +667,7 @@ class Smoke:
     def reset_counts(self):
         for mod in (self.kc, self.sc, self.pc, self.zc):
             mod.reset_launch_counts()
+        self.graphs.reset_counts()
 
     def counts(self):
         return {"klein_draw": self.kc.klein_draw.launches,
@@ -662,6 +681,14 @@ class Smoke:
                 "babai_decode": self.kc.babai_decode.launches,
                 "babai_decode_fp32": self.kc.babai_decode.fp32_launches,
                 "sample_zn_draws": self.zc.sample_zn_draws.launches}
+
+    def graph_counts(self):
+        """The plain chains' captured graphs (utils/graphs.py) since the
+        last `reset_counts`: captures, replays and the captures' host
+        seconds."""
+        g = self.graphs.StepGraph
+        return {"captures": g.captures, "replays": g.replays,
+                "capture_s": g.capture_s}
 
     def note(self, kernel, **kw):
         self.k.setdefault(kernel, {}).update(kw)
@@ -2327,6 +2354,166 @@ def phase_decode(s: Smoke):
         fail("decode", "decoding failed its checks")
 
 
+# --------------------------------------------------------- captured chains
+def chain_outputs(out):
+    """The tensors of a chain function's result, its ChainState's too."""
+    flat = []
+    for o in out:
+        if hasattr(o, "accepted"):
+            flat += [o.coeffs, o.log_w, o.accepted]
+        else:
+            flat.append(o)
+    return flat
+
+
+def phase_captured_chains(s: Smoke):
+    """Each plain chain function on the card, captured (one CUDA graph a
+    step or sweep, replayed: `utils/graphs.py`), against its eager run (the
+    same step bodies with the capture swapped for `graphs.EagerSteps`, what
+    the CPU runs: `tools/captured_ab.py` `Eager`), bit for bit, on a short
+    prefix at the drivers' shapes:
+      imhk_chain             klein_validation's 2D hard regime ([[1, .5],
+                             [0, 1]], sigma 0.35), one chain, 256 steps
+      smk_chains             the same basis and sigma (proposal width
+                             sigma), 8 chains, 64 steps
+      gibbs_chain            run_decoding's channel lattice at n = 64, 24
+                             chains from 0, 8 sweeps
+      annealed_gibbs_decode  n = 64, 64 targets x 24 chains, 4 sweeps
+      _mhk_decode_batch      n = 128, 64 targets, 8 steps
+    with the replays each took and the ms a step of both runs (host clock,
+    synchronised; the captured run's includes its warm-up step and its
+    capture). Then the 2D IMHK step's replay alone, by CUDA events over
+    1,000 replays, beside an eager step's."""
+    import traceback
+
+    import numpy as np
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.experiments import decoding
+    from lattice_gaussian_mcmc_tpu_torch.lattices import lattice_from_basis
+    from lattice_gaussian_mcmc_tpu_torch.samplers import (
+        annealed_gibbs_decode,
+        gibbs_chain,
+        imhk_chain,
+        imhk_init,
+        klein_precompute,
+        smk_chains,
+    )
+    from lattice_gaussian_mcmc_tpu_torch.samplers.imhk import _imhk_move
+    from lattice_gaussian_mcmc_tpu_torch.tools.captured_ab import Eager
+    graphs = s.graphs
+    lat2 = lattice_from_basis(np.array([[1.0, 0.5], [0.0, 1.0]]),
+                              device=s.dev)
+    pre2 = klein_precompute(lat2, CAPTURED_SIGMA)
+    cfg = decoding.DecodingConfig()
+    rng = np.random.default_rng(cfg.seed)
+    lats = {n: decoding._channel_lattice(rng, n, s.dev) for n in (64, 128)}
+
+    def targets(n, count):
+        lat = lats[n]
+        min_gs = float(lat.gs_norms.min())
+        xs = rng.integers(-cfg.symbol_range, cfg.symbol_range + 1,
+                          size=(count, n)).astype(np.float64)
+        w = rng.normal(scale=CAPTURED_RHO * min_gs, size=(count, n))
+        t = torch.as_tensor(xs @ lat.basis.cpu().numpy().T + w).to(s.dev)
+        return lat, t, min_gs
+
+    lat64, t64, gs64 = targets(64, CAPTURED_ANNEALED[0])
+    lat128, t128, gs128 = targets(128, CAPTURED_MHK[0])
+    sigma_w = CAPTURED_RHO * gs64
+    C_smk, T_smk = CAPTURED_SMK
+    C_g, S_g = CAPTURED_GIBBS_CHAIN
+    _, C_a, S_a = CAPTURED_ANNEALED
+    _, S_m = CAPTURED_MHK
+    cases = [
+        ("imhk_chain", CAPTURED_2D_STEPS,
+         lambda: imhk_chain(pre2, CAPTURED_2D_STEPS, seed=45)),
+        ("smk_chains", T_smk,
+         lambda: smk_chains(pre2, lat2.Q, lat2.R, C_smk, T_smk, seed=46)),
+        ("gibbs_chain", S_g,
+         lambda: gibbs_chain(47, lat64, t64[0], sigma_w, S_g,
+                             x0=torch.zeros(C_g, 64, device=s.dev))),
+        ("annealed_gibbs_decode", S_a,
+         lambda: annealed_gibbs_decode(
+             48, lat64, t64, max(1.5 * sigma_w, 0.3 * gs64), n_sweeps=S_a,
+             n_chains=C_a)),
+        ("mhk_decode_batch", S_m,
+         lambda: decoding._mhk_decode_batch(
+             49, lat128, t128, 0.35 * gs128, n_steps=S_m,
+             window=decoding.MHK_WINDOW)),
+    ]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def compare(name, steps, fn):
+        before = s.graph_counts()
+        got, t_cap = timed(fn)
+        after = s.graph_counts()
+        captures = after["captures"] - before["captures"]
+        replays = after["replays"] - before["replays"]
+        with Eager(graphs):
+            want, t_eager = timed(fn)
+        eager_replays = s.graph_counts()["replays"] - after["replays"]
+        a, b = chain_outputs(got), chain_outputs(want)
+        equal = len(a) == len(b) and all(
+            x.is_cuda and x.shape == y.shape and x.dtype == y.dtype
+            and bool(torch.equal(x, y)) for x, y in zip(a, b))
+        differing = [int((x != y).sum()) if x.shape == y.shape else -1
+                     for x, y in zip(a, b)]
+        rows[name] = {"steps": steps, "equal": equal,
+                      "differing_entries": differing,
+                      "captures": captures, "replays": replays,
+                      "eager_replays": eager_replays,
+                      "captured_ms_per_step": 1e3 * t_cap / steps,
+                      "eager_ms_per_step": 1e3 * t_eager / steps}
+        return (equal and captures == 1 and replays == steps
+                and eager_replays == 0)
+
+    def step_2d():
+        # the 2D IMHK step alone: replays of one captured step, eager steps
+        st = imhk_init(pre2, 1, seed=50)
+
+        def move(step, *x):
+            return _imhk_move(step, *x, pre2, 50, 0)
+
+        g = graphs.StepGraph(move, (st.coeffs, st.log_w, st.accepted))
+        g.replay(1)
+        e = graphs.EagerSteps(move, (st.coeffs, st.log_w, st.accepted))
+        e.replay(1)
+        line["imhk_2d_step"] = {
+            "replay_ms": cuda_ms(lambda: g.replay(CAPTURED_REPLAYS))
+            / CAPTURED_REPLAYS,
+            "eager_ms": cuda_ms(lambda: e.replay(100)) / 100,
+            "replays_timed": CAPTURED_REPLAYS}
+        return True
+
+    # a sub-step's exception (a wrong step counter can index past the
+    # annealing schedule, a device-side fault) is recorded, so the phase
+    # line is always printed
+    s.reset_counts()
+    rows, errors = {}, {}
+    line = {"phase": "captured_chains", "chains": rows, "errors": errors}
+    ok = True
+    for name, steps, fn in [*cases, ("imhk_2d_step", 0, None)]:
+        try:
+            ok = (compare(name, steps, fn) if fn else step_2d()) and ok
+        except Exception:
+            errors[name] = traceback.format_exc()[-3000:]
+            ok = False
+    launches = s.counts()
+    s.launches["captured_chains"] = launches
+    line.update(ok=ok, graphs=s.graph_counts(), launches=launches,
+                card=s.card)
+    emit(line)
+    if not ok:
+        fail("captured_chains", "a captured chain differs from its eager "
+             "run, or did not run as one captured graph")
+
+
 # ---------------------------------------------------------------- decoding
 def phase_decoding(s: Smoke):
     """experiments/decoding.py run_decoding at DecodingConfig's defaults
@@ -2346,6 +2533,7 @@ def phase_decoding(s: Smoke):
     out = decoding.run_decoding(cfg, device=s.dev)
     wall = time.perf_counter() - t0
     launches = s.counts()
+    graph_counts = s.graph_counts()
     s.launches["decoding"] = launches
     rng = np.random.default_rng(cfg.seed)
     ties = {}
@@ -2364,8 +2552,11 @@ def phase_decoding(s: Smoke):
     babai_ok = all(d == 0 or tie <= BABAI_TIE_TOL for d, tie in ties.values())
     rates = {m: {f"n{r['n']}_rho{r['rho']}": r[f"decodes_per_sec_{m}"]
                  for r in out["rows"]} for m in ("babai", "gibbs", "mhk")}
-    ok = (out["all_passed"] and babai_ok and launches["babai_decode"] > 0)
+    captured = graph_counts["replays"] > 0
+    ok = (out["all_passed"] and babai_ok and launches["babai_decode"] > 0
+          and captured)
     emit({"phase": "decoding", "ok": ok, "all_passed": out["all_passed"],
+          "captured": captured, "graphs": graph_counts,
           "gates": out["gates"], "dims": list(cfg.dimensions),
           "targets": cfg.n_targets, "rhos": list(cfg.rho_grid),
           "success": [{k: r[k] for k in ("n", "rho", "success_babai",
@@ -2383,9 +2574,9 @@ def phase_decoding(s: Smoke):
 def phase_validation(s: Smoke):
     """experiments/klein_validation.py run_suite at its full budgets
     (experiment 1 draws through B8) and experiments/convergence_study.py
-    run_study at ConvergenceConfig's defaults but CONVERGENCE_SAMPLES, on
+    run_study at ConvergenceConfig's defaults (CONVERGENCE_SAMPLES), on
     the card: all_passed and the wall time of each. Their chains are the
-    plain per-row IMHK and Klein steps, one launch per row op."""
+    plain per-row IMHK steps, one captured CUDA graph a step."""
     from lattice_gaussian_mcmc_tpu_torch.experiments import (
         convergence_study,
         klein_validation,
@@ -2406,10 +2597,13 @@ def phase_validation(s: Smoke):
     study = convergence_study.run_study(cfg, device=s.dev)
     wall_study = time.perf_counter() - t0
     launches = s.counts()
+    graph_counts = s.graph_counts()
     s.launches["validation"] = launches
+    captured = graph_counts["replays"] > 0
     ok = (val["all_passed"] and study["all_passed"]
-          and launches["sample_zn_draws"] > 0)
-    emit({"phase": "validation", "ok": ok,
+          and launches["sample_zn_draws"] > 0 and captured)
+    emit({"phase": "validation", "ok": ok, "captured": captured,
+          "graphs": graph_counts,
           "klein_validation": {k: {kk: v[kk] for kk in v
                                    if kk != "block_rates"}
                                for k, v in val.items() if isinstance(v, dict)},
@@ -2662,6 +2856,7 @@ def phase_mesh(s: Smoke):
     out_dir = os.path.join(REPO, "suite_results", "mesh")
     cache = os.path.join(REPO, "bench_cache")
     total = {k: 0 for k in s.counts()}
+    graph_total = {k: 0 for k in s.graph_counts()}
     line = {"phase": "mesh", "errors": {}, "seconds": {}}
     checks = {}
 
@@ -2674,6 +2869,8 @@ def phase_mesh(s: Smoke):
             torch.cuda.synchronize()
             for k, v in s.counts().items():
                 total[k] += v
+            for k, v in s.graph_counts().items():
+                graph_total[k] += v
 
     def step(name, fn):
         t0 = time.perf_counter()
@@ -2878,9 +3075,12 @@ def phase_mesh(s: Smoke):
     s.launches["mesh"] = total
     expected = mesh_expected_launches()
     checks["launches"] = all(total[k] >= n > 0 for k, n in expected.items())
+    # the CLI's per-row card row runs the plain chains as captured graphs
+    checks["captured"] = graph_total["replays"] > 0
     ok = all(checks.values()) and not line["errors"]
     first = line.get("flagship", {})
-    line.update(ok=ok, checks=checks, launches=total,
+    line.update(ok=ok, captured=checks["captured"], graphs=graph_total,
+                checks=checks, launches=total,
                 expected_min_launches=expected,
                 samples_per_s=first.get("samples_per_s"),
                 wall_s=sum(line["seconds"].values()), card=s.card)
@@ -3074,6 +3274,7 @@ def main():
     s2, basis2 = phase_kernel_vs_plain(s)
     phase_law(s, s2, basis2)
     del s2
+    phase_captured_chains(s)
     sampler = phase_flagship(s)
     torch.cuda.empty_cache()
     phase_hard_regime(s)

@@ -50,6 +50,7 @@ from lattice_gaussian_mcmc_tpu_torch.samplers.klein import (
     klein_precompute,
     klein_sample_batch,
 )
+from lattice_gaussian_mcmc_tpu_torch.utils import graphs
 from lattice_gaussian_mcmc_tpu_torch.utils.device import (
     resolve_device,
     synchronize,
@@ -84,7 +85,9 @@ def _mhk_decode_batch(seed: int, lat, targets, sigma, n_steps: int,
     D_{Lambda, sigma, t_t} with the scaled centre Q^T t_t / diag(R), starts
     at the Babai point and keeps the closest point it visits. Step s
     proposes the Klein draw of Philox step s, chain t. Returns (best
-    coefficients (T, n), their squared distances (T,))."""
+    coefficients (T, n), their squared distances (T,)). On a card a step
+    is one captured CUDA graph, replayed (`utils/graphs.py`); the Babai
+    start and its log-weight stay outside it."""
     pre0 = klein_precompute(lat, sigma, window=window)
     dt = pre0.U.dtype
     t = targets.to(dt)
@@ -95,20 +98,23 @@ def _mhk_decode_batch(seed: int, lat, targets, sigma, n_steps: int,
     def d2(x):
         return ((x @ lat.basis.T.to(dt) - t) ** 2).sum(dim=1)
 
-    x = lat.nearest_plane(t).to(dt)
-    lw = klein_log_weight(x, pre_t)
-    best_x, best_d = x.clone(), d2(x)
-    for s in range(1, n_steps + 1):
-        y, lw_y = klein_sample_batch(pre0, T, seed=seed, step=s,
+    def move(step, x, lw, best_x, best_d):
+        y, lw_y = klein_sample_batch(pre0, T, seed=seed, step=step,
                                      centers=cs_t)
-        u = _accept_uniform(seed, T, 0, s, dt, t.device)
+        u = _accept_uniform(seed, T, 0, step, dt, t.device)
         take = torch.log(u) < lw_y - lw
         x = torch.where(take[:, None], y, x)
         lw = torch.where(take, lw_y, lw)
         d = d2(x)
         better = d < best_d
-        best_x = torch.where(better[:, None], x, best_x)
-        best_d = torch.where(better, d, best_d)
+        return (x, lw, torch.where(better[:, None], x, best_x),
+                torch.where(better, d, best_d))
+
+    x = lat.nearest_plane(t).to(dt)
+    steps = graphs.stepper(move, (x, klein_log_weight(x, pre_t), x.clone(),
+                                  d2(x)))
+    steps.replay(n_steps)
+    _, _, best_x, best_d = steps.state
     return best_x, best_d
 
 

@@ -77,6 +77,7 @@ ACCEPT_ROWS = 8    # host-uniform rows per fused step beyond n_pad
 EXACT_Y = 256      # |y| up to which the bf16 draw tile is exact (hazard C8)
 # predicted standard deviations of a coefficient that `wide_y` covers
 WIDE_TAIL = 7.0
+WIDE_Y = 1 << 24   # |y| below which the WIDE instantiations are exact (C15)
 # the largest n_pad whose draw tile fits one block's shared memory:
 # imhk_tc_common.cuh's tc_smem_bytes, 64 n_pad + 9,344 bytes, within the
 # 227 KB (232,448 bytes) a block of sm_90 may take, rounded down to a
@@ -185,19 +186,14 @@ def kernel_operands(pre: KleinPrecomp, dtype=torch.float32) -> KleinOperands:
                          shift=k.to(dtype), n=n_real, window=ppre.window)
 
 
-def wide_y(ops: KleinOperands) -> bool:
-    """Whether draws on `ops` are predicted to pass EXACT_Y (fault C11), so
-    that B1, B2 and B6 take their WIDE instantiations, which carry y's
-    second and third bf16 parts. A Klein draw's recentred coefficients are
-    about y = U^-1 (cs + z), z_i ~ N(0, sigma_i^2); the prediction is
-    max_i |mean_i| + WIDE_TAIL std_i + window / 2, in float64. It is kept
-    on `ops` with the versions of U, cs and isg, and made again once any of
-    them was changed in place. The LLL-reduced q-ary basis of the suite's
-    n = 64 row predicts ~2,800 (std up to ~400); NTRU-512 at FALCON's
-    sigma stays far below 256. A draw beyond the prediction on the narrow
-    instantiation still raises (hazard C8)."""
+def predicted_y(ops: KleinOperands) -> float:
+    """The largest |y| draws on `ops` are predicted to reach. A Klein
+    draw's recentred coefficients are about y = U^-1 (cs + z), z_i ~ N(0,
+    sigma_i^2); the prediction is max_i |mean_i| + WIDE_TAIL std_i +
+    window / 2, in float64. It is kept on `ops` with the versions of U, cs
+    and isg, and made again once any of them was changed in place."""
     key = (ops.U._version, ops.cs._version, ops.isg._version)
-    kept = getattr(ops, "_wide_y", None)
+    kept = getattr(ops, "_predicted_y", None)
     if kept is None or kept[0] != key:
         n = ops.n
         U = ops.U[:n, :n].to(torch.float64)
@@ -207,9 +203,31 @@ def wide_y(ops: KleinOperands) -> bool:
         mean = Ui @ ops.cs[:n].to(torch.float64)
         std = torch.sqrt((Ui * Ui) @ (sig * sig))
         top = float((mean.abs() + WIDE_TAIL * std).max())
-        kept = (key, top + ops.window / 2 > EXACT_Y)
-        ops._wide_y = kept
+        kept = (key, top + ops.window / 2)
+        ops._predicted_y = kept
     return kept[1]
+
+
+def wide_y(ops: KleinOperands) -> bool:
+    """Whether draws on `ops` are predicted (`predicted_y`) to pass EXACT_Y
+    (fault C11), so that B1, B2 and B6 take their WIDE instantiations,
+    which carry y's second and third bf16 parts. The LLL-reduced q-ary
+    basis of the suite's n = 64 row predicts ~2,800 (std up to ~400);
+    NTRU-512 at FALCON's sigma stays far below 256. A draw beyond the
+    prediction on the narrow instantiation still raises (hazard C8)."""
+    return predicted_y(ops) > EXACT_Y
+
+
+def check_reach(ops: KleinOperands, what: str):
+    """Hazard C15: the WIDE instantiations carry |y| < WIDE_Y exactly and
+    count nothing beyond, so B1, B2, B3 and B6 raise before any launch on
+    operands whose `predicted_y` reaches WIDE_Y (or is not finite)."""
+    top = predicted_y(ops)
+    if not top < WIDE_Y:
+        raise ValueError(
+            f"{what}: draws on these operands are predicted to reach |y| "
+            f"{top:.4g}, at or past 2^24 = {WIDE_Y}, the largest the "
+            "kernels carry exactly (hazard C15)")
 
 
 def to_kernel_layout(ops: KleinOperands, coeffs: torch.Tensor) -> torch.Tensor:
@@ -535,6 +553,7 @@ def _klein_launch(ops: KleinOperands, num_chains: int, n_rounds: int,
     if n_rounds < 1:
         raise ValueError(f"n_rounds {n_rounds} must be >= 1")
     _check_operands(ops)
+    check_reach(ops, what)
     n_pad = ops.n_pad
     if uniforms is not None:
         check_cuda("uniforms", uniforms, (n_rounds * n_pad, num_chains))
@@ -764,6 +783,7 @@ def _imhk_tc_launch(ops: KleinOperands, x, lw, acc, n_steps: int, seed: int,
     counters into bad (one row of an `exact_guard`); raise on a launch
     error. Does not wait for the kernel."""
     _check_operands(ops)
+    check_reach(ops, what)
     if ops.n_pad > IMHK_TC_MAX_N_PAD:
         raise ValueError(
             f"{what}: n_pad {ops.n_pad} is above {IMHK_TC_MAX_N_PAD}, the "

@@ -9,6 +9,7 @@ rank-1 update per coordinate. A sweep costs O(n^2) per chain, like one Klein
 draw. Plain PyTorch over a batch of chains (the JAX package has no Pallas
 kernel here); the draws are inverse-CDF on the window, uniforms from the
 Philox stream of `utils/prng.py` (tag TAG_GIBBS, step = sweep + 1, row = i).
+On a card a sweep is one captured CUDA graph, replayed (`utils/graphs.py`).
 
 Annealing: sigma_t = sigma0 alpha^t freezes each chain into a local CVP
 optimum; the closest point ever visited is kept per chain. Chain 0 of every
@@ -25,6 +26,7 @@ from lattice_gaussian_mcmc_tpu_torch.ops.discrete_gaussian import (
     DEFAULT_WINDOW,
     sample_dgauss_inverse_cdf,
 )
+from lattice_gaussian_mcmc_tpu_torch.utils import graphs
 from lattice_gaussian_mcmc_tpu_torch.utils.prng import (
     TAG_GIBBS,
     chain_ids,
@@ -57,7 +59,8 @@ def gibbs_chain(seed: int, lattice: Lattice, target, sigma, n_sweeps: int,
                 x0=None, window: int = DEFAULT_WINDOW):
     """Fixed-temperature Gibbs chain(s) for one target (n,). x0 is (n,) (one
     chain) or (C, n) (C chains); default the Babai point. Returns (trace
-    (T, n) or (T, C, n), final x (n,) or (C, n))."""
+    (T, n) or (T, C, n), final x (n,) or (C, n)). On a card a sweep is one
+    captured CUDA graph, replayed (`utils/graphs.py`)."""
     G, t, Bt = _problem(lattice, target)
     if x0 is None:
         x0 = lattice.nearest_plane(t)
@@ -67,11 +70,15 @@ def gibbs_chain(seed: int, lattice: Lattice, target, sigma, n_sweeps: int,
     e = x @ G - Bt
     chains = chain_ids(x.shape[0], 0, G.device)
     sig = torch.as_tensor(sigma, dtype=G.dtype, device=G.device)
-    trace = []
-    for s in range(n_sweeps):
-        _gibbs_sweep(seed, s + 1, chains, x, e, G, sig, window)
-        trace.append(x[0].clone() if single else x.clone())
-    return torch.stack(trace), (x[0] if single else x)
+
+    def sweep(step, x, e):
+        _gibbs_sweep(seed, step, chains, x, e, G, sig, window)
+        return x, e
+
+    (x, _), (trace,) = graphs.run_kept(sweep, (x, e), n_sweeps)
+    if single:
+        return trace[0], x[0]
+    return trace.transpose(0, 1), x
 
 
 def annealed_gibbs_decode(seed: int, lattice: Lattice, target, sigma0,
@@ -81,7 +88,9 @@ def annealed_gibbs_decode(seed: int, lattice: Lattice, target, sigma0,
     n_chains chains per target from the Babai point (chain 0 exactly, the
     others moved by a uniform {-1, 0, 1} per coordinate), sweeps at
     sigma_t = sigma0 alpha^t, the closest point per chain kept. Returns
-    (best point, best coefficients, best squared distance), per target."""
+    (best point, best coefficients, best squared distance), per target. On
+    a card a sweep is one captured CUDA graph, replayed (the Babai start
+    stays outside it)."""
     G, t, Bt = _problem(lattice, target)
     single = t.ndim == 1
     t, Bt = t.reshape(-1, lattice.n), Bt.reshape(-1, lattice.n)
@@ -97,19 +106,25 @@ def annealed_gibbs_decode(seed: int, lattice: Lattice, target, sigma0,
     x = (x_babai[:, None, :] + pert.view(T, C, n)).reshape(T * C, n)
     Bt_c = Bt.repeat_interleave(C, dim=0)
     e = x @ G - Bt_c
+    # sweep s (Philox step s + 1) anneals at sigma0 alpha^s
+    schedule = torch.tensor([sigma0 * alpha ** s for s in range(n_sweeps)],
+                            dtype=dt, device=dev)
 
     def dist2(x, e):
         # ||B x - t||^2 - ||t||^2 = x . (G x - 2 B^T t)
         return (x * (e - Bt_c)).sum(dim=1)
 
-    best_x, best_d = x.clone(), dist2(x, e)
-    for s in range(n_sweeps):
-        sig = torch.tensor(sigma0 * alpha ** s, dtype=dt, device=dev)
-        _gibbs_sweep(seed, s + 1, chains, x, e, G, sig, window)
+    def sweep(step, x, e, best_x, best_d):
+        sig = schedule.index_select(0, step - 1)
+        _gibbs_sweep(seed, step, chains, x, e, G, sig, window)
         d = dist2(x, e)
         better = d < best_d
-        best_x[better] = x[better]
-        best_d = torch.where(better, d, best_d)
+        return (x, e, torch.where(better[:, None], x, best_x),
+                torch.where(better, d, best_d))
+
+    steps = graphs.stepper(sweep, (x, e, x.clone(), dist2(x, e)))
+    steps.replay(n_sweeps)
+    _, _, best_x, best_d = steps.state
     i = best_d.view(T, C).argmin(dim=1)
     bx = best_x.view(T, C, n)[torch.arange(T, device=dev), i]
     point = bx @ lattice.basis.T

@@ -9,9 +9,10 @@ lattice point and accepts with the full Metropolis-Hastings ratio. Chains
 are a batch dimension: a state holds (B, n) coefficients.
 
 The plain chains (`imhk_chain(s)`, `smk_chain(s)`) run per-row PyTorch on
-the Philox stream; the samplers route to the kernels: B1 (Klein draw), B2
-(fused IMHK), B3 (IMHK trajectory) and B4 (fused SMK) on a card, their
-plain versions on the CPU.
+the Philox stream: on a card one CUDA graph a step, captured once and
+replayed (`utils/graphs.py`), on the CPU eagerly. The samplers route to the
+kernels: B1 (Klein draw), B2 (fused IMHK), B3 (IMHK trajectory) and B4
+(fused SMK) on a card, their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from lattice_gaussian_mcmc_tpu_torch.samplers.klein import (
     klein_precompute,
     klein_sample_batch,
 )
+from lattice_gaussian_mcmc_tpu_torch.utils import graphs
 from lattice_gaussian_mcmc_tpu_torch.utils.device import (
     check_backend,
     resolve_device,
@@ -74,37 +76,42 @@ def _accept_uniform(seed, B, chain_offset, step, dtype, device):
     return torch.clamp(u.to(dtype), min=1e-30)
 
 
+def _imhk_move(step, coeffs, log_w, accepted, pre: KleinPrecomp, seed,
+               chain_offset):
+    """The IMHK step at Philox step `step` (an int or a device counter):
+    the next (coeffs, log_w, accepted)."""
+    B = coeffs.shape[0]
+    y, log_w_y = klein_sample_batch(pre, B, seed=seed, step=step,
+                                    chain_offset=chain_offset)
+    u = _accept_uniform(seed, B, chain_offset, step, log_w.dtype,
+                        pre.device)
+    accept = torch.log(u) < (log_w_y - log_w)
+    return (torch.where(accept[:, None], y, coeffs),
+            torch.where(accept, log_w_y, log_w),
+            accepted + accept.to(torch.int32))
+
+
 def imhk_step(state: ChainState, pre: KleinPrecomp, seed: int = 0,
               chain_offset: int = 0) -> ChainState:
     """One plain IMHK step; its Philox step index is state.steps + 1."""
-    B = state.coeffs.shape[0]
     step = state.steps + 1
-    y, log_w_y = klein_sample_batch(pre, B, seed=seed, step=step,
-                                    chain_offset=chain_offset)
-    u = _accept_uniform(seed, B, chain_offset, step, state.log_w.dtype,
-                        pre.device)
-    accept = torch.log(u) < (log_w_y - state.log_w)
-    return ChainState(
-        coeffs=torch.where(accept[:, None], y, state.coeffs),
-        log_w=torch.where(accept, log_w_y, state.log_w),
-        accepted=state.accepted + accept.to(torch.int32),
-        steps=step)
+    return ChainState(*_imhk_move(step, state.coeffs, state.log_w,
+                                  state.accepted, pre, seed, chain_offset),
+                      steps=step)
 
 
-def _run_chains(state: ChainState, step_fn, n_samples: int, thin: int,
+def _run_chains(state: ChainState, move, n_samples: int, thin: int,
                 burn_in: int):
-    """burn_in steps, then n_samples outer steps of `thin` steps each,
-    keeping the state after each: ((C, T, n) coeffs, (C, T) log_w,
-    final state)."""
-    for _ in range(burn_in):
-        state = step_fn(state)
-    coeffs, log_ws = [], []
-    for _ in range(n_samples):
-        for _ in range(thin):
-            state = step_fn(state)
-        coeffs.append(state.coeffs)
-        log_ws.append(state.log_w)
-    return torch.stack(coeffs, dim=1), torch.stack(log_ws, dim=1), state
+    """burn_in steps of `move` (step, coeffs, log_w, accepted) -> the next
+    three, then n_samples outer steps of `thin` steps each, keeping the
+    state after each: ((C, T, n) coeffs, (C, T) log_w, final state). On a
+    card the step is one CUDA graph, captured once and replayed
+    (`utils/graphs.py`); on the CPU it runs eagerly."""
+    (coeffs, log_w, accepted), (kept, kept_lw) = graphs.run_kept(
+        move, (state.coeffs, state.log_w, state.accepted), n_samples, thin,
+        burn_in, keep=(0, 1), step=state.steps)
+    return kept, kept_lw, ChainState(
+        coeffs, log_w, accepted, state.steps + burn_in + n_samples * thin)
 
 
 def imhk_chains(pre: KleinPrecomp, n_chains: int, n_samples: int,
@@ -112,11 +119,11 @@ def imhk_chains(pre: KleinPrecomp, n_chains: int, n_samples: int,
                 chain_offset: int = 0):
     """Plain IMHK chains: a Klein start (step 0), burn_in steps, then
     n_samples kept states every thin steps. Returns coeffs (C, T, n),
-    log_ws (C, T) and the final ChainState."""
+    log_ws (C, T) and the final ChainState. On a card each step is a
+    replay of one captured graph."""
     state = imhk_init(pre, n_chains, seed=seed, chain_offset=chain_offset)
-    return _run_chains(state, lambda st: imhk_step(st, pre, seed,
-                                                   chain_offset),
-                       n_samples, thin, burn_in)
+    return _run_chains(state, lambda step, *st: _imhk_move(
+        step, *st, pre, seed, chain_offset), n_samples, thin, burn_in)
 
 
 def imhk_chain(pre: KleinPrecomp, n_samples: int, thin: int = 1,
@@ -138,22 +145,13 @@ def _scaled_centres(coeffs, pre: KleinPrecomp, lattice_Q, r_diag):
     return (coeffs.to(pre.basis.dtype) @ pre.basis.T) @ lattice_Q / r_diag
 
 
-def smk_step(state: ChainState, pre: KleinPrecomp, lattice_Q, lattice_R,
-             seed: int = 0, chain_offset: int = 0) -> ChainState:
-    """One plain symmetric Metropolis-Klein step; Philox step
-    state.steps + 1.
-
-    `pre` holds the proposal widths in .sigmas and the target's width and
-    centre in .sigma and .cs. The proposal is a Klein draw centred at the
-    current point B x; the acceptance uses the full ratio
-    pi(y) q(x|y) / (pi(x) q(y|x)), both proposal densities by
-    `klein_log_density` at recentered precomputations, and
-    log pi(z) = -||B z - c||^2 / (2 sigma^2) = -sum_i (R_ii ((U z)_i -
-    cs_i))^2 / (2 sigma^2)."""
-    B = state.coeffs.shape[0]
-    step = state.steps + 1
+def _smk_move(step, coeffs, log_w, accepted, pre: KleinPrecomp, lattice_Q,
+              lattice_R, seed, chain_offset):
+    """The SMK step at Philox step `step` (an int or a device counter): the
+    next (coeffs, log_w, accepted); log_w is passed through."""
+    B = coeffs.shape[0]
     r_diag = torch.diagonal(lattice_R).to(pre.U.dtype)
-    x = state.coeffs.to(pre.U.dtype)
+    x = coeffs.to(pre.U.dtype)
     cs_x = _scaled_centres(x, pre, lattice_Q, r_diag)
     y, _ = klein_sample_batch(pre, B, seed=seed, step=step,
                               chain_offset=chain_offset, centers=cs_x)
@@ -169,9 +167,26 @@ def smk_step(state: ChainState, pre: KleinPrecomp, lattice_Q, lattice_R,
     u = _accept_uniform(seed, B, chain_offset, step, log_ratio.dtype,
                         pre.device)
     accept = torch.log(u) < log_ratio
-    return ChainState(coeffs=torch.where(accept[:, None], y, x),
-                      log_w=state.log_w,
-                      accepted=state.accepted + accept.to(torch.int32),
+    return (torch.where(accept[:, None], y, x), log_w,
+            accepted + accept.to(torch.int32))
+
+
+def smk_step(state: ChainState, pre: KleinPrecomp, lattice_Q, lattice_R,
+             seed: int = 0, chain_offset: int = 0) -> ChainState:
+    """One plain symmetric Metropolis-Klein step; Philox step
+    state.steps + 1.
+
+    `pre` holds the proposal widths in .sigmas and the target's width and
+    centre in .sigma and .cs. The proposal is a Klein draw centred at the
+    current point B x; the acceptance uses the full ratio
+    pi(y) q(x|y) / (pi(x) q(y|x)), both proposal densities by
+    `klein_log_density` at recentered precomputations, and
+    log pi(z) = -||B z - c||^2 / (2 sigma^2) = -sum_i (R_ii ((U z)_i -
+    cs_i))^2 / (2 sigma^2)."""
+    step = state.steps + 1
+    return ChainState(*_smk_move(step, state.coeffs, state.log_w,
+                                 state.accepted, pre, lattice_Q, lattice_R,
+                                 seed, chain_offset),
                       steps=step)
 
 
@@ -179,11 +194,12 @@ def smk_chains(pre: KleinPrecomp, lattice_Q, lattice_R, n_chains: int,
                n_samples: int, thin: int = 1, burn_in: int = 0,
                seed: int = 0, chain_offset: int = 0):
     """Plain SMK chains from a Klein start (step 0, with `pre`'s widths):
-    coeffs (C, T, n) and the final ChainState."""
+    coeffs (C, T, n) and the final ChainState. On a card each step is a
+    replay of one captured graph."""
     state = imhk_init(pre, n_chains, seed=seed, chain_offset=chain_offset)
     coeffs, _, state = _run_chains(
-        state, lambda st: smk_step(st, pre, lattice_Q, lattice_R, seed,
-                                   chain_offset),
+        state, lambda step, *st: _smk_move(step, *st, pre, lattice_Q,
+                                           lattice_R, seed, chain_offset),
         n_samples, thin, burn_in)
     return coeffs, state
 

@@ -158,7 +158,9 @@ def klein_sample_batch(pre: KleinPrecomp, num_samples: int, seed: int = 0,
     """Plain per-row batched Klein draw: backward substitution over rows
     i = n-1..0, one inverse-CDF draw per row from the uniform of counter
     (chain, row i, step). `centers` (B, n), when given, replaces the scaled
-    centre pre.cs chain by chain. Returns (coeffs (B, n), log_w (B,)) in the
+    centre pre.cs chain by chain. `step` is an int or a one-element int64
+    tensor on the device (a captured chain's step counter,
+    `utils/graphs.py`). Returns (coeffs (B, n), log_w (B,)) in the
     precomputation's dtype."""
     n, dev = pre.n, pre.device
     u = philox_uniform(seed, chain_ids(num_samples, chain_offset, dev), step,

@@ -73,24 +73,38 @@ def seed_key(seed: int):
     return seed & MASK32, (seed >> 32) & MASK32
 
 
-def philox_words(seed: int, chains: torch.Tensor, step: int,
+def _step_word(step, device) -> torch.Tensor:
+    """Counter word c2 as a (1, 1) int64 tensor on `device`: `step` is a
+    Python int, or a one-element integer tensor on `device` (a chain's step
+    counter), read on the device and never on the host, so a CUDA graph
+    that captures the draw reads the counter's value at each replay. Both
+    give the same word."""
+    if isinstance(step, torch.Tensor):
+        return (step.to(torch.int64) & MASK32).reshape(1, 1)
+    return torch.full((1, 1), int(step) & MASK32, dtype=torch.int64,
+                      device=device)
+
+
+def philox_words(seed: int, chains: torch.Tensor, step,
                  rows: torch.Tensor, tag: int = TAG_ROW):
     """The four Philox output words of counter (chains[b], rows[r], step,
-    tag) under `seed`, each of shape (len(rows), len(chains))."""
+    tag) under `seed`, each of shape (len(rows), len(chains)). `step` is an
+    int or a one-element int64 tensor on the chains' device
+    (`_step_word`)."""
     k0, k1 = seed_key(seed)
     c0 = (chains.to(torch.int64) & MASK32)[None, :]
     c1 = (rows.to(torch.int64) & MASK32)[:, None]
-    c2 = torch.full((1, 1), int(step) & MASK32, dtype=torch.int64,
-                    device=chains.device)
+    c2 = _step_word(step, chains.device)
     c3 = torch.full((1, 1), int(tag) & MASK32, dtype=torch.int64,
                     device=chains.device)
     return philox4x32(c0, c1, c2, c3, k0, k1)
 
 
-def philox_uniform(seed: int, chains: torch.Tensor, step: int,
+def philox_uniform(seed: int, chains: torch.Tensor, step,
                    rows: torch.Tensor, tag: int = TAG_ROW) -> torch.Tensor:
     """float32 uniforms of shape (len(rows), len(chains)): entry (r, b) is
-    the uniform of counter (chains[b], rows[r], step, tag) under `seed`."""
+    the uniform of counter (chains[b], rows[r], step, tag) under `seed`;
+    `step` as for `philox_words`."""
     return mantissa_uniform(philox_words(seed, chains, step, rows, tag)[0])
 
 

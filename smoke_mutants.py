@@ -126,6 +126,12 @@ ROUTE_MUTANTS = {
           "(torch.arange(len(ppre.sigmas), device=ppre.sigmas.device) "
           "== n_real - 1) & (n_real >= 1024), 1.25, 1.0)).to(dtype),")],
         "scale_validation", ("kernel_vs_plain",)),
+    # the captured step's Philox counter does not advance: every replay of
+    # a plain chain's graph draws the first step's numbers
+    "graph_frozen_step": (
+        os.path.join("lattice_gaussian_mcmc_tpu_torch", "utils", "graphs.py"),
+        [("    step.add_(1)\n", "    step.add_(0)\n")],
+        "captured_chains", ()),
 }
 
 

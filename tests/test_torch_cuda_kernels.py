@@ -906,3 +906,101 @@ def test_sharded_paths_launch_b1_b2_and_b5(monkeypatch):
     assert torch.equal(X1, Xu[B // 2:])
     X1p, _, _ = collectives.sharded_peikert(ops, B, half, n_rounds=2, seed=4)
     assert torch.equal(X1p, Xp[B:])
+
+
+def _chain_runs():
+    """The five plain chain functions at small sizes on the card, each a
+    (name, thunk, replays it takes)."""
+    from lattice_gaussian_mcmc_tpu_torch.experiments import decoding
+    from lattice_gaussian_mcmc_tpu_torch.samplers import (
+        annealed_gibbs_decode,
+        gibbs_chain,
+        imhk_chains,
+        smk_chains,
+    )
+    lat2 = lattice_from_basis(np.array([[1.0, 0.5], [0.0, 1.0]]),
+                              device="cuda")
+    pre2 = klein_precompute(lat2, 0.35)
+    rng = np.random.default_rng(16)
+    lat = decoding._channel_lattice(rng, 16, "cuda")
+    basis = lat.basis.cpu().numpy()
+    min_gs = float(lat.gs_norms.min())
+    xs = rng.integers(-2, 3, size=(8, 16)).astype(np.float64)
+    t = torch.as_tensor(xs @ basis.T + rng.normal(
+        scale=0.45 * min_gs, size=(8, 16))).to("cuda")
+    return [
+        ("imhk_chains", lambda: imhk_chains(pre2, 8, 48, thin=2, burn_in=5,
+                                            seed=3, chain_offset=2), 101),
+        ("smk_chains", lambda: smk_chains(pre2, lat2.Q, lat2.R, 8, 16,
+                                          burn_in=4, seed=3), 20),
+        ("gibbs_chain", lambda: gibbs_chain(
+            4, lat, t[0], 0.5 * min_gs, 12,
+            x0=torch.zeros(6, 16, device="cuda")), 12),
+        ("annealed_gibbs_decode", lambda: annealed_gibbs_decode(
+            5, lat, t, 1.5 * 0.45 * min_gs, n_sweeps=10, n_chains=6), 10),
+        ("mhk_decode_batch", lambda: decoding._mhk_decode_batch(
+            6, lat, t, 0.45 * min_gs, n_steps=24,
+            window=decoding.MHK_WINDOW), 24),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", range(5))
+def test_captured_chain_equals_its_eager_run(index, monkeypatch):
+    """On the card each plain chain function runs as replays of one
+    captured graph a step or sweep (`utils/graphs.py`); with the capture
+    swapped for the eager steps (what the CPU runs) it gives the same
+    bits: coefficients, log-weights, accept counts, best points."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lattice_gaussian_mcmc_tpu_torch.utils import graphs
+    name, run, replays = _chain_runs()[index]
+    graphs.reset_counts()
+    got = run()
+    torch.cuda.synchronize()
+    assert (graphs.StepGraph.captures, graphs.StepGraph.replays) == (
+        1, replays), name
+    with monkeypatch.context() as m:
+        m.setattr(graphs, "StepGraph", graphs.EagerSteps)
+        want = run()
+    assert graphs.StepGraph.replays == replays
+    flat = [(a, b) for a, b in zip(got, want)]
+    if name in ("imhk_chains", "smk_chains"):
+        flat = flat[:-1] + [(getattr(got[-1], k), getattr(want[-1], k))
+                            for k in ("coeffs", "log_w", "accepted")]
+        assert got[-1].steps == want[-1].steps
+    for a, b in flat:
+        assert a.is_cuda and a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_launches_past_2_24_raise_before_any_kernel():
+    """Hazard C15: on operands whose predicted |y| reaches 2^24 B1, B2, B3
+    and B6 raise before launching; `tools/debug_sigma.py 1024` raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lattice_gaussian_mcmc_tpu_torch.tools import debug_sigma
+    lat = lattice_from_basis(np.array([[1.0, 3e7], [0.0, 1.0]]),
+                             device="cuda")
+    ops = klein_cuda.kernel_operands(klein_precompute(lat, 1.0))
+    x = torch.zeros(ops.n_pad, 64, device="cuda")
+    lw, acc = torch.zeros(64, device="cuda"), torch.zeros(64, device="cuda")
+    klein_cuda.reset_launch_counts()
+    for what, call in (
+            ("klein_draw", lambda: klein_cuda.klein_draw(ops, 64, seed=1)),
+            ("klein_ring", lambda: klein_cuda.klein_ring(ops, 64, 2,
+                                                         seed=1)),
+            ("imhk_fused", lambda: klein_cuda.imhk_fused(ops, x, lw, acc, 2,
+                                                         seed=1)),
+            ("imhk_trajectory", lambda: klein_cuda.imhk_trajectory(
+                ops, x, lw, acc, 2, seed=1))):
+        with pytest.raises(ValueError, match=rf"{what}: .*2\^24.*C15"):
+            call()
+    assert (klein_cuda.klein_draw.launches, klein_cuda.klein_ring.launches,
+            klein_cuda.imhk_fused.launches,
+            klein_cuda.imhk_trajectory.launches,
+            klein_cuda.klein_draw.fp32_launches) == (0, 0, 0, 0, 0)
+    assert not bool(x.any()) and not bool(acc.any())
+    with pytest.raises(ValueError, match="C15"):
+        debug_sigma.main(["1024"])
