@@ -22,6 +22,7 @@ from lattice_gaussian_mcmc_tpu_torch.ops.kernels import klein_cuda
 from lattice_gaussian_mcmc_tpu_torch.ops.linalg import gso_qr
 from lattice_gaussian_mcmc_tpu_torch.ops.theta import smoothing_parameter_zn
 from lattice_gaussian_mcmc_tpu_torch.utils.device import resolve_device
+from lattice_gaussian_mcmc_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -64,13 +65,14 @@ class Lattice:
         (n,) or a batch (B, n): kernel B7 on a card (float32, centres from
         this lattice's Q and R in float64), its plain version in the
         lattice's dtype on the CPU."""
-        dtype = (torch.float32 if self.R.device.type == "cuda"
-                 else self.R.dtype)
-        ops = klein_cuda.babai_operands(self.Q, self.R, dtype)
-        t = torch.as_tensor(target).to(device=self.basis.device,
-                                       dtype=torch.float64)
-        x = klein_cuda.babai_coeffs(ops, t.reshape(-1, self.n))
-        return x[0] if t.ndim == 1 else x
+        with span("lgm.entry.nearest_plane"):
+            dtype = (torch.float32 if self.R.device.type == "cuda"
+                     else self.R.dtype)
+            ops = klein_cuda.babai_operands(self.Q, self.R, dtype)
+            t = torch.as_tensor(target).to(device=self.basis.device,
+                                           dtype=torch.float64)
+            x = klein_cuda.babai_coeffs(ops, t.reshape(-1, self.n))
+            return x[0] if t.ndim == 1 else x
 
     def decode_cvp(self, target):
         """Closest-plane decoding: (lattice point(s), coefficients)."""
@@ -88,14 +90,15 @@ def lattice_from_basis(basis, name: str = "lattice",
                     dtype=np.float64)
     if Bh.ndim != 2 or Bh.shape[0] != Bh.shape[1]:
         raise ValueError(f"basis must be square, got {Bh.shape}")
-    Qh, Rh = gso_qr(Bh)
 
     def t(a):
         return torch.as_tensor(a, dtype=dtype).to(device)
 
-    return Lattice(basis=t(Bh), Q=t(Qh), R=t(Rh),
-                   gs_norms=t(np.abs(np.diag(Rh))), name=name,
-                   meta=dict(meta or {}))
+    with span("lgm.setup.qr"):
+        Qh, Rh = gso_qr(Bh)
+        return Lattice(basis=t(Bh), Q=t(Qh), R=t(Rh),
+                       gs_norms=t(np.abs(np.diag(Rh))), name=name,
+                       meta=dict(meta or {}))
 
 
 def lattice_from_numpy(d: Dict[str, np.ndarray], dtype=torch.float64,

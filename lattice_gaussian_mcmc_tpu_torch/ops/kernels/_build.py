@@ -21,6 +21,8 @@ import time
 
 import torch
 
+from lattice_gaussian_mcmc_tpu_torch.utils.profiling import span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -121,7 +123,8 @@ def load(name: str, csrc: str = CSRC) -> ctypes.CDLL:
     lib = _LIBS.get((name, csrc))
     if lib is not None:
         return lib
-    lib = ctypes.CDLL(build(name, csrc))
+    with span("lgm.setup.build"):
+        lib = ctypes.CDLL(build(name, csrc))
     for fn, argtypes in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = _I

@@ -67,6 +67,7 @@ from lattice_gaussian_mcmc_tpu_torch.utils.prng import (
     philox_uniform,
     seed_key,
 )
+from lattice_gaussian_mcmc_tpu_torch.utils.profiling import span
 
 if TYPE_CHECKING:
     from lattice_gaussian_mcmc_tpu_torch.samplers.klein import KleinPrecomp
@@ -163,7 +164,8 @@ def tc_fragments(ops) -> torch.Tensor:
     `ops`."""
     frag = getattr(ops, "_tc_fragments", None)
     if frag is None:
-        frag = fragment_pack(split_bf16(ops.U))
+        with span("lgm.operands.fragments"):
+            frag = fragment_pack(split_bf16(ops.U))
         ops._tc_fragments = frag
     return frag
 
@@ -171,19 +173,21 @@ def tc_fragments(ops) -> torch.Tensor:
 def kernel_operands(pre: KleinPrecomp, dtype=torch.float32) -> KleinOperands:
     """Pad to 128 rows and recenter: k = round(cs) (half to even),
     cs_eff = cs - U k in float64 then cast, isg = 1 / sigma_i."""
-    # imported here: klein_blocked imports this module at its top
-    from lattice_gaussian_mcmc_tpu_torch.samplers.klein_blocked import (
-        _pad_precomp,
-    )
-    ppre, n_real = _pad_precomp(pre, BLOCK)
-    U64 = ppre.U.to(torch.float64)
-    cs64 = ppre.cs.to(torch.float64)
-    k = torch.round(cs64)
-    cs_eff = cs64 - U64 @ k
-    U = U64.to(dtype).contiguous()
-    return KleinOperands(U=U, UT=U.T.contiguous(), cs=cs_eff.to(dtype),
-                         isg=(1.0 / ppre.sigmas.to(torch.float64)).to(dtype),
-                         shift=k.to(dtype), n=n_real, window=ppre.window)
+    with span("lgm.setup.operands"):
+        # imported here: klein_blocked imports this module at its top
+        from lattice_gaussian_mcmc_tpu_torch.samplers.klein_blocked import (
+            _pad_precomp,
+        )
+        ppre, n_real = _pad_precomp(pre, BLOCK)
+        U64 = ppre.U.to(torch.float64)
+        cs64 = ppre.cs.to(torch.float64)
+        k = torch.round(cs64)
+        cs_eff = cs64 - U64 @ k
+        U = U64.to(dtype).contiguous()
+        return KleinOperands(
+            U=U, UT=U.T.contiguous(), cs=cs_eff.to(dtype),
+            isg=(1.0 / ppre.sigmas.to(torch.float64)).to(dtype),
+            shift=k.to(dtype), n=n_real, window=ppre.window)
 
 
 def predicted_y(ops: KleinOperands) -> float:
@@ -195,16 +199,17 @@ def predicted_y(ops: KleinOperands) -> float:
     key = (ops.U._version, ops.cs._version, ops.isg._version)
     kept = getattr(ops, "_predicted_y", None)
     if kept is None or kept[0] != key:
-        n = ops.n
-        U = ops.U[:n, :n].to(torch.float64)
-        eye = torch.eye(n, dtype=torch.float64, device=U.device)
-        Ui = torch.linalg.solve_triangular(U, eye, upper=True)
-        sig = 1.0 / ops.isg[:n].to(torch.float64)
-        mean = Ui @ ops.cs[:n].to(torch.float64)
-        std = torch.sqrt((Ui * Ui) @ (sig * sig))
-        top = float((mean.abs() + WIDE_TAIL * std).max())
-        kept = (key, top + ops.window / 2)
-        ops._predicted_y = kept
+        with span("lgm.setup.operands"):
+            n = ops.n
+            U = ops.U[:n, :n].to(torch.float64)
+            eye = torch.eye(n, dtype=torch.float64, device=U.device)
+            Ui = torch.linalg.solve_triangular(U, eye, upper=True)
+            sig = 1.0 / ops.isg[:n].to(torch.float64)
+            mean = Ui @ ops.cs[:n].to(torch.float64)
+            std = torch.sqrt((Ui * Ui) @ (sig * sig))
+            top = float((mean.abs() + WIDE_TAIL * std).max())
+            kept = (key, top + ops.window / 2)
+            ops._predicted_y = kept
     return kept[1]
 
 
@@ -460,36 +465,39 @@ class BabaiOperands:
 
 def babai_operands(Q, R, dtype=torch.float32) -> BabaiOperands:
     """B7's operands from a lattice's Q and R (on their device)."""
-    Q64, R64 = Q.to(torch.float64), R.to(torch.float64)
-    n = R64.shape[0]
-    r_diag = torch.diagonal(R64).clone()
-    U64 = R64 / r_diag[:, None]
-    n_pad = -(-n // BLOCK) * BLOCK
-    U = torch.eye(n_pad, dtype=torch.float64, device=R.device)
-    U[:n, :n] = U64
-    U = U.to(dtype).contiguous()
-    return BabaiOperands(U=U, UT=U.T.contiguous(), Q=Q64, U64=U64,
-                         r_diag=r_diag, n=n)
+    with span("lgm.operands.babai"):
+        Q64, R64 = Q.to(torch.float64), R.to(torch.float64)
+        n = R64.shape[0]
+        r_diag = torch.diagonal(R64).clone()
+        U64 = R64 / r_diag[:, None]
+        n_pad = -(-n // BLOCK) * BLOCK
+        U = torch.eye(n_pad, dtype=torch.float64, device=R.device)
+        U[:n, :n] = U64
+        U = U.to(dtype).contiguous()
+        return BabaiOperands(U=U, UT=U.T.contiguous(), Q=Q64, U64=U64,
+                             r_diag=r_diag, n=n)
 
 
 def babai_centres(ops: BabaiOperands, targets: torch.Tensor):
     """Per-target centres of targets (B, n): ct = (t Q) / diag(R) in
     float64 from the lattice's own Q and R (hazard C7), recentred by
     `babai_recentre`."""
-    return babai_recentre(ops, (targets.to(torch.float64) @ ops.Q)
-                          / ops.r_diag)
+    with span("lgm.layout.centres"):
+        ct = (targets.to(torch.float64) @ ops.Q) / ops.r_diag
+    return babai_recentre(ops, ct)
 
 
 def babai_recentre(ops: BabaiOperands, ct: torch.Tensor):
     """Recentre the centres ct (B, n) in float64, then cast to the working
     dtype: k = round(ct), ct' = ct - U k. Returns (ct' (n_pad, B)
     chain-minor, k (B, n) float64)."""
-    ct = ct.to(torch.float64)
-    k = torch.round(ct)
-    centred = torch.zeros(ops.n_pad, ct.shape[0], dtype=ops.U.dtype,
-                          device=ops.device)
-    centred[:ops.n] = (ct - k @ ops.U64.T).T.to(ops.U.dtype)
-    return centred, k
+    with span("lgm.layout.recentre"):
+        ct = ct.to(torch.float64)
+        k = torch.round(ct)
+        centred = torch.zeros(ops.n_pad, ct.shape[0], dtype=ops.U.dtype,
+                              device=ops.device)
+        centred[:ops.n] = (ct - k @ ops.U64.T).T.to(ops.U.dtype)
+        return centred, k
 
 
 def babai_decode_plain(ops: BabaiOperands, ct: torch.Tensor) -> torch.Tensor:
@@ -514,7 +522,8 @@ def babai_coeffs(ops: BabaiOperands, targets: torch.Tensor) -> torch.Tensor:
     card, its plain version in the operands' dtype on the CPU."""
     centred, k = babai_centres(ops, targets)
     y = babai_decode(ops, centred)
-    return y[:ops.n].T.to(torch.float64) + k
+    with span("lgm.layout.coeffs"):
+        return y[:ops.n].T.to(torch.float64) + k
 
 
 # ---------------------------------------------------------------------------
@@ -603,19 +612,21 @@ def klein_draw(ops: KleinOperands, num_chains: int, *, seed: int = 0,
     integer-valued, lw (B,)). With `guard` (an `exact_guard`) the caller
     reads the C8 counters with `check_exact`; without one the wrapper reads
     its own after the launch. CPU operands run `klein_draw_plain`."""
-    if ops.device.type == "cpu":
-        return klein_draw_plain(ops, num_chains, seed=seed, step=step,
-                                chain_offset=chain_offset, uniforms=uniforms)
-    own = guard is None
-    if own:
-        guard = exact_guard(ops.device)
-    y, lw, route = _klein_launch(ops, num_chains, 1, seed, step,
-                                 chain_offset, uniforms, "klein_draw",
-                                 guard[2])
-    _count(klein_draw, route)
-    if own:
-        check_exact(guard, "klein_draw")
-    return y, lw[0]
+    with span("lgm.kernel.b1"):
+        if ops.device.type == "cpu":
+            return klein_draw_plain(ops, num_chains, seed=seed, step=step,
+                                    chain_offset=chain_offset,
+                                    uniforms=uniforms)
+        own = guard is None
+        if own:
+            guard = exact_guard(ops.device)
+        y, lw, route = _klein_launch(ops, num_chains, 1, seed, step,
+                                     chain_offset, uniforms, "klein_draw",
+                                     guard[2])
+        _count(klein_draw, route)
+        if own:
+            check_exact(guard, "klein_draw")
+        return y, lw[0]
 
 
 def klein_ring(ops: KleinOperands, num_chains: int, n_rounds: int, *,
@@ -704,30 +715,31 @@ def babai_decode(ops: BabaiOperands, ct: torch.Tensor) -> torch.Tensor:
     `babai_decode.fp32_launches`). Both are exact in their operands for
     |y| < 2^24 and raise nothing; the launch adds to the device counters
     that `babai_y_stats` reads. CPU operands run `babai_decode_plain`."""
-    if ops.device.type == "cpu":
-        return babai_decode_plain(ops, ct)
-    n_pad, B = ops.n_pad, ct.shape[1]
-    if n_pad % BLOCK:
-        raise ValueError(f"n_pad {n_pad} is not a multiple of {BLOCK}")
-    check_cuda("U", ops.U, (n_pad, n_pad))
-    check_cuda("UT", ops.UT, (n_pad, n_pad))
-    check_cuda("ct", ct, (n_pad, B))
-    y = torch.empty_like(ct)
-    bad = _babai_counters(ops.device)
-    stream = ctypes.c_void_p(
-        torch.cuda.current_stream(ops.device).cuda_stream)
-    route = klein_route(n_pad)
-    if route == "klein_tc":
-        rc = load(route).babai_tc_launch(
-            ptr(tc_fragments(ops)), ptr(ops.UT), ptr(ct), ptr(y), ptr(bad),
-            n_pad, B, stream)
-    else:
-        rc = load(route).babai_decode_launch(
-            ptr(ops.U), ptr(ops.UT), ptr(ct), ptr(y), ptr(bad), n_pad, B,
-            stream)
-    raise_on(route, rc, "babai_decode")
-    _count(babai_decode, route)
-    return y
+    with span("lgm.kernel.b7"):
+        if ops.device.type == "cpu":
+            return babai_decode_plain(ops, ct)
+        n_pad, B = ops.n_pad, ct.shape[1]
+        if n_pad % BLOCK:
+            raise ValueError(f"n_pad {n_pad} is not a multiple of {BLOCK}")
+        check_cuda("U", ops.U, (n_pad, n_pad))
+        check_cuda("UT", ops.UT, (n_pad, n_pad))
+        check_cuda("ct", ct, (n_pad, B))
+        y = torch.empty_like(ct)
+        bad = _babai_counters(ops.device)
+        stream = ctypes.c_void_p(
+            torch.cuda.current_stream(ops.device).cuda_stream)
+        route = klein_route(n_pad)
+        if route == "klein_tc":
+            rc = load(route).babai_tc_launch(
+                ptr(tc_fragments(ops)), ptr(ops.UT), ptr(ct), ptr(y), ptr(bad),
+                n_pad, B, stream)
+        else:
+            rc = load(route).babai_decode_launch(
+                ptr(ops.U), ptr(ops.UT), ptr(ct), ptr(y), ptr(bad), n_pad, B,
+                stream)
+        raise_on(route, rc, "babai_decode")
+        _count(babai_decode, route)
+        return y
 
 
 # device -> B7's counters since the last reset, (2,) int32: coefficients
@@ -765,7 +777,8 @@ def check_exact(guard: torch.Tensor, what: str):
     each kernel in `max_abs_y` of its wrapper (`imhk_fused`,
     `imhk_trajectory`, `klein_draw`, `klein_ring`), and raise if any draw
     left the range where the bf16 coupling is exact."""
-    rows = guard.tolist()
+    with span("lgm.sync.c8_guard"):
+        rows = guard.tolist()
     for wrapper, (_, top) in zip(_GUARDED, rows):
         wrapper.max_abs_y = max(wrapper.max_abs_y, top)
     bad = sum(b for b, _ in rows)
@@ -823,19 +836,20 @@ def imhk_fused(ops: KleinOperands, x, lw, acc, n_steps: int, *,
     the caller reads the C8 counters with `check_exact`; without one the
     wrapper reads its own after the launch. CPU operands run
     `imhk_fused_plain`."""
-    if ops.device.type == "cpu":
-        return imhk_fused_plain(ops, x, lw, acc, n_steps, seed=seed,
-                                step=step, chain_offset=chain_offset,
-                                uniforms=uniforms)
-    own = guard is None
-    if own:
-        guard = exact_guard(ops.device)
-    _imhk_tc_launch(ops, x, lw, acc, n_steps, seed, step, chain_offset,
-                    uniforms, "imhk_fused", guard[0])
-    imhk_fused.launches += 1
-    if own:
-        check_exact(guard, "imhk_fused")
-    return x, lw, acc
+    with span("lgm.kernel.b2"):
+        if ops.device.type == "cpu":
+            return imhk_fused_plain(ops, x, lw, acc, n_steps, seed=seed,
+                                    step=step, chain_offset=chain_offset,
+                                    uniforms=uniforms)
+        own = guard is None
+        if own:
+            guard = exact_guard(ops.device)
+        _imhk_tc_launch(ops, x, lw, acc, n_steps, seed, step, chain_offset,
+                        uniforms, "imhk_fused", guard[0])
+        imhk_fused.launches += 1
+        if own:
+            check_exact(guard, "imhk_fused")
+        return x, lw, acc
 
 
 def imhk_trajectory(ops: KleinOperands, x, lw, acc, n_keep: int,

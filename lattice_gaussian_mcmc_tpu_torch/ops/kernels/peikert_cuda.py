@@ -73,6 +73,7 @@ from lattice_gaussian_mcmc_tpu_torch.utils.prng import (
     philox_words,
     seed_key,
 )
+from lattice_gaussian_mcmc_tpu_torch.utils.profiling import span
 
 TWO_PI = 2.0 * math.pi
 SMEM_PER_BLOCK = 232_448   # bytes of shared memory a block of sm_90 may take
@@ -133,19 +134,20 @@ def peikert_operands(pre, window: Optional[int] = None,
                      dtype=torch.float32) -> PeikertOperands:
     """Operands of a `PeikertPrecomp`; `window` defaults to
     `suggest_peikert_window(r, n)`."""
-    n = pre.n
-    n_pad = -(-n // ROW_BLOCK) * ROW_BLOCK
-    r = float(pre.r)
-    if window is None:
-        window = suggest_peikert_window(r, n)
-    dev = pre.L2.device
-    L2T = torch.zeros(n_pad, n_pad, dtype=dtype, device=dev)
-    L2T[:n, :n] = pre.L2.T.to(dtype)
-    cp = torch.zeros(n_pad, dtype=dtype, device=dev)
-    cp[:n] = pre.cprime.to(dtype)
-    return PeikertOperands(L2T=L2T.contiguous(), cp=cp,
-                           isg=float(np.float32(1.0 / r)), n=n,
-                           window=int(window))
+    with span("lgm.setup.operands"):
+        n = pre.n
+        n_pad = -(-n // ROW_BLOCK) * ROW_BLOCK
+        r = float(pre.r)
+        if window is None:
+            window = suggest_peikert_window(r, n)
+        dev = pre.L2.device
+        L2T = torch.zeros(n_pad, n_pad, dtype=dtype, device=dev)
+        L2T[:n, :n] = pre.L2.T.to(dtype)
+        cp = torch.zeros(n_pad, dtype=dtype, device=dev)
+        cp[:n] = pre.cprime.to(dtype)
+        return PeikertOperands(L2T=L2T.contiguous(), cp=cp,
+                               isg=float(np.float32(1.0 / r)), n=n,
+                               window=int(window))
 
 
 def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
@@ -303,14 +305,16 @@ def peikert_rounds(ops: PeikertOperands, num_chains: int,
     """B5: n_rounds independent Peikert draws per chain in one launch.
     Returns the ring (n_rounds * n_pad, B). CPU operands run
     `peikert_rounds_plain`."""
-    if ops.device.type == "cpu":
-        return peikert_rounds_plain(ops, num_chains, n_rounds, seed=seed,
-                                    chain_offset=chain_offset,
-                                    uniforms=uniforms, normals=normals)
-    ring = _peikert_tc_launch(ops, num_chains, n_rounds, seed, chain_offset,
-                              uniforms, normals, "peikert_rounds")
-    peikert_rounds.launches += 1
-    return ring
+    with span("lgm.kernel.b5"):
+        if ops.device.type == "cpu":
+            return peikert_rounds_plain(ops, num_chains, n_rounds, seed=seed,
+                                        chain_offset=chain_offset,
+                                        uniforms=uniforms, normals=normals)
+        ring = _peikert_tc_launch(ops, num_chains, n_rounds, seed,
+                                  chain_offset, uniforms, normals,
+                                  "peikert_rounds")
+        peikert_rounds.launches += 1
+        return ring
 
 
 def peikert_centres(ops: PeikertOperands, num_chains: int, *,

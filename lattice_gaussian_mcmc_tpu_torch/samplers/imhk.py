@@ -44,6 +44,7 @@ from lattice_gaussian_mcmc_tpu_torch.utils.prng import (
     chain_ids,
     philox_uniform,
 )
+from lattice_gaussian_mcmc_tpu_torch.utils.profiling import span
 
 # fused IMHK steps per B2 launch (the reference's steps_per_dispatch)
 STEPS_PER_LAUNCH = 64
@@ -253,7 +254,8 @@ class IMHKSampler:
 
     def _auto_burn_in(self) -> int:
         # quick MC gap estimate from a small Klein batch
-        return estimate_burn_in(self.estimate_spectral_gap(0, 256))
+        with span("lgm.setup.burn_in"):
+            return estimate_burn_in(self.estimate_spectral_gap(0, 256))
 
     def estimate_spectral_gap(self, seed: int, num_samples: int = 1000
                               ) -> float:
@@ -341,19 +343,24 @@ class IMHKSampler:
         `klein_cuda.IMHK_TC_MAX_N_PAD` (3,456), B2's reach; above it B2
         raises before any launch (the JAX package's `sample_iid` falls back
         to `imhk_chains` there)."""
-        check_backend(backend, self.device)
-        n_steps = max(1, self.burn_in if n_steps is None else int(n_steps))
-        ops = self.operands
-        guard = klein_cuda.exact_guard(self.device)
-        x, lw = klein_cuda.klein_draw(ops, num_samples, seed=seed, step=0,
-                                      guard=guard)
-        acc = torch.zeros_like(lw)
-        self._advance(x, lw, acc, n_steps, seed, 1, guard)
-        klein_cuda.check_exact(guard, "IMHKSampler.sample_iid")
-        self.acceptance_rate = float(acc.sum()) / (num_samples * n_steps)
-        self._last_state = None
-        return self._output(klein_cuda.from_kernel_layout(ops, x),
-                            return_coeffs)
+        with span("lgm.entry.sample_iid"):
+            check_backend(backend, self.device)
+            n_steps = max(1, self.burn_in if n_steps is None
+                          else int(n_steps))
+            ops = self.operands
+            guard = klein_cuda.exact_guard(self.device)
+            x, lw = klein_cuda.klein_draw(ops, num_samples, seed=seed,
+                                          step=0, guard=guard)
+            acc = torch.zeros_like(lw)
+            self._advance(x, lw, acc, n_steps, seed, 1, guard)
+            klein_cuda.check_exact(guard, "IMHKSampler.sample_iid")
+            with span("lgm.sync.acceptance"):
+                self.acceptance_rate = (float(acc.sum())
+                                        / (num_samples * n_steps))
+            self._last_state = None
+            with span("lgm.layout.coeffs"):
+                coeffs = klein_cuda.from_kernel_layout(ops, x)
+            return self._output(coeffs, return_coeffs)
 
     def diagnose_convergence(self, seed: int, num_samples: int = 1000
                              ) -> dict:

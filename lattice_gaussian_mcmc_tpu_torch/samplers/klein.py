@@ -28,6 +28,7 @@ from lattice_gaussian_mcmc_tpu_torch.utils.device import (
     resolve_device,
 )
 from lattice_gaussian_mcmc_tpu_torch.utils.prng import chain_ids, philox_uniform
+from lattice_gaussian_mcmc_tpu_torch.utils.profiling import span
 
 MAX_WINDOW = 1024
 
@@ -105,37 +106,40 @@ def klein_precompute(lattice: Lattice, sigma, center=None,
     """Klein precomputation on the lattice's device and dtype. Without a
     `window`, `tail_budget` (when set) picks it by `suggest_window_budget`,
     otherwise `tau` by `suggest_window`."""
-    R = lattice.R
-    r_diag = torch.diagonal(R)
-    sigma_t = torch.as_tensor(float(sigma), dtype=R.dtype, device=R.device)
-    sigmas = sigma_t / r_diag
-    if center is None:
-        cs = torch.zeros(lattice.n, dtype=R.dtype, device=R.device)
-    else:
-        c = torch.as_tensor(np.asarray(center), dtype=R.dtype).to(R.device)
-        cs = (lattice.Q.T @ c) / r_diag
-    clamped = False
-    if window is None:
-        sig_np = sigmas.cpu().numpy().astype(np.float64)
-        max_cond = float(sig_np.max())
-        if not math.isfinite(max_cond):
-            raise ValueError(
-                "singular basis: a Gram-Schmidt norm is zero, so a "
-                "conditional sigma is infinite")
-        if tail_budget is not None:
-            window = suggest_window_budget(sig_np, tail_budget)
+    with span("lgm.setup.precompute"):
+        R = lattice.R
+        r_diag = torch.diagonal(R)
+        sigma_t = torch.as_tensor(float(sigma), dtype=R.dtype,
+                                  device=R.device)
+        sigmas = sigma_t / r_diag
+        if center is None:
+            cs = torch.zeros(lattice.n, dtype=R.dtype, device=R.device)
         else:
-            window = suggest_window(max_cond, tau=tau)
-        if window > MAX_WINDOW:
-            warnings.warn(
-                f"conditional sigma {max_cond:.3g} needs window {window} > "
-                f"{MAX_WINDOW}; clamping — tails beyond the window are "
-                "truncated", stacklevel=2)
-            window = MAX_WINDOW
-            clamped = True
-    U = R / r_diag[:, None]
-    return KleinPrecomp(basis=lattice.basis, U=U, cs=cs, sigmas=sigmas,
-                        sigma=sigma_t, window=int(window), clamped=clamped)
+            c = torch.as_tensor(np.asarray(center),
+                                dtype=R.dtype).to(R.device)
+            cs = (lattice.Q.T @ c) / r_diag
+        clamped = False
+        if window is None:
+            sig_np = sigmas.cpu().numpy().astype(np.float64)
+            max_cond = float(sig_np.max())
+            if not math.isfinite(max_cond):
+                raise ValueError(
+                    "singular basis: a Gram-Schmidt norm is zero, so a "
+                    "conditional sigma is infinite")
+            if tail_budget is not None:
+                window = suggest_window_budget(sig_np, tail_budget)
+            else:
+                window = suggest_window(max_cond, tau=tau)
+            if window > MAX_WINDOW:
+                warnings.warn(
+                    f"conditional sigma {max_cond:.3g} needs window "
+                    f"{window} > {MAX_WINDOW}; clamping — tails beyond the "
+                    "window are truncated", stacklevel=2)
+                window = MAX_WINDOW
+                clamped = True
+        U = R / r_diag[:, None]
+        return KleinPrecomp(basis=lattice.basis, U=U, cs=cs, sigmas=sigmas,
+                            sigma=sigma_t, window=int(window), clamped=clamped)
 
 
 def klein_precomp_from_numpy(d: Dict[str, np.ndarray], dtype=torch.float64,
@@ -192,7 +196,8 @@ def klein_sample(pre: KleinPrecomp, seed: int = 0, step: int = 0,
 
 def klein_points(basis, coeffs):
     """Map integer coefficients to lattice points: basis @ x (batched)."""
-    return coeffs.to(basis.dtype) @ basis.T
+    with span("lgm.layout.points"):
+        return coeffs.to(basis.dtype) @ basis.T
 
 
 def klein_log_density(coeffs, pre: KleinPrecomp):

@@ -34,6 +34,7 @@ from lattice_gaussian_mcmc_tpu_torch.utils.prng import (
     chain_ids,
     philox_uniform,
 )
+from lattice_gaussian_mcmc_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -140,20 +141,22 @@ class PeikertSampler:
         self.device = resolve_device(device)
         self.lattice = lattice
         self.sigma = float(sigma)
-        # checked before the Cholesky, which fails below the bound
-        s1 = float(np.linalg.norm(lattice.basis.cpu().numpy(), ord=2))
-        r_val = float(r) if r is not None else smoothing_parameter_zn(
-            lattice.n, eps)
-        if self.sigma < r_val * s1:
-            raise ValueError(
-                f"Peikert requires sigma >= r * s1(B) = {r_val * s1:.4g}; "
-                f"got sigma={self.sigma:.4g}. Use Klein/IMHK for small sigma.")
-        self.s1 = s1
-        self.pre = peikert_precompute(lattice, sigma, center, r_val, eps)
-        self.pre = dataclasses.replace(
-            self.pre, basis=self.pre.basis.to(self.device),
-            L2=self.pre.L2.to(self.device),
-            cprime=self.pre.cprime.to(self.device))
+        with span("lgm.setup.precompute"):
+            # checked before the Cholesky, which fails below the bound
+            s1 = float(np.linalg.norm(lattice.basis.cpu().numpy(), ord=2))
+            r_val = float(r) if r is not None else smoothing_parameter_zn(
+                lattice.n, eps)
+            if self.sigma < r_val * s1:
+                raise ValueError(
+                    f"Peikert requires sigma >= r * s1(B) = "
+                    f"{r_val * s1:.4g}; got sigma={self.sigma:.4g}. Use "
+                    "Klein/IMHK for small sigma.")
+            self.s1 = s1
+            self.pre = peikert_precompute(lattice, sigma, center, r_val, eps)
+            self.pre = dataclasses.replace(
+                self.pre, basis=self.pre.basis.to(self.device),
+                L2=self.pre.L2.to(self.device),
+                cprime=self.pre.cprime.to(self.device))
         self._ops = None
 
     @property
@@ -167,10 +170,13 @@ class PeikertSampler:
         """num_samples independent draws (one round of B5), as lattice
         points (num_samples, n) or coefficients. backend "cuda" raises
         unless the sampler is on a card."""
-        check_backend(backend, self.device)
-        ops = self.operands
-        ring = peikert_cuda.peikert_rounds(ops, num_samples, 1, seed=seed)
-        coeffs = peikert_cuda.ring_coeffs(ops, ring)[0]
-        if return_coeffs:
-            return coeffs
-        return coeffs.to(self.pre.basis.dtype) @ self.pre.basis.T
+        with span("lgm.entry.peikert_sample"):
+            check_backend(backend, self.device)
+            ops = self.operands
+            ring = peikert_cuda.peikert_rounds(ops, num_samples, 1,
+                                               seed=seed)
+            coeffs = peikert_cuda.ring_coeffs(ops, ring)[0]
+            if return_coeffs:
+                return coeffs
+            with span("lgm.layout.points"):
+                return coeffs.to(self.pre.basis.dtype) @ self.pre.basis.T

@@ -1,9 +1,23 @@
 """Sampling statistics, timing, tracing and cost counts (counterpart of the
 JAX package's `utils/profiling.py`): `SamplingStats`, `timed` (the clock
 read after the device is synchronised), `profile_trace` (a Chrome trace by
-`torch.profiler`), `memory_snapshot` (host peak RSS and the CUDA caching
-allocator's counters) and `compiled_cost` (FLOPs counted by
-`torch.utils.flop_counter`)."""
+`torch.profiler`), `span` (the port's named ranges inside such a trace),
+`memory_snapshot` (host peak RSS and the CUDA caching allocator's counters)
+and `compiled_cost` (FLOPs counted by `torch.utils.flop_counter`).
+
+Spans. The port marks its stages with `span(name)`, named `lgm.<kind>.<what>`:
+`lgm.entry.*` the whole body of an entry point (`sample_iid`,
+`peikert_sample`, `nearest_plane`), `lgm.kernel.b1` / `b2` / `b5` / `b7` one
+kernel launch (or its plain version on the CPU), `lgm.sync.*` a read that
+waits for the card (`c8_guard`, `acceptance`), `lgm.operands.*` operands
+built in a call (`babai`, `fragments`), `lgm.layout.*` the work between
+kernels (`centres`, `recentre`, `coeffs`, `points`) and `lgm.setup.*` the
+set-up (`build`, `qr`, `precompute`, `operands`, `burn_in`). Under
+`torch.profiler` each is a `user_annotation` on the host and, around the
+work it queued itself, a `gpu_user_annotation` on the card (the device side
+names the innermost span), both on the profiler's clock; with no profiler
+running a span does nothing.
+"""
 
 from __future__ import annotations
 
@@ -42,11 +56,27 @@ class SamplingStats:
                 "ess_per_second": self.ess_per_second}
 
 
+# the context every span returns while no profiler runs
+_OFF = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A named range of the trace: `torch.profiler.record_function(name)`
+    while a profiler runs, else a shared no-op context (one call and one
+    check: no clock read, no synchronisation, no allocation)."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
 @contextlib.contextmanager
 def profile_trace(log_dir: Optional[str] = None):
     """`torch.profiler` over the block (CPU, and CUDA when a card is
     present), its Chrome trace written to `log_dir/trace.json`; a no-op
-    when log_dir is None. Yields the profiler (None when off)."""
+    when log_dir is None. Yields the profiler (None when off). The trace
+    holds the port's `span`s (`lgm.*`, module docstring) beside the
+    operators, runtime calls and kernels."""
     if log_dir is None:
         yield None
         return
