@@ -19,8 +19,11 @@ convergence study. Phases, one JSON line each:
                    n_pad 3,456 (klein.cu's FP32 route, with B6); B2
                    (fused IMHK) with the f32 conditional-centre error
                    against float64, of the plain version's centres and of
-                   the kernel's own (its debug instantiation), and B2 in
-                   the 2D hard regime, where it rejects; B3 (IMHK
+                   the kernel's own (its debug instantiation), B2 in
+                   the 2D hard regime, where it rejects, and at
+                   FALCON-1024's shape (NTRU-1024, n_pad 2048, window 24,
+                   a chain count not a multiple of 32), where B3 is held
+                   to B2 bit for bit too; B3 (IMHK
                    trajectory) bit for bit against B2 and against its
                    plain version; B4 (fused SMK) at the SMK row's operands,
                    its own forward and reverse centres against float64,
@@ -285,6 +288,13 @@ FP32_ROUTE_ROUNDS = 2
 # B5 at NTRU-1024 (dimension 2048: n_pad above 1,792, 16 chains a block),
 # bench.py's Peikert row at BENCH_N = 1024
 PEIKERT_WIDE_RING = 1024
+# B2 and B3 at FALCON-1024's signing shape (NTRU-1024, sigma 168.3886,
+# tail budget 0.01: n_pad 2048, window 24), the falcon1024.imhk_smooth
+# benchmark cell's operands, on a chain count that leaves the last block
+# of 32 chains part empty
+B2_NTRU1024_RING = 1024
+FALCON1024_SIGMA = 168.3886
+B2_NTRU1024_CHAINS = CHECK_CHAINS - 3
 # the cli phase: the port's CLI at its defaults, these experiments
 CLI_EXPERIMENTS = ("scaling", "crypto", "sensitivity", "adaptation")
 # the mesh phase: the sharded paths (parallel/) at the flagship's and the
@@ -732,10 +742,12 @@ def phase_toolchain(s: Smoke):
     ptxas = {name: [ln.strip() for ln in info["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln][:12]
              for name, info in _build.BUILD_INFO.items()}
-    # B2/B3's kernel at n_pad 1024 for the paths' windows: registers,
-    # spills, shared memory and blocks resident per SM
+    # B2/B3's kernel at n_pad 1024 for the paths' windows, and at 2048 for
+    # FALCON-1024's: registers, spills, shared memory, and the blocks and
+    # chains resident per SM
     imhk_tc = {f"window_{w}": s.kc.imhk_tc_resources(1024, w)
                for w in (16, 8, 24)}
+    imhk_tc["n_pad_2048_window_24"] = s.kc.imhk_tc_resources(2048, 24)
     smk_tc = {f"window_{w}": s.sc.smk_tc_resources(1024, w)
               for w in (8, 16, 24)}
     # B1's and B6's (klein_tc.cu) at n_pad 256 and 1024
@@ -1264,6 +1276,68 @@ def check_b5_wide(s: Smoke):
                 "plain_ms": plain_ms}
 
 
+def check_b2_ntru1024(s: Smoke):
+    """B2 and B3 at NTRU-1024 (B2_NTRU1024_RING, FALCON1024_SIGMA: n_pad 2048,
+    window 24), B2_NTRU1024_CHAINS chains: B2 against its plain version for 2
+    steps on the caller's uniforms and on Philox, under the gates of the
+    NTRU-512 check, and B3 against B2 bit for bit (final state, lw, counts
+    and every ring entry), as at the hard-regime operands."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.lattices import ntru_lattice
+    from lattice_gaussian_mcmc_tpu_torch.samplers import klein_precompute
+    kc, dev, gen, B = s.kc, s.dev, s.gen, B2_NTRU1024_CHAINS
+    lat = ntru_lattice(B2_NTRU1024_RING, q=12289, seed=0,
+                       cache_dir=os.path.join(REPO, "bench_cache"),
+                       device=dev)
+    ops = kc.kernel_operands(klein_precompute(lat, FALCON1024_SIGMA,
+                                              tail_budget=0.01))
+    n, n_pad = ops.n, ops.n_pad
+    if (n_pad, ops.window) != (2048, 24):
+        fail("kernel_vs_plain", f"expected n_pad 2048 window 24 at "
+                                f"NTRU-1024, got {n_pad} {ops.window}")
+    u1 = torch.rand(n_pad, B, device=dev, generator=gen)
+    y, lw = kc.klein_draw(ops, B, uniforms=u1)
+    del u1
+    host = fused_vs_plain(ops, y, lw, 2, gen)
+    x, lx, ax = y.clone(), lw.clone(), torch.zeros_like(lw)
+    xp, lxp, axp = y.clone(), lw.clone(), torch.zeros_like(lw)
+    kc.imhk_fused(ops, x, lx, ax, 2, seed=51, step=1)
+    kc.imhk_fused_plain(ops, xp, lxp, axp, 2, seed=51, step=1)
+    philox = compare_steps(x, xp, lx, lxp, ax, axp, n, 2)
+    del x, xp
+    x3, l3, a3 = y.clone(), lw.clone(), torch.zeros_like(lw)
+    x3, l3, a3, tx, tlw = kc.imhk_trajectory(
+        ops, x3, l3, a3, B3_CHECK_KEEP, B3_CHECK_THIN, seed=52, step=1,
+        coeffs=True)
+    x2, l2, a2 = y.clone(), lw.clone(), torch.zeros_like(lw)
+    ring_equal = True
+    for k in range(B3_CHECK_KEEP):
+        kc.imhk_fused(ops, x2, l2, a2, B3_CHECK_THIN, seed=52,
+                      step=1 + k * B3_CHECK_THIN)
+        ring_equal &= (torch.equal(tlw[k], l2) and torch.equal(
+            tx[k * n_pad:(k + 1) * n_pad], x2))
+    b3_vs_b2 = {"ring_equal": ring_equal,
+                "final_equal": (torch.equal(x3, x2) and torch.equal(l3, l2)
+                                and torch.equal(a3, a2)),
+                "rejections": int(B3_CHECK_KEEP * B3_CHECK_THIN * B
+                                  - float(a3.sum()))}
+    del y, x2, x3, tx
+    ok = (all(draws_ok(r) and r["accept_differing"] <= MAX_ACCEPT_SHARE
+              and r["accept_differing_agreeing"] == 0
+              for r in (host, philox))
+          and ring_equal and b3_vs_b2["final_equal"])
+    s.note("B2", ntru1024_coeffs_differing=max(host["coeffs_differing"],
+                                               philox["coeffs_differing"]),
+           ntru1024_max_abs_lw_err=max(host["max_abs_lw_err"],
+                                       philox["max_abs_lw_err"]))
+    return ok, {"dim": n, "n_pad": n_pad, "window": ops.window,
+                "sigma": FALCON1024_SIGMA, "chains": B, "steps": 2,
+                "resident_chains": kc.imhk_fused.resident_chains,
+                "host": host, "philox": philox,
+                "b3_vs_b2": dict(b3_vs_b2, keep=B3_CHECK_KEEP,
+                                 thin=B3_CHECK_THIN)}
+
+
 def reach_basis(rng, n=REACH_N):
     """(basis, x* sampler) of B7's reach check: basis = I + N with N
     integer, strictly upper-triangular and N^2 confined to rows 0-79.
@@ -1708,6 +1782,7 @@ def phase_kernel_vs_plain(s: Smoke):
            plain_ms=b5_plain_ms, check_ms=b5_ms,
            check_shape=f"{B} chains x {nr} rounds, window {ops_p.window}")
 
+    b2w_ok, b2_wide = check_b2_ntru1024(s)
     b5w_ok, b5_wide = check_b5_wide(s)
     b6_ok, b6 = check_b6(s)
     qary_ok, qary = check_qary(s)
@@ -1716,7 +1791,8 @@ def phase_kernel_vs_plain(s: Smoke):
     fp32_ok, fp32 = check_fp32_route(s)
     b7_ok, b7 = check_b7(s)
     b8_ok, b8 = check_b8(s)
-    ok = (b1_ok and b2_ok and b3_ok and b4_ok and b5_ok and b5w_ok and b6_ok
+    ok = (b1_ok and b2_ok and b2w_ok and b3_ok and b4_ok and b5_ok
+          and b5w_ok and b6_ok
           and qary_ok and cli_ok and mesh_ok and fp32_ok and b7_ok and b8_ok)
     emit({"phase": "kernel_vs_plain", "ok": ok, "chains": B, "dim": n,
           "window": W, "plain_allow_tf32": False,
@@ -1728,6 +1804,7 @@ def phase_kernel_vs_plain(s: Smoke):
           "b2_hard_regime": dict(b2_hard, chains=HARD_CHECK_CHAINS,
                                  steps=HARD_CHECK_STEPS, sigma=HARD_SIGMA,
                                  window=ops2.window),
+          "b2_b3_ntru1024": b2_wide,
           "b3_vs_b2": dict(b3_vs_b2, keep=B3_CHECK_KEEP, thin=B3_CHECK_THIN),
           "b3": dict(b3, keep=nk, thin=1, window=ops_h.window),
           "b4": dict(b4, steps=B4_CHECK_STEPS, window=ss.operands.window,
@@ -1744,7 +1821,7 @@ def phase_kernel_vs_plain(s: Smoke):
           "b1_b2_b5_mesh_shapes": mesh_shapes,
           "b7": b7, "b8": b8,
           "oks": {"b1": b1_ok, "b1_b6_b7_fp32_route": fp32_ok,
-                  "b2": b2_ok,
+                  "b2": b2_ok, "b2_b3_ntru1024": b2w_ok,
                   "b3": b3_ok, "b4": b4_ok, "b5": b5_ok,
                   "b5_ntru1024": b5w_ok, "b6": b6_ok,
                   "b1_b2_b5_b6_qary": qary_ok,

@@ -6,9 +6,11 @@
 // A thread block of 64 threads owns NC = 32 chains. Their proposal lives
 // in shared memory as bf16, (n_pad, 32) chain-minor with the 16-byte chunks
 // of a row XOR-swizzled by (row / 2) mod 4 (`y_off`), so that ldmatrix
-// reads eight rows without bank conflicts. U = U1 + U2 + U3, three bf16
-// parts split on the host (exact for a float32 U, hazard C2), packed in
-// mma.sync m16n8k16 A-fragment order (klein_cuda.py `tc_fragments`).
+// reads eight rows without bank conflicts (B2/B3 keep it in device memory
+// in the same layout and read it back through a ring, imhk_tc.cu
+// `couple_ring`). U = U1 + U2 + U3, three bf16 parts split on the host
+// (exact for a float32 U, hazard C2), packed in mma.sync m16n8k16
+// A-fragment order (klein_cuda.py `tc_fragments`).
 // `couple` forms a 64-row block's coupling to the rows drawn on the tensor
 // cores, `sub_update` a 16-row sub-block's coupling to the rows below it in
 // the block, and `draw_pair` splits a row's window between the two threads

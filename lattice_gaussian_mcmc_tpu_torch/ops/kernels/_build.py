@@ -98,8 +98,8 @@ _SIGNATURES = {
     },
     "imhk_tc": {
         "imhk_tc_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _P, _I, _I, _LL, _I, _I, _U32, _U32, _U32, _U32,
-                           _P],
+                           _P, _P, _I, _I, _LL, _I, _I, _U32, _U32, _U32,
+                           _U32, _P],
         "imhk_tc_info": [_I, _I, _I, _P],
     },
     "smk_tc": {

@@ -22,10 +22,12 @@ split of the float32 U (U = U1 + U2 + U3, `split_bf16`), packed in the mma
 A-fragment order (`tc_fragments`). Their products are exact only while the
 draw's recentred coefficients are: |y| <= 256 (hazard C8). The kernels
 count the draws beyond that into an `exact_guard`; the wrapper, or the
-entry point that passed it one, raises before it returns. They keep the
-draw in shared memory, which bounds n_pad by `IMHK_TC_MAX_N_PAD`: B2 and
-B3 raise above it, and B1 and B6 take the FP32 sweep of `csrc/klein.cu`
-there (`klein_route`, by n_pad, before the launch). B7 is the same sweep
+entry point that passed it one, raises before it returns. B1 and B6 keep
+the draw in shared memory, which bounds n_pad by `KLEIN_TC_MAX_N_PAD`:
+above it they take the FP32 sweep of `csrc/klein.cu` (`klein_route`, by
+n_pad, before the launch). B2 and B3 keep the proposal in a device-memory
+scratch (`proposal_scratch`), so that eight blocks share an SM, and hold
+the same limit, `IMHK_TC_MAX_N_PAD`: above it they raise. B7 is the same sweep
 with rounding in place of the draw and takes the same route; its
 coefficients are not bounded by 256, so the kernel also multiplies U into
 y's second and third bf16 parts where some |y| > 256, and decodes exactly
@@ -83,8 +85,11 @@ WIDE_Y = 1 << 24   # |y| below which the WIDE instantiations are exact (C15)
 # imhk_tc_common.cuh's tc_smem_bytes, 64 n_pad + 9,344 bytes, within the
 # 227 KB (232,448 bytes) a block of sm_90 may take, rounded down to a
 # multiple of 128
-IMHK_TC_MAX_N_PAD = 3456
-KLEIN_TC_MAX_N_PAD = IMHK_TC_MAX_N_PAD
+KLEIN_TC_MAX_N_PAD = 3456
+# B2 and B3 hold B1's limit: B1 starts their chains, and no larger n_pad
+# has been checked on the card
+IMHK_TC_MAX_N_PAD = KLEIN_TC_MAX_N_PAD
+TC_CHAINS = 32     # chains a block of the tensor-core sweeps (NC)
 
 
 @dataclasses.dataclass
@@ -791,16 +796,17 @@ def check_exact(guard: torch.Tensor, what: str):
 def _imhk_tc_launch(ops: KleinOperands, x, lw, acc, n_steps: int, seed: int,
                     step: int, chain_offset: int, uniforms, what: str,
                     bad: torch.Tensor, tlw=None, tx=None, thin: int = 1,
-                    dbg=None):
+                    dbg=None) -> int:
     """Launch imhk_tc.cu's kernel on x (n_pad, B), lw, acc in place, its C8
     counters into bad (one row of an `exact_guard`); raise on a launch
-    error. Does not wait for the kernel."""
+    error. Does not wait for the kernel. Returns the chains resident an SM
+    at the launch (`imhk_tc_residency`)."""
     _check_operands(ops)
     check_reach(ops, what)
     if ops.n_pad > IMHK_TC_MAX_N_PAD:
         raise ValueError(
             f"{what}: n_pad {ops.n_pad} is above {IMHK_TC_MAX_N_PAD}, the "
-            "largest whose proposal tile fits a block's shared memory")
+            "largest B2 and B3 take (B1's, which starts their chains)")
     B = x.shape[1]
     check_cuda("x", x, (ops.n_pad, B))
     check_cuda("lw", lw, (B,))
@@ -811,8 +817,10 @@ def _imhk_tc_launch(ops: KleinOperands, x, lw, acc, n_steps: int, seed: int,
                    (n_steps * (ops.n_pad + ACCEPT_ROWS), B))
     lib = load("imhk_tc")
     k0, k1 = seed_key(seed)
+    wide = dbg is None and wide_y(ops)
     # the WIDE instantiation's float32 proposals (fault C11)
-    yprop = (torch.empty_like(x) if dbg is None and wide_y(ops) else None)
+    yprop = torch.empty_like(x) if wide else None
+    scratch = proposal_scratch(ops.n_pad, B, ops.device)
     rc = lib.imhk_tc_launch(
         ptr(tc_fragments(ops)), ptr(ops.UT), ptr(ops.cs), ptr(ops.isg),
         ptr(uniforms) if uniforms is not None else None,
@@ -820,11 +828,22 @@ def _imhk_tc_launch(ops: KleinOperands, x, lw, acc, n_steps: int, seed: int,
         ptr(tlw) if tlw is not None else None,
         ptr(tx) if tx is not None else None,
         ptr(dbg) if dbg is not None else None,
-        ptr(yprop) if yprop is not None else None, ptr(bad), thin, ops.n_pad,
-        B,
-        ops.window, n_steps, k0, k1, step, chain_offset,
+        ptr(yprop) if yprop is not None else None, ptr(scratch), ptr(bad),
+        thin, ops.n_pad, B, ops.window, n_steps, k0, k1, step, chain_offset,
         ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
     raise_on("imhk_tc", rc, what)
+    return imhk_tc_residency(ops.n_pad, ops.window, wide, ops.device)
+
+
+def proposal_scratch(n_pad: int, num_chains: int, device) -> torch.Tensor:
+    """B2/B3's proposals in device memory: (blocks, n_pad, 32) bf16, one
+    (n_pad, 32) region for each block of `TC_CHAINS` chains, in the layout
+    the kernel gives it (chains swizzled within a row). The kernel writes it
+    before it reads it; through the caching allocator a call reuses the
+    last call's."""
+    blocks = -(-num_chains // TC_CHAINS)
+    return torch.empty(blocks, n_pad, TC_CHAINS, dtype=torch.bfloat16,
+                       device=device)
 
 
 def imhk_fused(ops: KleinOperands, x, lw, acc, n_steps: int, *,
@@ -832,7 +851,10 @@ def imhk_fused(ops: KleinOperands, x, lw, acc, n_steps: int, *,
                uniforms=None, guard=None):
     """B2: n_steps fused IMHK steps in one launch, updating x (n_pad, B),
     lw (B,) and acc (B,) (float32 acceptance counts) in place. The proposal
-    stays in the kernel's shared memory. With `guard` (an `exact_guard`)
+    goes to a device-memory scratch (`proposal_scratch`) that the kernel
+    reads back through a ring in shared memory, so that eight blocks of 32
+    chains share an SM (four for the WIDE instantiation); `resident_chains`
+    records the chains an SM held at the last launch. With `guard` (an `exact_guard`)
     the caller reads the C8 counters with `check_exact`; without one the
     wrapper reads its own after the launch. CPU operands run
     `imhk_fused_plain`."""
@@ -844,8 +866,9 @@ def imhk_fused(ops: KleinOperands, x, lw, acc, n_steps: int, *,
         own = guard is None
         if own:
             guard = exact_guard(ops.device)
-        _imhk_tc_launch(ops, x, lw, acc, n_steps, seed, step, chain_offset,
-                        uniforms, "imhk_fused", guard[0])
+        imhk_fused.resident_chains = _imhk_tc_launch(
+            ops, x, lw, acc, n_steps, seed, step, chain_offset, uniforms,
+            "imhk_fused", guard[0])
         imhk_fused.launches += 1
         if own:
             check_exact(guard, "imhk_fused")
@@ -872,9 +895,9 @@ def imhk_trajectory(ops: KleinOperands, x, lw, acc, n_keep: int,
     if own:
         guard = exact_guard(ops.device)
     tlw, tx = _trajectory_ring(x, n_keep, coeffs)
-    _imhk_tc_launch(ops, x, lw, acc, n_keep * thin, seed, step, chain_offset,
-                    uniforms, "imhk_trajectory", guard[1], tlw=tlw, tx=tx,
-                    thin=thin)
+    imhk_trajectory.resident_chains = _imhk_tc_launch(
+        ops, x, lw, acc, n_keep * thin, seed, step, chain_offset, uniforms,
+        "imhk_trajectory", guard[1], tlw=tlw, tx=tx, thin=thin)
     imhk_trajectory.launches += 1
     if own:
         check_exact(guard, "imhk_trajectory")
@@ -916,14 +939,34 @@ def imhk_centres(ops: KleinOperands, x, lw, *, seed: int = 0,
 def imhk_tc_resources(n_pad: int, window: int, wide: bool = False) -> dict:
     """B2/B3's kernel (its WIDE instantiation with `wide`) for `window` at
     n_pad on the current card: registers and local (spill) bytes a thread,
-    dynamic shared memory and threads a block, and blocks resident per
-    SM."""
+    dynamic shared memory and threads a block, blocks resident per SM and
+    the chains they hold."""
     out = (ctypes.c_int * 5)()
     raise_on("imhk_tc", load("imhk_tc").imhk_tc_info(n_pad, window,
                                                       int(wide), out),
              "imhk_tc_info")
-    return dict(zip(("registers", "local_bytes", "shared_bytes",
-                     "blocks_per_sm", "threads"), list(out)))
+    res = dict(zip(("registers", "local_bytes", "shared_bytes",
+                    "blocks_per_sm", "threads"), list(out)))
+    res["resident_chains"] = res["blocks_per_sm"] * TC_CHAINS
+    return res
+
+
+# (device, n_pad, window, wide) -> chains of B2/B3 resident an SM
+_RESIDENCY: dict = {}
+
+
+def imhk_tc_residency(n_pad: int, window: int, wide: bool, device) -> int:
+    """Chains an SM holds of B2/B3's kernel at n_pad and `window` (WIDE
+    with `wide`), `imhk_tc_resources`' `resident_chains`, queried once per
+    (device, n_pad, window, wide) so that no launch pays for the query.
+    The query runs on `device`, not the current card."""
+    key = (str(device), n_pad, window, bool(wide))
+    chains = _RESIDENCY.get(key)
+    if chains is None:
+        with torch.cuda.device(device):
+            chains = _RESIDENCY[key] = imhk_tc_resources(
+                n_pad, window, wide)["resident_chains"]
+    return chains
 
 
 # the wrappers of an `exact_guard`'s rows, in order
@@ -942,6 +985,9 @@ def reset_launch_counts():
     _BABAI_Y.clear()
     imhk_fused.launches = 0
     imhk_trajectory.launches = 0
+    # chains resident an SM at the last B2 / B3 launch
+    imhk_fused.resident_chains = 0
+    imhk_trajectory.resident_chains = 0
     # largest |y| each tensor-core kernel drew since the reset (hazard C8)
     for wrapper in _GUARDED:
         wrapper.max_abs_y = 0

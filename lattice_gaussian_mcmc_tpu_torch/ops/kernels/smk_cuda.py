@@ -242,9 +242,9 @@ def smk_steps_plain(ops: SMKOperands, x, acc, n_steps: int, *,
 # ---------------------------------------------------------------------------
 
 EXACT_Y = klein_cuda.EXACT_Y
-# the proposal tile and the coupling tile are B2's (imhk_tc_common.cuh
-# `tc_smem_bytes`), so the largest n_pad is B2's
-SMK_TC_MAX_N_PAD = klein_cuda.IMHK_TC_MAX_N_PAD
+# the proposal tile and the coupling tile are B1's (imhk_tc_common.cuh
+# `tc_smem_bytes`), so the largest n_pad is B1's
+SMK_TC_MAX_N_PAD = klein_cuda.KLEIN_TC_MAX_N_PAD
 
 
 def exact_guard(device) -> torch.Tensor:

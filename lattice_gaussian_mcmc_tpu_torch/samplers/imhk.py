@@ -304,9 +304,9 @@ class IMHKSampler:
 
         On a CUDA device the kernels run; on the CPU their plain versions.
         backend "cuda" raises unless the sampler's device is a card. On a
-        card B2 and B3 keep the proposal in shared memory, so n (padded to
-        a multiple of 128) must be at most `klein_cuda.IMHK_TC_MAX_N_PAD`
-        (3,456); above it they raise before any launch (the JAX package's
+        card n (padded to a multiple of 128) must be at most
+        `klein_cuda.IMHK_TC_MAX_N_PAD` (3,456), B2 and B3's reach; above it
+        they raise before any launch (the JAX package's
         `sample_iid` falls back to `imhk_chains` there)."""
         check_backend(backend, self.device)
         ops = self.operands

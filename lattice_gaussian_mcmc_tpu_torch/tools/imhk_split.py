@@ -6,7 +6,8 @@ coupling and its draws, at the flagship's shapes.
 Builds three copies of the kernel source (`_build.edited_sources`, beside
 the package's own libraries): as it is, without the cross-block coupling
 (each block's coupling tile left at zero, so the draws still run, around
-other centres), and without the draws (only the coupling, the sub-block
+other centres, and the proposal still goes through the scratch), and
+without the draws (only the coupling with its ring, the sub-block
 products and the accept step run). Each is launched at 524,288 chains
 (NTRU-512, sigma 165.7, window by tail budget 0.01) for STEPS fused steps
 (default 8), in turns full, no coupling, no draws, no draws, no coupling,
@@ -32,8 +33,9 @@ SIGMA = 165.7
 CUTS = {
     "full": [],
     "no_coupling": [(
-        "couple(op, ysm, cacc, lo, warp, lane);",
-        "zero(cacc); if (lo < 0) couple(op, ysm, cacc, lo, warp, lane);")],
+        "couple_ring(op, tsm, rsm, ysc, ct, lo, warp, lane, tid);",
+        "if (lo < 0) couple_ring(op, tsm, rsm, ysc, ct, lo, warp, lane, tid);"
+        " else for (int k = tid; k < NC * CT_STRIDE; k += TPB) ct[k] = 0;")],
     "no_draws": [(
         "for (int r2 = rlo + SB - 1; r2 > rlo; r2 -= 2) {",
         "for (int r2 = rlo + SB - 1; r2 > rlo && lo < 0; r2 -= 2) {")],
@@ -66,6 +68,8 @@ def main(steps: int) -> dict:
             ptxas[name] = sorted({ln.strip() for ln in report.splitlines()
                                   if "registers" in ln})
 
+    scratch = klein_cuda.proposal_scratch(ops.n_pad, CHAINS, "cuda")
+
     def run(lib, n_steps):
         x, lw = y0.clone(), lw0.clone()
         acc = torch.zeros_like(lw)
@@ -77,8 +81,8 @@ def main(steps: int) -> dict:
         a.record()
         rc = lib.imhk_tc_launch(
             p(frag), p(ops.UT), p(ops.cs), p(ops.isg), None, p(x), p(lw),
-            p(acc), None, None, None, None, p(bad), 1, ops.n_pad, CHAINS,
-            ops.window, n_steps, k0, k1, 1, 0,
+            p(acc), None, None, None, None, p(scratch), p(bad), 1, ops.n_pad,
+            CHAINS, ops.window, n_steps, k0, k1, 1, 0,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         b.record()
         torch.cuda.synchronize()

@@ -77,6 +77,12 @@ MUTANTS = {
     # B7 (and B1/B6's WIDE instantiations) without y's second and third
     # bf16 parts: no tile is flagged
     "b7_no_wide": ("klein_tc.cu", "big[i / SB] = 1;", "big[i / SB] = 0;"),
+    # B2/B3's coupling drops the rows more than 1,024 above a block: no
+    # change at n_pad 1024, wrong at FALCON-1024's 2048 (the NTRU-1024 check)
+    "b2_near_rows_only": ("imhk_tc.cu",
+                          "for (int kt = kt0; kt < KT; kt += 2) {",
+                          "for (int kt = kt0; kt < min(KT, kt0 + 64); "
+                          "kt += 2) {"),
     # B2's WIDE instantiation without them (fault C11; the q-ary check at
     # n = 64)
     "b2_no_wide": ("imhk_tc.cu", "big[i / SB] = 1;", "big[i / SB] = 0;"),

@@ -69,6 +69,31 @@ def ops():
     return _operands()
 
 
+# FALCON-512 and FALCON-1024 at their signing sigma, window by tail budget
+# 0.01 (the IMHK cells' operands): ring degree -> sigma, n_pad, window
+FALCON = {512: (165.7366, 1024, 16), 1024: (168.3886, 2048, 24)}
+# a chain count that is not a multiple of the 32 chains a block holds
+ODD_CHAINS = 997
+# B2/B3's residency (imhk_tc.cu): eight blocks of 32 chains an SM
+MIN_RESIDENT_CHAINS = 256
+# lw at n = 1024 and 2048 sums float32 log-normalizers to ~10^3, where a
+# float32 ulp is 1.2e-4 to 2.4e-4 (chip_smoke.py MAX_LW_ERR)
+FALCON_LW_ATOL = 1e-3
+
+
+def _falcon_operands(ring):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    sigma, n_pad, window = FALCON[ring]
+    lat = ntru_lattice(ring, q=12289, seed=0,
+                       cache_dir=os.path.join(REPO, "bench_cache"),
+                       device="cuda")
+    ops = klein_cuda.kernel_operands(
+        klein_precompute(lat, sigma, tail_budget=0.01))
+    assert (ops.n_pad, ops.window) == (n_pad, window)
+    return ops
+
+
 def _agree(y, yp, lw, lwp):
     same = (y[:N] == yp[:N]).all(dim=0)
     assert 1 - same.float().mean().item() <= MAX_CHAINS_DIFFERING
@@ -106,6 +131,47 @@ def test_b2_matches_plain(ops):
     _agree(x, xp, l, lp)
     assert (a != ap).float().mean().item() <= MAX_CHAINS_DIFFERING
     assert 0 < a.sum().item() < 2 * B
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", [512, 1024])
+def test_b2_matches_plain_at_the_falcon_widths(ring):
+    """n_pad 1024 at W 16 and n_pad 2048 at W 24, on a chain count that
+    leaves the last block part empty."""
+    ops = _falcon_operands(ring)
+    klein_cuda.reset_launch_counts()
+    y, lw = klein_cuda.klein_draw(ops, ODD_CHAINS, seed=3)
+    x, l, a = y.clone(), lw.clone(), torch.zeros_like(lw)
+    xp, lp, ap = y.clone(), lw.clone(), torch.zeros_like(lw)
+    klein_cuda.imhk_fused(ops, x, l, a, 2, seed=3, step=1)
+    klein_cuda.imhk_fused_plain(ops, xp, lp, ap, 2, seed=3, step=1)
+    assert klein_cuda.imhk_fused.launches == 1
+    same = (x[:ops.n] == xp[:ops.n]).all(dim=0)
+    assert 1 - same.float().mean().item() <= MAX_CHAINS_DIFFERING
+    torch.testing.assert_close(l[same], lp[same], atol=FALCON_LW_ATOL,
+                               rtol=0)
+    assert (a != ap).float().mean().item() <= MAX_CHAINS_DIFFERING
+    assert a.sum().item() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", [512, 1024])
+def test_b2_b3_record_their_residency(ring):
+    """Each launch records the chains an SM held, the kernel's own
+    occupancy: eight blocks of 32 chains at both FALCON widths."""
+    ops = _falcon_operands(ring)
+    klein_cuda.reset_launch_counts()
+    y, lw = klein_cuda.klein_draw(ops, 64, seed=1)
+    klein_cuda.imhk_fused(ops, y, lw, torch.zeros_like(lw), 1, seed=1,
+                          step=1)
+    klein_cuda.imhk_trajectory(ops, y, lw, torch.zeros_like(lw), 1,
+                               seed=1, step=2)
+    res = klein_cuda.imhk_tc_resources(ops.n_pad, ops.window)
+    assert klein_cuda.imhk_fused.resident_chains == res["resident_chains"]
+    assert (klein_cuda.imhk_trajectory.resident_chains
+            == res["resident_chains"])
+    assert res["resident_chains"] >= MIN_RESIDENT_CHAINS
+    assert res["registers"] <= 128
 
 
 @pytest.mark.cuda
@@ -246,9 +312,12 @@ def test_sample_iid_on_card_hard_regime():
 
 
 @pytest.mark.cuda
-def test_b3_is_b2_with_a_ring(ops):
+@pytest.mark.parametrize("width", ["n136", 512, 1024])
+def test_b3_is_b2_with_a_ring(width):
     """One code path: B3's final state is B2's bit for bit, and its ring
-    holds B2's state and lw after every thin-th step."""
+    holds B2's state and lw after every thin-th step; on the small
+    operands and at both FALCON widths."""
+    ops = _operands() if width == "n136" else _falcon_operands(width)
     y, lw = klein_cuda.klein_draw(ops, B, seed=4, step=0)
     x3, l3, a3 = y.clone(), lw.clone(), torch.zeros_like(lw)
     x3, l3, a3, tx, tlw = klein_cuda.imhk_trajectory(
@@ -261,7 +330,10 @@ def test_b3_is_b2_with_a_ring(ops):
         assert torch.equal(tx[k * n_pad:(k + 1) * n_pad], x2)
     assert torch.equal(x3, x2) and torch.equal(l3, l2)
     assert torch.equal(a3, a2)
-    assert 0 < a3.sum().item() < 6 * B
+    assert 0 < a3.sum().item() <= 6 * B
+    if width == "n136":
+        # FALCON's sigma rejects ~3e-5 of proposals; these operands reject
+        assert a3.sum().item() < 6 * B
 
 
 @pytest.mark.cuda

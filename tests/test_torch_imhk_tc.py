@@ -5,6 +5,7 @@ float64 centres on the flagship's operands (NTRU-512, sigma 165.7), with
 U1 alone shown to fail the same gate. The kernel itself runs only on a
 card (`tests/test_torch_cuda_kernels.py`, `chip_smoke.py`)."""
 
+import contextlib
 import os
 
 import numpy as np
@@ -207,3 +208,74 @@ def test_wide_y_is_made_again_after_an_in_place_change():
     assert not klein_cuda.wide_y(ops)
     y, _ = klein_cuda.klein_draw_plain(ops, 64, seed=1)
     assert float(y[0].abs().max()) == 500.0
+
+
+@pytest.mark.parametrize("n_pad,chains,blocks",
+                         [(128, 1, 1), (1024, 997, 32), (2048, 64, 2)])
+def test_proposal_scratch_holds_a_region_a_block(n_pad, chains, blocks):
+    """B2/B3's proposals: n_pad x 64 bytes of bf16 for each block of 32
+    chains, the last block part empty where the chains are not a
+    multiple of 32."""
+    s = klein_cuda.proposal_scratch(n_pad, chains, "cpu")
+    assert s.shape == (blocks, n_pad, klein_cuda.TC_CHAINS)
+    assert s.dtype == torch.bfloat16 and s.is_contiguous()
+    assert s.numel() * s.element_size() == blocks * n_pad * 64
+
+
+def test_residency_is_queried_once_a_key(monkeypatch):
+    """Once per (device, n_pad, window, wide), each query on the key's
+    card and not the current one."""
+    calls, current = [], ["cuda:0"]
+
+    @contextlib.contextmanager
+    def on_device(device):
+        prev, current[0] = current[0], device
+        try:
+            yield
+        finally:
+            current[0] = prev
+
+    def resources(n_pad, window, wide=False):
+        calls.append((current[0], n_pad, window, wide))
+        return {"resident_chains": 192 if wide else 256}
+
+    monkeypatch.setattr(klein_cuda.torch.cuda, "device", on_device)
+    monkeypatch.setattr(klein_cuda, "imhk_tc_resources", resources)
+    monkeypatch.setattr(klein_cuda, "_RESIDENCY", {})
+    for _ in range(2):
+        assert klein_cuda.imhk_tc_residency(1024, 16, False, "cuda:0") == 256
+    assert klein_cuda.imhk_tc_residency(1024, 16, True, "cuda:0") == 192
+    assert klein_cuda.imhk_tc_residency(2048, 24, False, "cuda:0") == 256
+    assert klein_cuda.imhk_tc_residency(2048, 24, False, "cuda:1") == 256
+    assert calls == [("cuda:0", 1024, 16, False), ("cuda:0", 1024, 16, True),
+                     ("cuda:0", 2048, 24, False), ("cuda:1", 2048, 24, False)]
+    assert current == ["cuda:0"]
+
+
+def test_resources_count_the_chains_an_sm_holds(monkeypatch):
+    class Lib:
+        @staticmethod
+        def imhk_tc_info(n_pad, window, wide, out):
+            out[:] = [128, 128, 21120, 8, 64]
+            return 0
+
+    monkeypatch.setattr(klein_cuda, "load", lambda name: Lib())
+    assert klein_cuda.imhk_tc_resources(1024, 16) == {
+        "registers": 128, "local_bytes": 128, "shared_bytes": 21120,
+        "blocks_per_sm": 8, "threads": 64, "resident_chains": 256}
+
+
+def test_reset_clears_the_recorded_residency():
+    klein_cuda.imhk_fused.resident_chains = 256
+    klein_cuda.imhk_trajectory.resident_chains = 256
+    klein_cuda.reset_launch_counts()
+    assert klein_cuda.imhk_fused.resident_chains == 0
+    assert klein_cuda.imhk_trajectory.resident_chains == 0
+
+
+def test_split_cuts_find_their_sites_once(tmp_path):
+    """tools/imhk_split.py cuts the kernel by exact source strings."""
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import _build
+    from lattice_gaussian_mcmc_tpu_torch.tools import imhk_split
+    for name, edits in imhk_split.CUTS.items():
+        _build.edited_sources(str(tmp_path / name), "imhk_tc.cu", edits)
