@@ -43,13 +43,23 @@ convergence study. Phases, one JSON line each:
                    draw, on host uniforms and on Philox; B1, B2, B5 and
                    B6 on the suite's LLL-reduced q-ary operands at n = 16
                    and 64 (window 104, the WIDE instantiations: fault
-                   C11), with the largest |y| each drew; B1 and B2 at
+                   C11), with the largest |y| each drew; centred B1 (a
+                   centre per chain) at the signing width (n_pad 1024,
+                   window 40) on the signer's residual centres, and bit
+                   for bit against B1 with every centre equal; B1 and B2 at
                    the cli phase's shapes (Z^2048 at 2 eta, NTRU-512's
                    adaptation start, the crypto rows that sample)
   law              2D hard regime: TVD to the enumerated target and the
                    stationary acceptance 0.9904 (IMHK), TVD of SMK; B8's
                    TVD to the exact pmf; B6's per-round moments in 2D;
                    UnifiedLatticeSampler(klein) TVD at sigma 2
+  signing          FalconSigner on NTRU-512 at FALCON-512's sigma, q and
+                   floor(beta^2): 16 calls of 65,536 hashed messages,
+                   every signature verified against the key's h, the mean
+                   of ||s||^2 / (2n sigma^2), centred B1's largest |y|
+                   (hazard C8), the redraw rounds a call, the ms a call,
+                   and rows of a call held to the benchmark's float64
+                   reference (lgbench/reference/sign.py)
   captured_chains  each plain chain function (imhk_chain, smk_chains,
                    gibbs_chain, annealed_gibbs_decode, _mhk_decode_batch)
                    as replays of one captured CUDA graph a step or sweep
@@ -116,13 +126,13 @@ convergence study. Phases, one JSON line each:
                    type (`bound`), beside the FP32-only figure
 
 Each path phase (captured_chains, flagship, hard_regime, smk, peikert,
-scale_validation, suite, decode, decoding, validation, each experiment of
-cli, and each counted step of mesh) sets every launch count (and the
-captured graphs' captures and replays) to 0 before it runs and reads them
-after; decoding, validation and mesh require replays (`captured`). Then
-the card's name and power limit, a `kernels` line, and as the last line
-{"ok": true, "device": {...}}. Any failed check exits non-zero before the
-last line. Imports nothing of JAX.
+scale_validation, suite, decode, signing, decoding, validation, each
+experiment of cli, and each counted step of mesh) sets every launch count
+(and the captured graphs' captures and replays) to 0 before it runs and
+reads them after; decoding, validation and mesh require replays
+(`captured`). Then the card's name and power limit, a `kernels` line, and
+as the last line {"ok": true, "device": {...}}. Any failed check exits
+non-zero before the last line. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -295,6 +305,25 @@ PEIKERT_WIDE_RING = 1024
 B2_NTRU1024_RING = 1024
 FALCON1024_SIGMA = 168.3886
 B2_NTRU1024_CHAINS = CHECK_CHAINS - 3
+# FALCON-512 signing (samplers/sign.py, the falcon512_sign benchmark
+# configuration): sigma, q, floor(beta^2) and the signing tail budget
+# 2^-64, whose window is 40 on NTRU-512 (centred B1's compiled window)
+SIGN_SIGMA, SIGN_Q, SIGN_BETA2 = 165.7366, 12289, 34034726
+SIGN_TAIL = 2.0 ** -64
+SIGN_WINDOW = 40
+SIGN_MESSAGES = 65_536
+SIGN_CALLS = 16                      # 2^20 signatures
+# |E ||s||^2 / (2n sigma^2) - 1| over the 2^20 signatures: ~4e-5 of noise
+# (a signature's relative spread, 0.044, over 1024); the bound's cut takes
+# 3.9e-6 of them
+MAX_SIGN_NORM_GAP = 2e-3
+SIGN_REF_ROWS = 256                  # rows held to the float64 reference
+# the redraw loop at scale: floor(beta^2) at 2n sigma^2, about the median
+# of ||s||^2, fails about half of each round's draws
+SIGN_TIGHT_MESSAGES = 4096
+SIGN_TIGHT_MIN_ROUNDS = 3
+# the falcon512_sign.batch cell's limit on rows that differ from it
+SIGN_MAX_ROWS_DIFFER = 0.05
 # the cli phase: the port's CLI at its defaults, these experiments
 CLI_EXPERIMENTS = ("scaling", "crypto", "sensitivity", "adaptation")
 # the mesh phase: the sharded paths (parallel/) at the flagship's and the
@@ -681,6 +710,7 @@ class Smoke:
 
     def counts(self):
         return {"klein_draw": self.kc.klein_draw.launches,
+                "klein_draw_centred": self.kc.klein_draw_centred.launches,
                 "klein_draw_fp32": self.kc.klein_draw.fp32_launches,
                 "klein_ring_fp32": self.kc.klein_ring.fp32_launches,
                 "imhk_fused": self.kc.imhk_fused.launches,
@@ -737,7 +767,7 @@ def phase_toolchain(s: Smoke):
     built = _build.build_all()
     build_s = time.perf_counter() - t0
     for name in ("klein", "klein_tc", "imhk_tc", "smk_tc", "peikert_tc",
-                 "zn"):
+                 "zn", "sign"):
         _build.load(name)
     ptxas = {name: [ln.strip() for ln in info["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln][:12]
@@ -754,6 +784,9 @@ def phase_toolchain(s: Smoke):
     klein_tc = {f"n_pad_{n}": {f"{k}_window_{w}": s.kc.klein_tc_resources(
         n, w, k) for k in ("b1", "b6") for w in (8, 16, 24)}
         for n in (256, 1024)}
+    # centred B1's at the signing width (n_pad 1024, window 40)
+    klein_tc["n_pad_1024"]["b1_centred_window_40"] = \
+        s.kc.klein_tc_resources(1024, SIGN_WINDOW, "b1_centred")
     # B7's (klein_tc.cu, Babai mode) at the decode phase's and the reach
     # check's n_pad, and at the largest the route takes
     for n in (256, 1024, s.kc.KLEIN_TC_MAX_N_PAD):
@@ -1576,6 +1609,60 @@ def check_b8(s: Smoke):
                 "philox": philox}
 
 
+def sign_operands(s: Smoke):
+    """Centred B1's operands at the signing width: NTRU-512 at FALCON-512's
+    sigma and the signing tail budget (centre 0)."""
+    from lattice_gaussian_mcmc_tpu_torch.samplers import klein_precompute
+    return s.kc.kernel_operands(klein_precompute(s.lat, SIGN_SIGMA,
+                                                 tail_budget=SIGN_TAIL))
+
+
+def check_b1_centred(s: Smoke):
+    """Centred B1 at the signing width (n_pad 1024, window 40) on the
+    signer's residual centres U r, r uniform on [-1/2, 1/2) in every
+    coordinate and chain, CHECK_CHAINS - 3 chains (the last block part
+    empty): against its plain version on the caller's uniforms and on
+    Philox, and bit for bit against B1 with every centre equal to the
+    operands' cs (on Philox, B1 on the midpoint uniforms of its counters,
+    which centred B1 draws in-kernel)."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import sign_cuda
+    kc, dev, gen = s.kc, s.dev, s.gen
+    ops = sign_operands(s)
+    n, n_pad, B = ops.n, ops.n_pad, CHECK_CHAINS - 3
+    r = torch.rand(n, B, device=dev, dtype=torch.float64, generator=gen)
+    cs = torch.zeros(n_pad, B, device=dev)
+    cs[:n] = ops.U[:n, :n].double() @ (r - 0.5)
+    u = torch.rand(n_pad, B, device=dev, generator=gen)
+    res, plain_ms = {}, None
+    for name, kw in (("host", {"uniforms": u}),
+                     ("philox", {"seed": 2 ** 33 + 17, "step": 2})):
+        y, lw = kc.klein_draw_centred(ops, cs, **kw)
+        outp = []
+        plain_ms = cuda_ms(lambda: outp.extend(
+            kc.klein_draw_centred_plain(ops, cs, **kw)))
+        res[name] = compare_draws(y, outp[0], lw, outp[1], n)
+    same = ops.cs[:, None].expand(-1, B).contiguous()
+    mid = sign_cuda.redraw_uniforms(23, torch.arange(B, device=dev), 1,
+                                    n_pad)
+    equal = {}
+    for name, kw, kwb in (("host", {"uniforms": u}, {"uniforms": u}),
+                          ("philox", {"seed": 23, "step": 1},
+                           {"uniforms": mid})):
+        y, lw = kc.klein_draw_centred(ops, same, **kw)
+        yb, lwb = kc.klein_draw(ops, B, **kwb)
+        equal[name] = torch.equal(y, yb) and torch.equal(lw, lwb)
+    max_y = kc.klein_draw_centred.max_abs_y
+    ok = (ops.window == SIGN_WINDOW and all(map(draws_ok, res.values()))
+          and all(equal.values()) and 0 < max_y <= kc.EXACT_Y)
+    s.note("B1c", max_abs_err=max(v["max_abs_lw_err"] for v in res.values()),
+           coeffs_differing=max(v["coeffs_differing"]
+                                for v in res.values()),
+           plain_ms=plain_ms, check_shape=f"{B} chains, window {ops.window}")
+    return ok, dict(res, equal_centres_are_b1=equal, max_abs_y=max_y,
+                    chains=B, window=ops.window)
+
+
 def phase_kernel_vs_plain(s: Smoke):
     import torch
     from lattice_gaussian_mcmc_tpu_torch.lattices import lattice_from_basis
@@ -1791,8 +1878,9 @@ def phase_kernel_vs_plain(s: Smoke):
     fp32_ok, fp32 = check_fp32_route(s)
     b7_ok, b7 = check_b7(s)
     b8_ok, b8 = check_b8(s)
-    ok = (b1_ok and b2_ok and b2w_ok and b3_ok and b4_ok and b5_ok
-          and b5w_ok and b6_ok
+    b1c_ok, b1c = check_b1_centred(s)
+    ok = (b1_ok and b1c_ok and b2_ok and b2w_ok and b3_ok and b4_ok
+          and b5_ok and b5w_ok and b6_ok
           and qary_ok and cli_ok and mesh_ok and fp32_ok and b7_ok and b8_ok)
     emit({"phase": "kernel_vs_plain", "ok": ok, "chains": B, "dim": n,
           "window": W, "plain_allow_tf32": False,
@@ -1819,8 +1907,9 @@ def phase_kernel_vs_plain(s: Smoke):
           "b5_philox": b5_philox, "b5_ntru1024": b5_wide, "b6": b6,
           "b1_b2_b5_b6_qary": qary, "b1_b2_cli_shapes": cli_shapes,
           "b1_b2_b5_mesh_shapes": mesh_shapes,
-          "b7": b7, "b8": b8,
-          "oks": {"b1": b1_ok, "b1_b6_b7_fp32_route": fp32_ok,
+          "b7": b7, "b8": b8, "b1_centred": b1c,
+          "oks": {"b1": b1_ok, "b1_centred": b1c_ok,
+                  "b1_b6_b7_fp32_route": fp32_ok,
                   "b2": b2_ok, "b2_b3_ntru1024": b2w_ok,
                   "b3": b3_ok, "b4": b4_ok, "b5": b5_ok,
                   "b5_ntru1024": b5w_ok, "b6": b6_ok,
@@ -1830,6 +1919,111 @@ def phase_kernel_vs_plain(s: Smoke):
     if not ok:
         fail("kernel_vs_plain", "kernel disagrees with its plain version")
     return s2, basis2
+
+
+# ---------------------------------------------------------------- signing
+def phase_signing(s: Smoke):
+    """FalconSigner on NTRU-512 (the falcon512_sign benchmark cell's
+    signer): SIGN_CALLS calls of SIGN_MESSAGES hashed messages, each call
+    timed by CUDA events; every signature verified against the key's h and
+    the bound; rows of the first call held to the float64 reference. Then
+    centred B1 alone at a call's shape, and the redraw loop at scale: a
+    signer whose bound, 2n sigma^2, fails about half the draws of every
+    round, its signatures verified and held to the reference."""
+    import numpy as np
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.samplers import FalconSigner, verify
+    from lgbench import harness
+    from lgbench.reference import sign as ref_sign
+    kc = s.kc
+    signer = FalconSigner(s.lat, SIGN_SIGMA, SIGN_Q, SIGN_BETA2,
+                          tail_budget=SIGN_TAIL)
+    with np.load(os.path.join(REPO, "bench_cache",
+                              "ntru_512_12289_0_g.npz")) as key:
+        h = key["h"]
+    signer.sign(1, signer.hash_to_point(1, SIGN_MESSAGES))     # warm-up
+    s.reset_counts()
+    dim = s.lat.n
+    ms, rounds, verified, norm2 = [], [], 0, 0.0
+    first = None
+    for k in range(SIGN_CALLS):
+        seed = 2 ** 40 + 1_000_003 * k
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        c = signer.hash_to_point(seed, SIGN_MESSAGES)
+        sig = signer.sign(seed, c)
+        ev1.record()
+        torch.cuda.synchronize()
+        ms.append(ev0.elapsed_time(ev1))
+        rounds.append(signer.redraw_rounds)
+        verified += int(verify(h, c, sig, SIGN_Q, SIGN_BETA2).sum())
+        norm2 += float((sig * sig).sum())
+        if first is None:
+            first = (seed, sig[:SIGN_REF_ROWS].clone())
+    launches = s.counts()
+    s.launches["signing"] = launches
+    total = SIGN_CALLS * SIGN_MESSAGES
+    norm_ratio = norm2 / (total * dim * SIGN_SIGMA ** 2)
+    ref = ref_sign.Reference(s.lat.basis.cpu().numpy(), SIGN_SIGMA,
+                             {"q": SIGN_Q, "beta2": SIGN_BETA2,
+                              "tail_budget": SIGN_TAIL}, s.dev)
+    seed, rows = first
+    differ = harness.compare(rows, ref.expected(
+        {"seed": torch.full((SIGN_REF_ROWS,), seed, dtype=torch.int64),
+         "chain": torch.arange(SIGN_REF_ROWS)}))
+    max_y = kc.klein_draw_centred.max_abs_y
+    # centred B1 alone on the last call's centres: U's fragments and U^T
+    # read, the centres read and y and lw written once
+    ops = signer.operands
+    n_pad, W, B = ops.n_pad, ops.window, SIGN_MESSAGES
+    _, cs = signer.centres(c.to(torch.float64))
+    del c, sig
+    kc.klein_draw_centred(ops, cs, seed=seed)
+    ms_b1c = cuda_ms(lambda: kc.klein_draw_centred(ops, cs, seed=seed),
+                     reps=3)
+    del cs
+    nbytes = 4 * (2 * n_pad * n_pad + 2 * n_pad + 2 * n_pad * B + B)
+    s.note("B1c", ms=ms_b1c, **klein_bound(ops.n, W, B, nbytes),
+           fp32_bound_ms=fp32_bound_ms(klein_flop(ops.n, W) * B, nbytes),
+           shape=f"{B} chains, window {W}",
+           sign_call_ms=sorted(ms)[len(ms) // 2])
+    # the redraw loop at scale
+    tight_beta2 = int(dim * SIGN_SIGMA ** 2)
+    tight = FalconSigner(s.lat, SIGN_SIGMA, SIGN_Q, tight_beta2,
+                         tail_budget=SIGN_TAIL)
+    seed = 2 ** 41 + 7
+    c = tight.hash_to_point(seed, SIGN_TIGHT_MESSAGES)
+    sig = tight.sign(seed, c)
+    tight_verified = int(verify(h, c, sig, SIGN_Q, tight_beta2).sum())
+    ref_t = ref_sign.Reference(s.lat.basis.cpu().numpy(), SIGN_SIGMA,
+                               {"q": SIGN_Q, "beta2": tight_beta2,
+                                "tail_budget": SIGN_TAIL}, s.dev)
+    tight_differ = harness.compare(sig[:SIGN_REF_ROWS], ref_t.expected(
+        {"seed": torch.full((SIGN_REF_ROWS,), seed, dtype=torch.int64),
+         "chain": torch.arange(SIGN_REF_ROWS)}))
+    tight_res = {"messages": SIGN_TIGHT_MESSAGES, "beta2": tight_beta2,
+                 "redraw_rounds": tight.redraw_rounds,
+                 "verified": tight_verified,
+                 "reference_rows_differ": tight_differ}
+    ok = (verified == total and abs(norm_ratio - 1) < MAX_SIGN_NORM_GAP
+          and 0 < max_y <= kc.EXACT_Y and signer.window == SIGN_WINDOW
+          and differ <= SIGN_MAX_ROWS_DIFFER
+          and launches["klein_draw_centred"] == SIGN_CALLS + sum(rounds)
+          and tight.redraw_rounds >= SIGN_TIGHT_MIN_ROUNDS
+          and tight_verified == SIGN_TIGHT_MESSAGES
+          and tight_differ <= SIGN_MAX_ROWS_DIFFER)
+    emit({"phase": "signing", "ok": ok, "calls": SIGN_CALLS,
+          "messages": SIGN_MESSAGES, "window": signer.window,
+          "verified": verified, "of": total,
+          "norm2_over_dim_sigma2": norm_ratio, "max_abs_y": max_y,
+          "redraw_rounds": rounds, "ms_per_call": ms,
+          "reference_rows_differ": differ, "reference_rows": SIGN_REF_ROWS,
+          "b1c_ms": ms_b1c, "b1c_bound_ms": s.k["B1c"]["bound_ms"],
+          "tight_bound": tight_res, "launches": launches, "card": s.card})
+    if not ok:
+        fail("signing", "a signature failed verification, the law's second "
+             "moment, the exact range, the reference or the redraw loop")
 
 
 # ---------------------------------------------------------------- law
@@ -1926,7 +2120,8 @@ def phase_flagship(s: Smoke):
         accs.append(sampler.acceptance_rate)
     launches = s.counts()
     s.launches["flagship"] = launches
-    expected = {"klein_draw": FLAGSHIP_REPS + 1, "klein_draw_fp32": 0,
+    expected = {"klein_draw": FLAGSHIP_REPS + 1, "klein_draw_centred": 0,
+                "klein_draw_fp32": 0,
                 "klein_ring_fp32": 0, "imhk_fused": FLAGSHIP_REPS,
                 "imhk_trajectory": 0, "smk_steps": 0, "peikert_rounds": 0,
                 "klein_ring": 0, "babai_decode": 0, "babai_decode_fp32": 0,
@@ -2172,7 +2367,8 @@ def scale_validation_expected(sizes):
     1024: B1 a Klein batch (smooth, hard and its extra KS seeds, the SMK
     start), B2 one 16-step launch a Klein/IMHK regime, B4 one, B5 one; the
     float64 route none."""
-    expected = {k: 0 for k in ("klein_draw", "klein_draw_fp32",
+    expected = {k: 0 for k in ("klein_draw", "klein_draw_centred",
+                               "klein_draw_fp32",
                                "klein_ring_fp32", "imhk_fused",
                                "imhk_trajectory", "smk_steps",
                                "peikert_rounds", "klein_ring",
@@ -3303,6 +3499,8 @@ KERNELS = [
     # (key, name, source, replaces, launch counter)
     ("B1", "klein_draw (B1)", "klein_tc.cu", "klein_pallas.py:642",
      "klein_draw"),
+    ("B1c", "klein_draw_centred (centred B1)", "klein_tc.cu",
+     "klein_pallas.py:642", "klein_draw_centred"),
     ("B2", "imhk_fused (B2)", "imhk_tc.cu", "klein_pallas.py:798",
      "imhk_fused"),
     ("B3", "imhk_trajectory (B3)", "imhk_tc.cu", "klein_pallas.py:890",
@@ -3362,6 +3560,8 @@ def main():
     torch.cuda.empty_cache()
     phase_suite(s)
     phase_decode(s)
+    torch.cuda.empty_cache()
+    phase_signing(s)
     torch.cuda.empty_cache()
     phase_decoding(s)
     phase_validation(s)

@@ -14,7 +14,9 @@ rows and reduction rows (`experiments/benchmark.py`), Z^n
 (`identity_lattice`, `sample_zn`), `KleinSampler`, Babai and Gibbs
 decoding and the `UnifiedLatticeSampler` facade, with kernels B1-B8 (Klein
 draw, fused IMHK, IMHK trajectory, fused SMK, Peikert, Klein ring, Babai,
-Z^n); lattice reduction (`reduction/`, host C++ built with g++ at first
+Z^n); FALCON-style signing (`FalconSigner`: hash-to-point, Klein draws
+at each message's own centre, the norm bound and redraws); lattice
+reduction (`reduction/`, host C++ built with g++ at first
 use), the rest of the lattice layer, the convergence, spectral and report
 diagnostics, the sampler utilities, precision dispatch
 (`samplers/adaptive.py`) and sigma adaptation (`samplers/adaptation.py`),
@@ -36,6 +38,7 @@ from lattice_gaussian_mcmc_tpu_torch.lattices import (  # noqa: F401
     qary_lattice,
 )
 from lattice_gaussian_mcmc_tpu_torch.samplers import (  # noqa: F401
+    FalconSigner,
     IMHKSampler,
     KleinPrecomp,
     KleinSampler,

@@ -53,6 +53,14 @@ __device__ __forceinline__ float mantissa_uniform(uint32_t bits) {
                    1.0f);
 }
 
+// mantissa_uniform half a step up, (k + 1/2) 2^-23 in (0, 1), in one
+// subtraction as exact as its: 1 + k 2^-23 minus 1 - 2^-24 (the FALCON
+// signer's draws; utils/prng.py `philox_midpoint`)
+__device__ __forceinline__ float midpoint_uniform(uint32_t bits) {
+  return __fsub_rn(__int_as_float((int)((bits & 0x7FFFFFu) | 0x3F800000u)),
+                   0x1.fffffep-1f);
+}
+
 // One uniform source: host rows (host != nullptr) or in-kernel Philox
 // (output word 0 of counter (chain id, row, step, tag)).
 struct Uniforms {
@@ -60,11 +68,14 @@ struct Uniforms {
   long long B;
   uint32_t k0, k1;
 
+  // MID: Philox's midpoint_uniform in place of mantissa_uniform
+  template <bool MID = false>
   __device__ __forceinline__ float get(long long host_row, long long chain,
                                        uint32_t chain_id, uint32_t row,
                                        uint32_t step, uint32_t tag) const {
     if (host) return host[(size_t)host_row * (size_t)B + (size_t)chain];
-    return mantissa_uniform(philox4(chain_id, row, step, tag, k0, k1).x);
+    const uint32_t w = philox4(chain_id, row, step, tag, k0, k1).x;
+    return MID ? midpoint_uniform(w) : mantissa_uniform(w);
   }
 };
 

@@ -62,6 +62,20 @@
 // Randomness: host uniforms or Philox4x32-10, the function of
 // lattice_gaussian_mcmc_tpu_torch/utils/prng.py, bit for bit.
 //
+// Centred draws (CENTRED, B1 with a centre per chain; the FALCON signer,
+// samplers/sign.py): row i of chain b is drawn around ct[i, b] - coupling
+// in place of cs_i - coupling, with the same arithmetic, so centres all
+// equal to cs give B1's draw bit for bit. The two threads of a chain fetch
+// the centres of their rows with the uniforms, a row pair ahead, so the
+// read stays off the rows' serial chain. Window 40 (the signing window:
+// tail budget 2^-64 on FALCON-512) is compiled with its CDF in registers,
+// any other takes the runtime window. Narrow only: the caller recentres
+// each chain on an integer point, so that its draws stay within 256.
+// In-kernel Philox gives the midpoint uniform, (k + 1/2) 2^-23
+// (`midpoint_uniform`): k = 0 would take the window's first point, 20
+// below round(c) at W 40, with probability 2^-23 a row. Caller uniforms
+// are used as given.
+//
 // Babai (BABAI, B7): the same sweep with rintf (half to even, hazard C3)
 // in place of the draw, per target on recentred centres ct (n_pad, B)
 // (the wrapper removes k = rint(ct) in float64 first): y_i = rint(ct_i -
@@ -158,8 +172,10 @@ __device__ __forceinline__ void store_ct_centred(
 // RING: n_rounds rounds (B6), else one (B1). DBG: each round's centres
 // also go to dbg (n_rounds n_pad, B), beside the ring. BABAI: B7 on the
 // centres ctin (n_pad, B), one round, no draw (W, RING, DBG unused).
-// WIDE: B1/B6 with y's wide parts (fault C11).
-template <int W, bool RING, bool DBG, bool BABAI = false, bool WIDE = false>
+// WIDE: B1/B6 with y's wide parts (fault C11). CENTRED: B1 around the
+// centres ctin (n_pad, B), one round (RING, DBG, BABAI, WIDE unused).
+template <int W, bool RING, bool DBG, bool BABAI = false, bool WIDE = false,
+          bool CENTRED = false>
 __global__ void __launch_bounds__(TPB, 3)
     klein_tc_kernel(TcOperands op, Uniforms un,
                     const float* __restrict__ ctin, float* yout,
@@ -202,9 +218,15 @@ __global__ void __launch_bounds__(TPB, 3)
     double lwp = 0.0;
     // row ih's uniform
     const auto fetch = [&](int ih) -> float {
-      return valid ? un.get(row0 + ih, chain, chain_id, (uint32_t)ih, step,
-                            TAG_ROW)
+      // CENTRED: in-kernel Philox gives the midpoint uniform
+      return valid ? un.get<CENTRED>(row0 + ih, chain, chain_id,
+                                     (uint32_t)ih, step, TAG_ROW)
                    : 0.5f;
+    };
+    // CENTRED: row ih's centre of this chain
+    const auto centre = [&](int ih) -> float {
+      return valid ? __ldg(ctin + (size_t)ih * (size_t)B + (size_t)chain)
+                   : 0.0f;
     };
     for (int lo = n_pad - RB; lo >= 0; lo -= RB) {
       __syncthreads();   // rows >= lo + 64 drawn; the tile is free
@@ -235,14 +257,22 @@ __global__ void __launch_bounds__(TPB, 3)
         int ih = lo + rlo + SB - 1 - h;
         float uh = 0.0f;
         if constexpr (!BABAI) uh = fetch(ih);
+        float chh = 0.0f;
+        if constexpr (CENTRED) chh = centre(ih);
         for (int r2 = rlo + SB - 1; r2 > rlo; r2 -= 2) {
           float upair[2] = {0.0f, 0.0f};
+          float cpair[2] = {0.0f, 0.0f};
           if constexpr (!BABAI) {
             upair[0] = __shfl_sync(FULL, uh, lane & ~1);
             upair[1] = __shfl_sync(FULL, uh, lane | 1);
+            if constexpr (CENTRED) {
+              cpair[0] = __shfl_sync(FULL, chh, lane & ~1);
+              cpair[1] = __shfl_sync(FULL, chh, lane | 1);
+            }
             if (r2 - 2 > rlo) {
               ih -= 2;
               uh = fetch(ih);
+              if constexpr (CENTRED) chh = centre(ih);
             }
           }
 #pragma unroll
@@ -268,7 +298,12 @@ __global__ void __launch_bounds__(TPB, 3)
               c = -crow[r];
               y = rintf(c);
             } else {
-              c = __fsub_rn(__ldg(op.cs + i), crow[r]);
+              float cs_i;
+              if constexpr (CENTRED)
+                cs_i = cpair[e];
+              else
+                cs_i = __ldg(op.cs + i);
+              c = __fsub_rn(cs_i, crow[r]);
               float logz;
               y = draw_pair<W>(c, __ldg(op.isg + i), upair[e], op.window, h,
                                lane, logz);
@@ -333,18 +368,20 @@ __global__ void __launch_bounds__(TPB, 3)
   }
 }
 
-template <int W, bool RING, bool DBG, bool BABAI = false, bool WIDE = false>
+template <int W, bool RING, bool DBG, bool BABAI = false, bool WIDE = false,
+          bool CENTRED = false>
 int launch(const TcOperands& op, const Uniforms& un, const float* ctin,
            float* y, float* lw, float* dbg, int* bad, long long B,
            int n_rounds, uint32_t step, uint32_t chain_offset,
            cudaStream_t stream) {
   const size_t smem = klein_smem_bytes(op.n_pad, BABAI, WIDE);
   cudaError_t e = cudaFuncSetAttribute(
-      klein_tc_kernel<W, RING, DBG, BABAI, WIDE>,
+      klein_tc_kernel<W, RING, DBG, BABAI, WIDE, CENTRED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((B + NC - 1) / NC));
-  klein_tc_kernel<W, RING, DBG, BABAI, WIDE><<<grid, TPB, smem, stream>>>(
+  klein_tc_kernel<W, RING, DBG, BABAI, WIDE, CENTRED>
+      <<<grid, TPB, smem, stream>>>(
       op, un, ctin, y, lw, dbg, bad, B, n_rounds, step, chain_offset);
   return (int)cudaGetLastError();
 }
@@ -366,10 +403,23 @@ int launch_by_window(const TcOperands& op, const Uniforms& un, float* y,
 #undef CALL
 }
 
-template <int W, bool RING, bool BABAI = false, bool WIDE = false>
+// B1 with a centre per chain: window 40 compiled, any other at run time
+int launch_centred(const TcOperands& op, const Uniforms& un, const float* ct,
+                   float* y, float* lw, int* bad, long long B, uint32_t step,
+                   uint32_t chain_offset, cudaStream_t st) {
+#define CALL(W)                                                         \
+  launch<W, false, false, false, false, true>(op, un, ct, y, lw, nullptr, \
+                                              bad, B, 1, step,            \
+                                              chain_offset, st)
+  return op.window == 40 ? CALL(40) : CALL(0);
+#undef CALL
+}
+
+template <int W, bool RING, bool BABAI = false, bool WIDE = false,
+          bool CENTRED = false>
 int info(int n_pad, int* out) {
   cudaFuncAttributes fa;
-  const auto kernel = klein_tc_kernel<W, RING, false, BABAI, WIDE>;
+  const auto kernel = klein_tc_kernel<W, RING, false, BABAI, WIDE, CENTRED>;
   cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = klein_smem_bytes(n_pad, BABAI, WIDE);
@@ -441,6 +491,27 @@ int klein_tc_launch(const void* Ufrag, const float* UT, const float* cs,
                                        step, chain_offset, st);
 }
 
+// B1 with a centre per chain: one Klein draw a chain around its own
+// recentred centres ct (n_pad, B), which take the place of cs; the rest as
+// klein_tc_launch's one-round draw (uniforms, y, lw, bad, step, chain
+// offset). Narrow only (no WIDE instantiation): a drawn |y| > 256 is
+// counted into bad[0].
+int klein_tc_centred_launch(const void* Ufrag, const float* UT,
+                            const float* ct, const float* isg,
+                            const float* unif, float* y, float* lw, int* bad,
+                            int n_pad, long long B, int window,
+                            uint32_t seed_lo, uint32_t seed_hi, uint32_t step,
+                            uint32_t chain_offset, void* stream) {
+  if (n_pad <= 0 || n_pad % RB != 0 || B <= 0 || window <= 0 ||
+      ct == nullptr || bad == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const TcOperands op{static_cast<const uint4*>(Ufrag), UT, nullptr, isg,
+                      n_pad, window};
+  const Uniforms un{unif, B, seed_lo, seed_hi};
+  return launch_centred(op, un, ct, y, lw, bad, B, step, chain_offset,
+                        static_cast<cudaStream_t>(stream));
+}
+
 // B7: Babai nearest plane for B targets on the recentred centres ct
 // (n_pad, B); coefficients (recentred) into y (n_pad, B). Ufrag and UT as
 // for klein_tc_launch. bad: two ints, bad[0] incremented per coefficient
@@ -460,7 +531,8 @@ int babai_tc_launch(const void* Ufrag, const float* UT, const float* ct,
 }
 
 // The resources of the kernel in mode 0 (B1), 1 (B6), 2 (B7, any
-// window), 3 (B1's WIDE) or 4 (B6's WIDE) for a window at n_pad: out[0]
+// window), 3 (B1's WIDE), 4 (B6's WIDE) or 5 (centred B1) for a window at
+// n_pad: out[0]
 // registers a thread, out[1] local (spill) bytes a thread, out[2] dynamic
 // shared memory a block, out[3] blocks per SM, out[4] threads a block.
 int klein_tc_info(int n_pad, int window, int mode, int* out) {
@@ -470,6 +542,9 @@ int klein_tc_info(int n_pad, int window, int mode, int* out) {
     case 2: return info<0, false, true>(n_pad, out);
     case 3: return info_by_window<false, true>(n_pad, window, out);
     case 4: return info_by_window<true, true>(n_pad, window, out);
+    case 5:
+      return window == 40 ? info<40, false, false, false, true>(n_pad, out)
+                          : info<0, false, false, false, true>(n_pad, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -95,6 +95,8 @@ _SIGNATURES = {
                             _I, _U32, _U32, _U32, _U32, _I, _P],
         "babai_tc_launch": [_P, _P, _P, _P, _P, _I, _LL, _P],
         "klein_tc_info": [_I, _I, _I, _P],
+        "klein_tc_centred_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _LL,
+                                    _I, _U32, _U32, _U32, _U32, _P],
     },
     "imhk_tc": {
         "imhk_tc_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -113,6 +115,10 @@ _SIGNATURES = {
     },
     "zn": {
         "zn_draw_launch": [_F, _F, _I, _P, _P, _LL, _U32, _U32, _P],
+    },
+    "sign": {
+        "hash_to_point_launch": [_P, _LL, _I, _U32, _U32, _U32, _P],
+        "redraw_uniforms_launch": [_P, _P, _LL, _I, _U32, _U32, _U32, _P],
     },
 }
 

@@ -17,6 +17,13 @@ log Z = 0). The chain state is the recentered integer vector y = x - k with
 k = round(cs); the kernel's centre absorbs the shift,
 cs_eff = cs - U k, computed once per call outside the kernel.
 
+Centred B1 (`klein_draw_centred`, the FALCON signer's draw) is B1 with a
+centre per chain: the caller recentres each chain on an integer point x0
+of its own and passes the residual centres (n_pad, B) in the place of
+cs_eff; x = x0 + y. Its in-kernel Philox gives the midpoint uniform
+(`utils/prng.py` `philox_midpoint`), which never takes the window's first
+point as k = 0 does.
+
 B1, B2, B3 and B6 form the coupling on the tensor cores from an exact bf16
 split of the float32 U (U = U1 + U2 + U3, `split_bf16`), packed in the mma
 A-fragment order (`tc_fragments`). Their products are exact only while the
@@ -66,6 +73,7 @@ from lattice_gaussian_mcmc_tpu_torch.utils.prng import (
     TAG_ACCEPT,
     TAG_ROW,
     chain_ids,
+    philox_midpoint,
     philox_uniform,
     seed_key,
 )
@@ -81,6 +89,9 @@ EXACT_Y = 256      # |y| up to which the bf16 draw tile is exact (hazard C8)
 # predicted standard deviations of a coefficient that `wide_y` covers
 WIDE_TAIL = 7.0
 WIDE_Y = 1 << 24   # |y| below which the WIDE instantiations are exact (C15)
+# centred B1's contract: each chain's draw has its mean, U^-1 centres[:, b],
+# within this of 0 in every coordinate (the signer's x0 = round(B^-1 t))
+CENTRED_MEAN = 0.5
 # the largest n_pad whose draw tile fits one block's shared memory:
 # imhk_tc_common.cuh's tc_smem_bytes, 64 n_pad + 9,344 bytes, within the
 # 227 KB (232,448 bytes) a block of sm_90 may take, rounded down to a
@@ -280,12 +291,13 @@ def _draw_row_plain(c, isg, u, window, offs, offs_half):
 
 
 def _propose_plain(ops: KleinOperands, rows, out: torch.Tensor,
-                   centres=None) -> torch.Tensor:
+                   centres=None, cs=None) -> torch.Tensor:
     """One Klein draw into out (n_pad, B): backward substitution over 64-row
     blocks (cross-block product, then rows in descending order); rows(lo, hi)
     gives the uniforms of coordinates lo..hi-1. Returns lw (B,), summed in
     float64. With `centres` (n_pad, B), row i's conditional centre goes to
-    centres[i].
+    centres[i]. With `cs` (n_pad, B), chain b is drawn around cs[:, b] in
+    place of ops.cs.
 
     The padded rows i >= n are left at the 0 that `out` holds: in the
     kernel their centre is exactly 0 and their width 1e-6, so they draw 0
@@ -304,7 +316,8 @@ def _propose_plain(ops: KleinOperands, rows, out: torch.Tensor,
         u = rows(lo, min(hi, ops.n)).to(dt)
         for r in range(min(ROW_BLOCK, ops.n - lo) - 1, -1, -1):
             i = lo + r
-            c = ops.cs[i] - t[r] - ops.U[i, i + 1:hi] @ out[i + 1:hi]
+            c = ((ops.cs[i] if cs is None else cs[i]) - t[r]
+                 - ops.U[i, i + 1:hi] @ out[i + 1:hi])
             if centres is not None:
                 centres[i] = c
             z, logz = _draw_row_plain(c, ops.isg[i], u[r], ops.window,
@@ -314,14 +327,17 @@ def _propose_plain(ops: KleinOperands, rows, out: torch.Tensor,
     return lw.to(dt)
 
 
-def _uniform_rows(ops, B, seed, step, chain_offset, uniforms=None, row0=0):
+def _uniform_rows(ops, B, seed, step, chain_offset, uniforms=None, row0=0,
+                  midpoint=False):
     """rows(lo, hi): the uniforms of coordinates lo..hi-1, from the host
-    tensor (its rows row0 + lo ..) or from Philox, one row block at a time
-    so that the plain version never holds all n x B counters."""
+    tensor (its rows row0 + lo ..) or from Philox (its midpoint uniforms
+    with `midpoint`), one row block at a time so that the plain version
+    never holds all n x B counters."""
     if uniforms is not None:
         return lambda lo, hi: uniforms[row0 + lo:row0 + hi]
     chains = chain_ids(B, chain_offset, ops.device)
-    return lambda lo, hi: philox_uniform(
+    philox = philox_midpoint if midpoint else philox_uniform
+    return lambda lo, hi: philox(
         seed, chains, step, torch.arange(lo, hi, device=ops.device), TAG_ROW)
 
 
@@ -332,6 +348,21 @@ def klein_draw_plain(ops: KleinOperands, num_chains: int, *, seed: int = 0,
     y, lw = klein_ring_plain(ops, num_chains, 1, seed=seed, step=step,
                              chain_offset=chain_offset, uniforms=uniforms)
     return y, lw[0]
+
+
+def klein_draw_centred_plain(ops: KleinOperands, centres: torch.Tensor, *,
+                             seed: int = 0, step: int = 0,
+                             chain_offset: int = 0, uniforms=None):
+    """Plain version of centred B1: one draw per chain b around its own
+    recentred centres centres[:, b] (n_pad, B), in place of ops.cs, on
+    Philox's midpoint uniforms or the caller's. Returns (y (n_pad, B),
+    lw (B,))."""
+    B = centres.shape[1]
+    y = torch.zeros(ops.n_pad, B, dtype=ops.U.dtype, device=ops.device)
+    rows = _uniform_rows(ops, B, seed, step, chain_offset, uniforms,
+                         midpoint=True)
+    lw = _propose_plain(ops, rows, y, cs=centres.to(ops.U.dtype))
+    return y, lw
 
 
 def klein_ring_plain(ops: KleinOperands, num_chains: int, n_rounds: int, *,
@@ -634,6 +665,64 @@ def klein_draw(ops: KleinOperands, num_chains: int, *, seed: int = 0,
         return y, lw[0]
 
 
+def klein_draw_centred(ops: KleinOperands, centres: torch.Tensor, *,
+                       seed: int = 0, step: int = 0, chain_offset: int = 0,
+                       uniforms=None, guard=None):
+    """Centred B1 (`klein_tc.cu`'s CENTRED instantiation): one Klein draw
+    per chain b around its own recentred centres centres[:, b] (n_pad, B)
+    float32, which take the place of ops.cs; padded rows must hold 0.
+    Returns (y (n_pad, B), lw (B,)); the caller adds its integer points.
+
+    The caller recentres each chain so that the mean of its draw, U^-1
+    centres[:, b], lies within `CENTRED_MEAN` (1/2) of 0 in every
+    coordinate, as the signer's x0 = round(B^-1 t) does. Draws then reach
+    at most `predicted_y(ops)` + 1/2 (tight for operands at centre 0), which
+    must stay within the narrow kernel's exact 256 (hazard C8; there is no
+    WIDE instantiation) or the wrapper raises before the launch; a drawn
+    |y| > 256 is counted into `guard`'s fifth row. `guard` and the uniforms
+    as for `klein_draw`; tensor-core sweep only (n_pad up to
+    `KLEIN_TC_MAX_N_PAD`). Without `uniforms` the draw takes the midpoint
+    uniforms of its Philox counters (`utils/prng.py` `philox_midpoint`), in
+    place of B1's. CPU operands run `klein_draw_centred_plain`."""
+    with span("lgm.kernel.b1"):
+        if ops.device.type == "cpu":
+            return klein_draw_centred_plain(
+                ops, centres, seed=seed, step=step,
+                chain_offset=chain_offset, uniforms=uniforms)
+        _check_operands(ops)
+        n_pad, B = ops.n_pad, centres.shape[1]
+        check_cuda("centres", centres, (n_pad, B))
+        if klein_route(n_pad) != "klein_tc":
+            raise ValueError(
+                f"klein_draw_centred: n_pad {n_pad} is above "
+                f"{KLEIN_TC_MAX_N_PAD}, the largest the centred draw takes")
+        top = predicted_y(ops) + CENTRED_MEAN
+        if not top <= EXACT_Y:
+            raise ValueError(
+                f"klein_draw_centred: draws around these centres are "
+                f"predicted to reach |y| {top:.4g}, past {EXACT_Y}, where "
+                "the narrow kernel's bf16 coupling is exact (hazard C8)")
+        if uniforms is not None:
+            check_cuda("uniforms", uniforms, (n_pad, B))
+        own = guard is None
+        if own:
+            guard = exact_guard(ops.device)
+        y = torch.empty(n_pad, B, dtype=torch.float32, device=ops.device)
+        lw = torch.empty(B, dtype=torch.float32, device=ops.device)
+        k0, k1 = seed_key(seed)
+        rc = load("klein_tc").klein_tc_centred_launch(
+            ptr(tc_fragments(ops)), ptr(ops.UT), ptr(centres), ptr(ops.isg),
+            ptr(uniforms) if uniforms is not None else None, ptr(y), ptr(lw),
+            ptr(guard[4]), n_pad, B, ops.window, k0, k1, step, chain_offset,
+            ctypes.c_void_p(
+                torch.cuda.current_stream(ops.device).cuda_stream))
+        raise_on("klein_tc", rc, "klein_draw_centred")
+        klein_draw_centred.launches += 1
+        if own:
+            check_exact(guard, "klein_draw_centred")
+        return y, lw
+
+
 def klein_ring(ops: KleinOperands, num_chains: int, n_rounds: int, *,
                seed: int = 0, step: int = 0, chain_offset: int = 0,
                uniforms=None, guard=None):
@@ -696,15 +785,16 @@ def klein_centres(ops: KleinOperands, num_chains: int, n_rounds: int = 1, *,
 
 
 # klein_tc.cu's kernel modes, as `klein_tc_info` numbers them
-KLEIN_TC_MODES = {"b1": 0, "b6": 1, "b7": 2, "b1_wide": 3, "b6_wide": 4}
+KLEIN_TC_MODES = {"b1": 0, "b6": 1, "b7": 2, "b1_wide": 3, "b6_wide": 4,
+                  "b1_centred": 5}
 
 
 def klein_tc_resources(n_pad: int, window: int, mode: str = "b1") -> dict:
     """`klein_tc.cu`'s kernel in `mode` ("b1", "b6", "b7", whose
-    instantiation takes no window, or the WIDE instantiations "b1_wide" and
-    "b6_wide") for `window` at n_pad on the current
-    card: registers and local (spill) bytes a thread, dynamic shared memory
-    and threads a block, and blocks resident per SM."""
+    instantiation takes no window, the WIDE instantiations "b1_wide" and
+    "b6_wide", or centred B1, "b1_centred") for `window` at n_pad on the
+    current card: registers and local (spill) bytes a thread, dynamic
+    shared memory and threads a block, and blocks resident per SM."""
     out = (ctypes.c_int * 5)()
     raise_on("klein_tc", load("klein_tc").klein_tc_info(
         n_pad, window, KLEIN_TC_MODES[mode], out), "klein_tc_info")
@@ -770,18 +860,20 @@ def babai_y_stats() -> dict:
 
 
 def exact_guard(device) -> torch.Tensor:
-    """Hazard C8's device counters for one entry-point call, (4, 2) int32:
-    one row each for its B2, B3, B1 and B6 launches, each [draws with
-    |y| > 256, largest |y| drawn]. Pass it to every launch of the call, then
-    read it once with `check_exact` before the call returns."""
-    return torch.zeros(4, 2, dtype=torch.int32, device=device)
+    """Hazard C8's device counters for one entry-point call, (5, 2) int32:
+    one row each for its B2, B3, B1, B6 and centred B1 launches, each
+    [draws with |y| > 256, largest |y| drawn]. Pass it to every launch of
+    the call, then read it once with `check_exact` before the call
+    returns."""
+    return torch.zeros(5, 2, dtype=torch.int32, device=device)
 
 
 def check_exact(guard: torch.Tensor, what: str):
     """Read an `exact_guard` (one synchronisation): keep the largest |y| of
     each kernel in `max_abs_y` of its wrapper (`imhk_fused`,
-    `imhk_trajectory`, `klein_draw`, `klein_ring`), and raise if any draw
-    left the range where the bf16 coupling is exact."""
+    `imhk_trajectory`, `klein_draw`, `klein_ring`, `klein_draw_centred`),
+    and raise if any draw left the range where the bf16 coupling is
+    exact."""
     with span("lgm.sync.c8_guard"):
         rows = guard.tolist()
     for wrapper, (_, top) in zip(_GUARDED, rows):
@@ -970,12 +1062,14 @@ def imhk_tc_residency(n_pad: int, window: int, wide: bool, device) -> int:
 
 
 # the wrappers of an `exact_guard`'s rows, in order
-_GUARDED = (imhk_fused, imhk_trajectory, klein_draw, klein_ring)
+_GUARDED = (imhk_fused, imhk_trajectory, klein_draw, klein_ring,
+            klein_draw_centred)
 
 
 def reset_launch_counts():
     klein_draw.launches = 0
     klein_ring.launches = 0
+    klein_draw_centred.launches = 0
     # B1 / B6 launches of the FP32 sweep (klein.cu, n_pad above
     # KLEIN_TC_MAX_N_PAD)
     klein_draw.fp32_launches = 0

@@ -40,6 +40,10 @@ from lattice_gaussian_mcmc_tpu_torch.samplers.peikert import (  # noqa: F401
     peikert_sample,
     peikert_sample_batch,
 )
+from lattice_gaussian_mcmc_tpu_torch.samplers.sign import (  # noqa: F401
+    FalconSigner,
+    verify,
+)
 from lattice_gaussian_mcmc_tpu_torch.samplers.gibbs import (  # noqa: F401
     annealed_gibbs_decode,
     gibbs_chain,

@@ -9,11 +9,17 @@ counter layout below and the same mantissa-trick uniform.
 Counter layout: c0 = chain id, c1 = row, c2 = step, c3 = tag (TAG_ROW for
 a coordinate draw, TAG_ACCEPT for a Metropolis accept uniform, TAG_NORMAL
 for a pair of Box-Muller normals, TAG_GUMBEL for the Gumbel-max uniforms of
-the plain Peikert draw, TAG_GIBBS for the Gibbs sweeps); key = (seed mod
+the plain Peikert draw, TAG_GIBBS for the Gibbs sweeps, TAG_HASH for the
+signer's hash-to-point); key = (seed mod
 2^32, seed >> 32 mod 2^32). Uniforms use output word 0; a Box-Muller pair
 uses words 0 and 1. The Z^n draws (TAG_ZN) count groups of four draws, not
 chains and rows: c0, c1 = the low and high words of the 64-bit group
-index j, c2 = 0, and draw 4j + w takes output word w.
+index j, c2 = 0, and draw 4j + w takes output word w. The hash-to-point
+(TAG_HASH, `ops/kernels/sign_cuda.py`) counts messages and groups of four
+coefficients: coefficient j of message m is output word j mod 4 of counter
+(m, j div 4, 0, TAG_HASH), reduced mod q. The signer's coordinate draws
+take the midpoint uniform (`philox_midpoint`), (k + 1/2) 2^-23 in place of
+k 2^-23, which excludes 0.
 
 uint32 arithmetic is carried in int64 tensors: every product is split into
 16-bit halves so that no intermediate leaves the int64 range.
@@ -35,6 +41,7 @@ TAG_NORMAL = 2
 TAG_GUMBEL = 3
 TAG_ZN = 4
 TAG_GIBBS = 5
+TAG_HASH = 6
 
 
 def _mulhilo(m: int, x: torch.Tensor):
@@ -106,6 +113,20 @@ def philox_uniform(seed: int, chains: torch.Tensor, step,
     the uniform of counter (chains[b], rows[r], step, tag) under `seed`;
     `step` as for `philox_words`."""
     return mantissa_uniform(philox_words(seed, chains, step, rows, tag)[0])
+
+
+# half a step of the 23-bit uniform
+MIDPOINT = 2.0 ** -24
+
+
+def philox_midpoint(seed: int, chains: torch.Tensor, step,
+                    rows: torch.Tensor, tag: int = TAG_ROW) -> torch.Tensor:
+    """`philox_uniform` half a step up: (k + 1/2) 2^-23 for the 23-bit
+    draw k, exact in float32, in (0, 1) and symmetric about 1/2. An inverse
+    CDF never maps it to a point whose cumulative mass is 0, as it maps
+    k = 0 (probability 2^-23) to the window's first point. The FALCON
+    signer's draws (centred B1, `ops/kernels/sign_cuda.py`)."""
+    return philox_uniform(seed, chains, step, rows, tag) + MIDPOINT
 
 
 def chain_ids(num_chains: int, chain_offset: int = 0,

@@ -86,6 +86,10 @@ MUTANTS = {
     # B2's WIDE instantiation without them (fault C11; the q-ary check at
     # n = 64)
     "b2_no_wide": ("imhk_tc.cu", "big[i / SB] = 1;", "big[i / SB] = 0;"),
+    # centred B1: every block of 32 chains draws around block 0's centres
+    "centred_block0": ("klein_tc.cu",
+                       "(size_t)ih * (size_t)B + (size_t)chain)",
+                       "(size_t)ih * (size_t)B + (size_t)cl)"),
     # B6 draws every round on step 0's Philox counters
     "ring_one_step": ("klein_tc.cu",
                       "const uint32_t step = step0 + (uint32_t)rd;",
@@ -132,6 +136,14 @@ ROUTE_MUTANTS = {
           "(torch.arange(len(ppre.sigmas), device=ppre.sigmas.device) "
           "== n_real - 1) & (n_real >= 1024), 1.25, 1.0)).to(dtype),")],
         "scale_validation", ("kernel_vs_plain",)),
+    # the signer returns its first draws: no redraw round, so the messages
+    # above the bound keep their draw (the signing phase's tight bound)
+    "sign_no_redraw": (
+        os.path.join("lattice_gaussian_mcmc_tpu_torch", "samplers",
+                     "sign.py"),
+        [("                if idx.numel() == 0:\n",
+          "                if True:\n")],
+        "signing", ()),
     # the captured step's Philox counter does not advance: every replay of
     # a plain chain's graph draws the first step's numbers
     "graph_frozen_step": (

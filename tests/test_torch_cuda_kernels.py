@@ -1076,3 +1076,157 @@ def test_launches_past_2_24_raise_before_any_kernel():
     assert not bool(x.any()) and not bool(acc.any())
     with pytest.raises(ValueError, match="C15"):
         debug_sigma.main(["1024"])
+
+
+# FALCON-512 signing (samplers/sign.py): sigma, q, floor(beta^2) and the
+# signing tail budget, whose window is 40 at n_pad 1024
+SIGN = (165.7366, 12289, 34034726, 2.0 ** -64)
+
+
+def _smoke():
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    import chip_smoke
+    return chip_smoke
+
+
+def _sign_operands():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lat = ntru_lattice(512, q=12289, seed=0,
+                       cache_dir=os.path.join(REPO, "bench_cache"),
+                       device="cuda")
+    pre = klein_precompute(lat, SIGN[0], tail_budget=SIGN[3])
+    ops = klein_cuda.kernel_operands(pre)
+    assert (ops.n_pad, ops.window) == (1024, 40)
+    return lat, ops
+
+
+def _residual_centres(ops, chains, seed):
+    """The signer's centres U (x_t - x0): a residual r uniform on
+    [-1/2, 1/2) in every coordinate, one a chain, (n_pad, chains)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = torch.rand(ops.n, chains, device="cuda", dtype=torch.float64,
+                   generator=g) - 0.5
+    cs = torch.zeros(ops.n_pad, chains, device="cuda")
+    cs[:ops.n] = ops.U[:ops.n, :ops.n].double() @ r
+    return cs
+
+
+@pytest.mark.cuda
+def test_b1_centred_matches_plain_at_the_signing_width():
+    """Centred B1 at n_pad 1024, W 40 (compiled) on the signer's centres,
+    a centre per chain, against its plain version on the caller's uniforms
+    and on Philox, under chip_smoke.py's gates; its draws stay narrow."""
+    smoke = _smoke()
+    _, ops = _sign_operands()
+    cs = _residual_centres(ops, ODD_CHAINS, 1)
+    unif = torch.rand(ops.n_pad, ODD_CHAINS, device="cuda")
+    klein_cuda.reset_launch_counts()
+    for kw in ({"uniforms": unif}, {"seed": 2 ** 33 + 5, "step": 2}):
+        y, lw = klein_cuda.klein_draw_centred(ops, cs, **kw)
+        yp, lwp = klein_cuda.klein_draw_centred_plain(ops, cs, **kw)
+        res = smoke.compare_draws(y, yp, lw, lwp, ops.n)
+        assert smoke.draws_ok(res), res
+    assert klein_cuda.klein_draw_centred.launches == 2
+    assert 0 < klein_cuda.klein_draw_centred.max_abs_y <= 256
+    # the chains' own centres: another chain's would draw elsewhere
+    y2, _ = klein_cuda.klein_draw_centred(ops, cs.roll(1, dims=1),
+                                          uniforms=unif)
+    y, _ = klein_cuda.klein_draw_centred(ops, cs, uniforms=unif)
+    assert bool((y2 != y).any(dim=0).float().mean() > 0.5)
+
+
+@pytest.mark.cuda
+def test_b1_centred_with_equal_centres_is_b1(ops):
+    """All centres equal to the operands' cs: uncentred B1's draw bit for
+    bit, at the signing width (W 40) and on the `ops` fixture's own
+    centre, on both uniform sources (on Philox, centred B1 draws on the
+    midpoint uniforms of B1's counters, handed to B1 as its uniforms)."""
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import sign_cuda
+    _, sops = _sign_operands()
+    ids = torch.arange(B, device="cuda")
+    for o in (ops, sops):
+        same = o.cs[:, None].expand(-1, B).contiguous()
+        unif = torch.rand(o.n_pad, B, device="cuda")
+        mid = sign_cuda.redraw_uniforms(11, ids, 3, o.n_pad)
+        for kw, kwb in (({"uniforms": unif}, {"uniforms": unif}),
+                        ({"seed": 11, "step": 3}, {"uniforms": mid})):
+            y, lw = klein_cuda.klein_draw_centred(o, same, **kw)
+            yb, lwb = klein_cuda.klein_draw(o, B, **kwb)
+            assert torch.equal(y, yb) and torch.equal(lw, lwb)
+
+
+@pytest.mark.cuda
+def test_b1_centred_raises_where_draws_leave_the_narrow_range():
+    """Hazard C8: centred B1 has no WIDE instantiation, so it raises before
+    its launch where the draws are predicted past 256, and its guard
+    raises where a draw passes 256 all the same (`far_centres`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ks = KleinSampler(far_lattice(), 0.02)
+    ops = ks.operands
+    ops.cs[1] = 300.0      # predicted past 256: B1 would take WIDE
+    cs = ops.cs[:, None].expand(-1, 256).contiguous()
+    klein_cuda.reset_launch_counts()
+    with pytest.raises(ValueError, match="klein_draw_centred.*C8"):
+        klein_cuda.klein_draw_centred(ops, cs, seed=1)
+    assert klein_cuda.klein_draw_centred.launches == 0
+    far_centres(ops)
+    cs = ops.cs[:, None].expand(-1, 256).contiguous()
+    with pytest.raises(RuntimeError, match="klein_draw_centred.*C8"):
+        klein_cuda.klein_draw_centred(ops, cs, seed=1)
+
+
+@pytest.mark.cuda
+def test_signer_kernels_match_their_plain_versions():
+    """`csrc/sign.cu`: the hash-to-point and a redraw round's uniforms
+    equal their plain versions bit for bit, past 32 bits of seed and at a
+    ring degree that is no multiple of 4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import sign_cuda
+    seed = 2 ** 37 + 11
+    for n in (512, 13):
+        c = sign_cuda.hash_to_point(seed, ODD_CHAINS, n, 12289, "cuda")
+        assert torch.equal(c.cpu(), sign_cuda.hash_to_point_plain(
+            seed, ODD_CHAINS, n, 12289, "cpu"))
+    ids = torch.tensor([5, 65535, 17, 2 ** 31 + 3], device="cuda")
+    u = sign_cuda.redraw_uniforms(seed, ids, 2, 1024)
+    assert torch.equal(u.cpu(), sign_cuda.redraw_uniforms_plain(
+        seed, ids.cpu(), 2, 1024))
+
+
+@pytest.mark.cuda
+def test_signer_on_the_card_matches_the_reference_and_verifies():
+    """`FalconSigner` on NTRU-512 (hash-to-point kernel, centred B1 at W 40,
+    float64 products, redraws): every signature verifies, and the share
+    that differs from the benchmark's float64 reference is within its
+    cell's limit."""
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    from lattice_gaussian_mcmc_tpu_torch import FalconSigner
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import sign_cuda
+    from lattice_gaussian_mcmc_tpu_torch.samplers import verify
+    from lgbench import harness
+    from lgbench.reference import sign as ref_sign
+    lat, _ = _sign_operands()
+    sigma, q, beta2, tail = SIGN
+    signer = FalconSigner(lat, sigma, q, beta2, tail_budget=tail,
+                          device="cuda")
+    seed, m = 2 ** 35 + 3, 512
+    c = signer.hash_to_point(seed, m)
+    assert torch.equal(c.cpu(), sign_cuda.hash_to_point_plain(
+        seed, m, 512, q, "cpu"))
+    s = signer.sign(seed, c)
+    with np.load(os.path.join(REPO, "bench_cache",
+                              "ntru_512_12289_0_g.npz")) as key:
+        h = key["h"]
+    assert bool(verify(h, c, s, q, beta2).all())
+    ref = ref_sign.Reference(lat.basis.cpu().numpy(), sigma,
+                             {"q": q, "beta2": beta2, "tail_budget": tail},
+                             "cuda")
+    expected = ref.expected({"seed": torch.full((m,), seed),
+                             "chain": torch.arange(m)})
+    limit = harness.Bench().data("cells", "falcon512_sign.batch")
+    assert harness.compare(s, expected) <= limit["limits"]["rows_differ"]
