@@ -48,7 +48,10 @@ convergence study. Phases, one JSON line each:
                    window 40) on the signer's residual centres, and bit
                    for bit against B1 with every centre equal; B1 and B2 at
                    the cli phase's shapes (Z^2048 at 2 eta, NTRU-512's
-                   adaptation start, the crypto rows that sample)
+                   adaptation start, the crypto rows that sample); the
+                   lattice points' int8 kernel (csrc/points.cu) bit for
+                   bit against the float64 DGEMM at every cell's shape
+                   and layout, its tile counts against the inputs'
   law              2D hard regime: TVD to the enumerated target and the
                    stationary acceptance 0.9904 (IMHK), TVD of SMK; B8's
                    TVD to the exact pmf; B6's per-round moments in 2D;
@@ -324,6 +327,14 @@ SIGN_TIGHT_MESSAGES = 4096
 SIGN_TIGHT_MIN_ROUNDS = 3
 # the falcon512_sign.batch cell's limit on rows that differ from it
 SIGN_MAX_ROWS_DIFFER = 0.05
+# the points' int8 kernel (csrc/points.cu): rows of the IMHK cells'
+# calls at dimension 1024 and 2048, |x| of the random coefficients at
+# 2048 (IMHK's reach ~50), ms as the median of this many launches, and
+# the int8 tensor cores' dense peak (NVIDIA data sheet)
+POINTS_IMHK_ROWS = (FLAGSHIP_CHAINS, 131_072)
+POINTS_IMHK_TOP = 60
+POINTS_REPS = 5
+PEAK_INT8_S = 1979e12
 # the cli phase: the port's CLI at its defaults, these experiments
 CLI_EXPERIMENTS = ("scaling", "crypto", "sensitivity", "adaptation")
 # the mesh phase: the sharded paths (parallel/) at the flagship's and the
@@ -682,12 +693,13 @@ class Smoke:
         from lattice_gaussian_mcmc_tpu_torch.ops.kernels import (
             klein_cuda,
             peikert_cuda,
+            points_cuda,
             smk_cuda,
             zn_cuda,
         )
         from lattice_gaussian_mcmc_tpu_torch.utils import graphs
         self.kc, self.sc, self.pc = klein_cuda, smk_cuda, peikert_cuda
-        self.zc = zn_cuda
+        self.zc, self.ptc = zn_cuda, points_cuda
         self.graphs = graphs
         # the plain versions' matrix products run in full float32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -704,7 +716,7 @@ class Smoke:
         self.k = {}              # kernel -> numbers for the kernels line
 
     def reset_counts(self):
-        for mod in (self.kc, self.sc, self.pc, self.zc):
+        for mod in (self.kc, self.sc, self.pc, self.zc, self.ptc):
             mod.reset_launch_counts()
         self.graphs.reset_counts()
 
@@ -720,7 +732,8 @@ class Smoke:
                 "klein_ring": self.kc.klein_ring.launches,
                 "babai_decode": self.kc.babai_decode.launches,
                 "babai_decode_fp32": self.kc.babai_decode.fp32_launches,
-                "sample_zn_draws": self.zc.sample_zn_draws.launches}
+                "sample_zn_draws": self.zc.sample_zn_draws.launches,
+                "points": self.ptc.points.launches}
 
     def graph_counts(self):
         """The plain chains' captured graphs (utils/graphs.py) since the
@@ -767,7 +780,7 @@ def phase_toolchain(s: Smoke):
     built = _build.build_all()
     build_s = time.perf_counter() - t0
     for name in ("klein", "klein_tc", "imhk_tc", "smk_tc", "peikert_tc",
-                 "zn", "sign"):
+                 "zn", "sign", "points"):
         _build.load(name)
     ptxas = {name: [ln.strip() for ln in info["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln][:12]
@@ -809,6 +822,114 @@ def phase_toolchain(s: Smoke):
           "build_s_each": built, "ptxas": ptxas,
           "imhk_tc_resources": imhk_tc, "smk_tc_resources": smk_tc,
           "klein_tc_resources": klein_tc, "qary_tc_resources": qary})
+
+
+# ------------------------------------------------------------- points
+def median_ms(fn, reps=POINTS_REPS):
+    """Median device time of fn() over `reps` launches, each by CUDA
+    events."""
+    return sorted(cuda_ms(fn) for _ in range(reps))[reps // 2]
+
+
+def points_case(s: Smoke, limbs, basis, x):
+    """The kernel on coefficients x against the float64 DGEMM of the same
+    x (the cast and product it replaces): bit for bit, `limb_stats`
+    against the tiles' limb counts, both ms, the bound."""
+    import torch
+    ptc = s.ptc
+    ptc.reset_launch_counts()
+    got = ptc.points(limbs, x)
+    stats = ptc.limb_stats()
+    want = x.to(torch.float64) @ basis.T
+    equal = torch.equal(got, want)
+    expected_stats = ptc.limb_counts(x)
+    del got, want
+    rows, n = x.shape
+    ms = median_ms(lambda: ptc.points(limbs, x))
+    lib_ms = median_ms(lambda: x.to(torch.float64) @ basis.T)
+    la = ptc.tile_limbs(x)
+    # products: 2 n (multiply-adds) a row and output column for each limb
+    # pair of each tile's limbs; bytes: x read once, P written once
+    pairs = float(la.sum()) * limbs.n_limbs
+    ops = 2 * pairs * ptc.TILE_ROWS * ptc.TILE_COLS * n
+    nbytes = x.numel() * x.element_size() + 8 * rows * n
+    return {"shape": [rows, n], "dtype": str(x.dtype).split(".")[-1],
+            "strides": list(x.stride()), "basis_limbs": limbs.n_limbs,
+            "bit_for_bit": equal, "limb_stats": stats,
+            "limb_stats_ok": stats == expected_stats, "ms": ms,
+            "dgemm_ms": lib_ms, **bound(nbytes, tensor=ops,
+                                        tensor_peak=PEAK_INT8_S)}
+
+
+def check_points(s: Smoke):
+    """The int8 kernel of the lattice points (`csrc/points.cu`) against
+    the float64 DGEMM of the same coefficients, bit for bit (torch.equal),
+    at every cell's shape and layout: Peikert's float32 ring view (65,536
+    draws of B5 at the Peikert row), the signer's float64 x.T (65,536
+    messages at the signing width; a one- and a three-message redraw
+    batch), IMHK's row-major float32 coefficients at dimension 1024 (B1's
+    524,288 draws at FALCON-512's sigma) and 2048 (131,072 rows, |x| <=
+    POINTS_IMHK_TOP, on NTRU-1024's key); `limb_stats` against the tiles
+    of each input; the kernel's ms beside the DGEMM's."""
+    import torch
+    from lattice_gaussian_mcmc_tpu_torch.lattices import ntru_lattice
+    from lattice_gaussian_mcmc_tpu_torch.samplers import (
+        FalconSigner,
+        PeikertSampler,
+        klein_precompute,
+    )
+    kc, dev, gen = s.kc, s.dev, s.gen
+    basis = s.lat.basis
+    cases = {}
+    sigma, _, _ = s.peikert_sigma()
+    ps = PeikertSampler(s.lat, sigma)
+    x = ps.sample(31, PEIKERT_CHAINS, return_coeffs=True)
+    cases["peikert"] = points_case(s, ps.limbs, basis, x)
+    del x
+    signer = FalconSigner(s.lat, SIGN_SIGMA, SIGN_Q, SIGN_BETA2,
+                          tail_budget=SIGN_TAIL)
+    c = signer.hash_to_point(37, SIGN_MESSAGES).to(torch.float64)
+    x0, cs = signer.centres(c)
+    y, _ = kc.klein_draw_centred(signer.operands, cs, seed=37, step=0)
+    x = x0 + y[:x0.shape[0]]
+    del x0, cs, y, c
+    cases["sign"] = points_case(s, signer._limbs, basis, x.T)
+    for m in (1, 3):
+        cases[f"sign_redraw_{m}"] = points_case(
+            s, signer._limbs, basis, x[:, :m].contiguous().T)
+    del x
+    pre = klein_precompute(s.lat, FALCON_SIGMA, tail_budget=0.01)
+    ops = kc.kernel_operands(pre)
+    y, _ = kc.klein_draw(ops, POINTS_IMHK_ROWS[0], seed=41)
+    x = kc.from_kernel_layout(ops, y)
+    del y
+    limbs = s.ptc.points_operands(basis)
+    cases["imhk_1024"] = points_case(s, limbs, basis, x)
+    del x
+    lat2 = ntru_lattice(B2_NTRU1024_RING, q=12289, seed=0,
+                        cache_dir=os.path.join(REPO, "bench_cache"),
+                        device=dev)
+    x = torch.randint(-POINTS_IMHK_TOP, POINTS_IMHK_TOP + 1,
+                      (POINTS_IMHK_ROWS[1], lat2.n), device=dev,
+                      generator=gen).to(torch.float32)
+    cases["imhk_2048"] = points_case(
+        s, s.ptc.points_operands(lat2.basis), lat2.basis, x)
+    del x, lat2
+    torch.cuda.empty_cache()
+    ok = all(v["bit_for_bit"] and v["limb_stats_ok"] for v in cases.values())
+    # the limbs the cells' tiles take: IMHK's one, Peikert's and the
+    # signer's two
+    ok = ok and all(cases[k]["limb_stats"]["limbs_2"] == 0
+                    for k in ("imhk_1024", "imhk_2048")) \
+        and cases["peikert"]["limb_stats"]["limbs_2"] > 0 \
+        and cases["sign"]["limb_stats"]["limbs_2"] > 0
+    p = cases["peikert"]
+    s.note("PTS", ms=p["ms"], bound_ms=p["bound_ms"], bound_by=p["bound_by"],
+           library_ms=p["dgemm_ms"], shape=f"{p['shape'][0]} x "
+           f"{p['shape'][1]} x {p['shape'][1]}, Peikert's ring view",
+           cases={k: {kk: v[kk] for kk in ("ms", "dgemm_ms", "bound_ms")}
+                  for k, v in cases.items()})
+    return ok, cases
 
 
 # ---------------------------------------------------------- kernel_vs_plain
@@ -1879,9 +2000,11 @@ def phase_kernel_vs_plain(s: Smoke):
     b7_ok, b7 = check_b7(s)
     b8_ok, b8 = check_b8(s)
     b1c_ok, b1c = check_b1_centred(s)
+    points_ok, points = check_points(s)
     ok = (b1_ok and b1c_ok and b2_ok and b2w_ok and b3_ok and b4_ok
           and b5_ok and b5w_ok and b6_ok
-          and qary_ok and cli_ok and mesh_ok and fp32_ok and b7_ok and b8_ok)
+          and qary_ok and cli_ok and mesh_ok and fp32_ok and b7_ok and b8_ok
+          and points_ok)
     emit({"phase": "kernel_vs_plain", "ok": ok, "chains": B, "dim": n,
           "window": W, "plain_allow_tf32": False,
           "b1": dict(b1, max_kernel_centre_err_over_sigma=centre_b1,
@@ -1907,7 +2030,7 @@ def phase_kernel_vs_plain(s: Smoke):
           "b5_philox": b5_philox, "b5_ntru1024": b5_wide, "b6": b6,
           "b1_b2_b5_b6_qary": qary, "b1_b2_cli_shapes": cli_shapes,
           "b1_b2_b5_mesh_shapes": mesh_shapes,
-          "b7": b7, "b8": b8, "b1_centred": b1c,
+          "b7": b7, "b8": b8, "b1_centred": b1c, "points": points,
           "oks": {"b1": b1_ok, "b1_centred": b1c_ok,
                   "b1_b6_b7_fp32_route": fp32_ok,
                   "b2": b2_ok, "b2_b3_ntru1024": b2w_ok,
@@ -1915,7 +2038,8 @@ def phase_kernel_vs_plain(s: Smoke):
                   "b5_ntru1024": b5w_ok, "b6": b6_ok,
                   "b1_b2_b5_b6_qary": qary_ok,
                   "b1_b2_cli_shapes": cli_ok,
-                  "b1_b2_b5_mesh_shapes": mesh_ok, "b7": b7_ok, "b8": b8_ok}})
+                  "b1_b2_b5_mesh_shapes": mesh_ok, "b7": b7_ok, "b8": b8_ok,
+                  "points": points_ok}})
     if not ok:
         fail("kernel_vs_plain", "kernel disagrees with its plain version")
     return s2, basis2
@@ -2125,7 +2249,7 @@ def phase_flagship(s: Smoke):
                 "klein_ring_fp32": 0, "imhk_fused": FLAGSHIP_REPS,
                 "imhk_trajectory": 0, "smk_steps": 0, "peikert_rounds": 0,
                 "klein_ring": 0, "babai_decode": 0, "babai_decode_fp32": 0,
-                "sample_zn_draws": 0}
+                "sample_zn_draws": 0, "points": 0}
     peak = torch.cuda.max_memory_allocated()
     n = lat.n
     # output check: shape, finite integers, and the D_{L,sigma} second
@@ -2373,7 +2497,7 @@ def scale_validation_expected(sizes):
                                "imhk_trajectory", "smk_steps",
                                "peikert_rounds", "klein_ring",
                                "babai_decode", "babai_decode_fp32",
-                               "sample_zn_draws")}
+                               "sample_zn_draws", "points")}
     expected.update(klein_draw=2 + sizes.ks_seeds, imhk_fused=2,
                     smk_steps=1, peikert_rounds=1)
     return expected
@@ -3514,6 +3638,9 @@ KERNELS = [
      "babai_decode"),
     ("B8", "sample_zn_draws (B8)", "zn.cu", "zn_pallas.py:97",
      "sample_zn_draws"),
+    # no TPU kernel: the JAX package leaves the points' product to XLA
+    ("PTS", "points (the lattice points x B^T)", "points.cu", None,
+     "points"),
 ]
 
 
@@ -3527,8 +3654,8 @@ def kernels_line(s: Smoke):
     for key, name, src, replaces, counter in KERNELS:
         entry = {"name": name, "route": "cuda",
                  "source": f"lattice_gaussian_mcmc_tpu_torch/csrc/{src}",
-                 "replaces": f"lattice_gaussian_mcmc_tpu/ops/kernels/"
-                             f"{replaces}",
+                 "replaces": (f"lattice_gaussian_mcmc_tpu/ops/kernels/"
+                              f"{replaces}" if replaces else None),
                  "launches": sum(c[counter] for c in s.launches.values())}
         if f"{counter}_fp32" in s.counts():
             entry["fp32_route_launches"] = sum(

@@ -120,6 +120,10 @@ _SIGNATURES = {
         "hash_to_point_launch": [_P, _LL, _I, _U32, _U32, _U32, _P],
         "redraw_uniforms_launch": [_P, _P, _LL, _I, _U32, _U32, _U32, _P],
     },
+    "points": {
+        "points_launch": [_P, _I, _I, _LL, _LL, _LL, _I, _I, _P, _I, _P, _P,
+                          _P],
+    },
 }
 
 

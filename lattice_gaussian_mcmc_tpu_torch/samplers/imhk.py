@@ -25,7 +25,11 @@ from typing import Optional
 import torch
 
 from lattice_gaussian_mcmc_tpu_torch.lattices.base import Lattice
-from lattice_gaussian_mcmc_tpu_torch.ops.kernels import klein_cuda, smk_cuda
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels import (
+    klein_cuda,
+    points_cuda,
+    smk_cuda,
+)
 from lattice_gaussian_mcmc_tpu_torch.samplers.klein import (
     KleinPrecomp,
     klein_log_density,
@@ -246,6 +250,7 @@ class IMHKSampler:
         self.sigma = float(sigma)
         self.pre = klein_precompute(lattice, sigma, center, window,
                                     tail_budget=tail_budget).to(self.device)
+        self.limbs = points_cuda.points_operands(self.pre.basis)
         self._ops = None
         self.acceptance_rate = None
         self._last_state = None
@@ -288,8 +293,8 @@ class IMHKSampler:
             done += k
 
     def _output(self, coeffs, return_coeffs: bool):
-        return coeffs if return_coeffs else klein_points(self.pre.basis,
-                                                         coeffs)
+        return coeffs if return_coeffs else klein_points(
+            self.pre.basis, coeffs, self.limbs)
 
     def sample(self, seed: int, num_samples: int, thin: int = 1,
                n_chains: int = 1, return_coeffs: bool = False,
@@ -409,6 +414,7 @@ class MetropolisKleinSampler:
         r_diag = torch.diagonal(lattice.R).to(self.device)
         self.pre = dataclasses.replace(
             self._target_pre, sigmas=self.proposal_sigma / r_diag)
+        self.limbs = points_cuda.points_operands(self.pre.basis)
         self._Q = lattice.Q.to(self.device)
         self._R = lattice.R.to(self.device)
         self._klein_ops = None
@@ -442,8 +448,8 @@ class MetropolisKleinSampler:
         self.acceptance_rate = float(state.accepted.sum()) / max(
             n_chains * state.steps, 1)
         coeffs = coeffs.reshape(-1, self.lattice.n)
-        return coeffs if return_coeffs else klein_points(self.pre.basis,
-                                                         coeffs)
+        return coeffs if return_coeffs else klein_points(
+            self.pre.basis, coeffs, self.limbs)
 
     def sample_iid(self, seed: int, num_samples: int, n_steps: int = 64,
                    return_coeffs: bool = False, backend: str = "auto"):
@@ -468,8 +474,8 @@ class MetropolisKleinSampler:
         smk_cuda.check_exact(guard, "SMKSampler.sample_iid")
         self.acceptance_rate = float(acc.sum()) / (num_samples * n_steps)
         coeffs = klein_cuda.from_kernel_layout(kops, x)
-        return coeffs if return_coeffs else klein_points(self.pre.basis,
-                                                         coeffs)
+        return coeffs if return_coeffs else klein_points(
+            self.pre.basis, coeffs, self.limbs)
 
 
 # the north star names the chain "symmetric Metropolis-Klein" (SMK)

@@ -23,6 +23,7 @@ from lattice_gaussian_mcmc_tpu_torch.ops.discrete_gaussian import (
     dgauss_logits,
     sample_dgauss_icdf_with_logz,
 )
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels import points_cuda
 from lattice_gaussian_mcmc_tpu_torch.utils.device import (
     check_backend,
     resolve_device,
@@ -194,9 +195,14 @@ def klein_sample(pre: KleinPrecomp, seed: int = 0, step: int = 0,
     return X[0], lw[0]
 
 
-def klein_points(basis, coeffs):
-    """Map integer coefficients to lattice points: basis @ x (batched)."""
+def klein_points(basis, coeffs, limbs=None):
+    """Map integer coefficients to lattice points: basis @ x (batched).
+    With the basis's int8 limbs (`points_cuda.points_operands`, None for a
+    basis that has none) and coefficients on a card, the exact int8 kernel
+    (`csrc/points.cu`) computes them; otherwise the float64 product."""
     with span("lgm.layout.points"):
+        if limbs is not None and coeffs.device.type == "cuda":
+            return points_cuda.points(limbs, coeffs)
         return coeffs.to(basis.dtype) @ basis.T
 
 
@@ -232,6 +238,7 @@ class KleinSampler:
         self.sigma = float(sigma)
         self.pre = klein_precompute(lattice, sigma, center,
                                     window).to(self.device)
+        self.limbs = points_cuda.points_operands(self.pre.basis)
         self._ops = None
         self._validate()
 
@@ -283,7 +290,7 @@ class KleinSampler:
         coeffs, _ = self.sample_with_weights(seed, num_samples, backend)
         if return_coeffs:
             return coeffs
-        return klein_points(self.pre.basis, coeffs)
+        return klein_points(self.pre.basis, coeffs, self.limbs)
 
     def log_density(self, coeffs):
         return klein_log_density(coeffs, self.pre)

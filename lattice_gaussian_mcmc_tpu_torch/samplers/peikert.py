@@ -23,8 +23,12 @@ from lattice_gaussian_mcmc_tpu_torch.ops.discrete_gaussian import (
     DEFAULT_WINDOW,
     sample_dgauss,
 )
-from lattice_gaussian_mcmc_tpu_torch.ops.kernels import peikert_cuda
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels import (
+    peikert_cuda,
+    points_cuda,
+)
 from lattice_gaussian_mcmc_tpu_torch.ops.theta import smoothing_parameter_zn
+from lattice_gaussian_mcmc_tpu_torch.samplers.klein import klein_points
 from lattice_gaussian_mcmc_tpu_torch.utils.device import (
     check_backend,
     resolve_device,
@@ -157,6 +161,7 @@ class PeikertSampler:
                 self.pre, basis=self.pre.basis.to(self.device),
                 L2=self.pre.L2.to(self.device),
                 cprime=self.pre.cprime.to(self.device))
+        self.limbs = points_cuda.points_operands(self.pre.basis)
         self._ops = None
 
     @property
@@ -168,8 +173,10 @@ class PeikertSampler:
     def sample(self, seed: int, num_samples: int = 1,
                return_coeffs: bool = False, backend: str = "auto"):
         """num_samples independent draws (one round of B5), as lattice
-        points (num_samples, n) or coefficients. backend "cuda" raises
-        unless the sampler is on a card."""
+        points (num_samples, n) or coefficients. On a card the points come
+        from the ring's float32 coefficients as they lie, through the int8
+        kernel where the basis has limbs (`klein_points`). backend "cuda"
+        raises unless the sampler is on a card."""
         with span("lgm.entry.peikert_sample"):
             check_backend(backend, self.device)
             ops = self.operands
@@ -178,5 +185,4 @@ class PeikertSampler:
             coeffs = peikert_cuda.ring_coeffs(ops, ring)[0]
             if return_coeffs:
                 return coeffs
-            with span("lgm.layout.points"):
-                return coeffs.to(self.pre.basis.dtype) @ self.pre.basis.T
+            return klein_points(self.pre.basis, coeffs, self.limbs)

@@ -28,8 +28,9 @@ A call (`sign`): x_t = B^-1 t in float64, x0 = round(x_t), and centred B1
 U (x_t - x0), x = x0 + y. On the same uniforms this is the Klein draw at t
 itself, since the window follows round(centre); and y's mean, x_t - x0,
 lies within 1/2 of 0 in every coordinate, so y stays small however far t
-lies (the bf16 coupling's exact 256, hazard C8). Then v = B x and s = t - v
-in float64, exact for these integers, ||s||^2 in int64, one host read of
+lies (the bf16 coupling's exact 256, hazard C8). Then v = B x (exact: the
+int8 tensor cores on the card, `points_cuda`, the float64 product on the
+CPU), s = t - v in float64, ||s||^2 in int64, one host read of
 the messages that fail the bound, and a redraw round on those alone (the
 uniforms of their counters made by one launch, `sign_cuda.redraw_uniforms`,
 and handed to the same kernel) until none is left. CPU tensors run the
@@ -43,7 +44,11 @@ import torch
 
 from lattice_gaussian_mcmc_tpu_torch.lattices.base import Lattice
 from lattice_gaussian_mcmc_tpu_torch.lattices.ntru import _negacyclic_rot
-from lattice_gaussian_mcmc_tpu_torch.ops.kernels import klein_cuda, sign_cuda
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels import (
+    klein_cuda,
+    points_cuda,
+    sign_cuda,
+)
 from lattice_gaussian_mcmc_tpu_torch.samplers.klein import (
     klein_points,
     klein_precompute,
@@ -82,6 +87,7 @@ class FalconSigner:
             self._binv_c = binv[:, self.ring:].contiguous()
             self._U = self.pre.U.to(torch.float64)
             self._basis = self.pre.basis.to(torch.float64)
+        self._limbs = points_cuda.points_operands(self._basis)
         self._ops = None
         self.redraw_rounds = 0
 
@@ -157,7 +163,7 @@ class FalconSigner:
         the coefficients x = x0 + y (x0 (2n, M) float64, y the draw)."""
         with span("lgm.layout.coeffs"):
             x = x0 + y[:x0.shape[0]]
-        v = klein_points(self._basis, x.T)
+        v = klein_points(self._basis, x.T, self._limbs)
         with span("lgm.sign.norms"):
             s = v.neg_()
             s[:, self.ring:] += c

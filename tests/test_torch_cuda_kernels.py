@@ -2,7 +2,8 @@
 three from `csrc/klein_tc.cu`, and from `csrc/klein.cu` above n_pad
 3,456), B2 (fused IMHK), B3 (IMHK trajectory; B2 and B3 from
 `csrc/imhk_tc.cu`), B4 (fused SMK, `csrc/smk_tc.cu`), B5 (Peikert,
-`csrc/peikert_tc.cu`) and B8 (Z^n, `csrc/zn.cu`) against their plain
+`csrc/peikert_tc.cu`) and B8 (Z^n, `csrc/zn.cu`), and the lattice
+points' int8 kernel (`csrc/points.cu`, against the float64 DGEMM), against their plain
 PyTorch versions on the card, and the entry points that must reach them. These need a CUDA device and skip without
 one; they import nothing of JAX, so on a machine with a card and no JAX run
 
@@ -1230,3 +1231,115 @@ def test_signer_on_the_card_matches_the_reference_and_verifies():
                              "chain": torch.arange(m)})
     limit = harness.Bench().data("cells", "falcon512_sign.batch")
     assert harness.compare(s, expected) <= limit["limits"]["rows_differ"]
+
+
+def _points_case(limbs, basis, x):
+    """The points' kernel on x against the float64 DGEMM bit for bit, and
+    its tile counts against the inputs'."""
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import points_cuda
+    points_cuda.reset_launch_counts()
+    got = points_cuda.points(limbs, x)
+    assert torch.equal(got, x.to(torch.float64) @ basis.T)
+    assert points_cuda.points.launches == 1
+    stats = points_cuda.limb_stats()
+    assert stats == points_cuda.limb_counts(x)
+    return stats
+
+
+@pytest.mark.cuda
+def test_points_at_the_peikert_and_signing_layouts():
+    """Peikert's float32 ring view through `PeikertSampler.sample` and the
+    signer's float64 x.T (a call's messages, a one- and a three-message
+    redraw batch): the kernel equals the float64 DGEMM bit for bit, its
+    tiles take two limbs, and the entry points launch it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lattice_gaussian_mcmc_tpu_torch import FalconSigner
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import points_cuda
+    s, _ = _peikert_row()
+    basis = s.pre.basis
+    x = s.sample(21, B, return_coeffs=True)
+    assert x.stride(0) == 1 and x.dtype == torch.float32
+    assert _points_case(s.limbs, basis, x)["limbs_2"] > 0
+    points_cuda.reset_launch_counts()
+    assert torch.equal(s.sample(21, B), x.double() @ basis.T)
+    assert points_cuda.points.launches == 1
+    lat, _ = _sign_operands()
+    sigma, q, beta2, tail = SIGN
+    signer = FalconSigner(lat, sigma, q, beta2, tail_budget=tail,
+                          device="cuda")
+    c = signer.hash_to_point(5, ODD_CHAINS).to(torch.float64)
+    x0, cs = signer.centres(c)
+    y, _ = klein_cuda.klein_draw_centred(signer.operands, cs, seed=5)
+    x = x0 + y[:x0.shape[0]]
+    assert _points_case(signer._limbs, basis, x.T)["limbs_2"] > 0
+    for m in (1, 3):
+        _points_case(signer._limbs, basis, x[:, :m].contiguous().T)
+    points_cuda.reset_launch_counts()
+    signer.sign(5, c)
+    assert points_cuda.points.launches >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", [512, 1024])
+def test_points_at_the_imhk_layout(ring):
+    """IMHK's row-major float32 coefficients at dimension 1024 and 2048,
+    |x| <= 50 and a row count no multiple of 128: one limb a tile, equal
+    to the float64 DGEMM bit for bit; `sample_iid` launches the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import points_cuda
+    lat = ntru_lattice(ring, q=12289, seed=0,
+                       cache_dir=os.path.join(REPO, "bench_cache"),
+                       device="cuda")
+    limbs = points_cuda.points_operands(lat.basis)
+    assert limbs.n_limbs == 1
+    g = torch.Generator(device="cuda").manual_seed(ring)
+    x = torch.randint(-50, 51, (ODD_CHAINS, lat.n), device="cuda",
+                      generator=g).float()
+    stats = _points_case(limbs, lat.basis, x)
+    assert stats["limbs_1"] > 0 and stats["limbs_2"] == 0
+    if ring == 512:
+        s = IMHKSampler(lat, FALCON[ring][0], tail_budget=0.01)
+        points_cuda.reset_launch_counts()
+        X = s.sample_iid(3, 256, n_steps=2, return_coeffs=True)
+        assert torch.equal(s.sample_iid(3, 256, n_steps=2),
+                           X.double() @ lat.basis.T)
+        assert points_cuda.points.launches == 1
+
+
+@pytest.mark.cuda
+def test_points_reach_wide_bases_odd_shapes_and_nan():
+    """A two-limb basis with coefficients of one to four limbs in one call
+    (a pass of the products a limb), odd widths on element loads, a width
+    past the limb planes' room (two passes over its columns), float64
+    row-major and column-major: bit for bit against the float64 DGEMM; a
+    value out of reach writes NaN over its 64 rows only; a call makes no
+    host read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import points_cuda
+    g = torch.Generator(device="cuda").manual_seed(9)
+    # n 2100: the limb planes hold 2,048 columns, so x runs in two parts
+    for n, top in ((200, 20000), (2, 90), (5, 30000), (2100, 90), (72, 127)):
+        basis = torch.randint(-top, top + 1, (n, n), device="cuda",
+                              generator=g).double()
+        limbs = points_cuda.points_operands(basis)
+        x = torch.randint(-100, 101, (300, n), device="cuda",
+                          generator=g).double()
+        x[3, 0], x[130, n - 1], x[260, n // 2] = -3000, 2 ** 20, -2 ** 30
+        for xs in (x, x.float(), x.T.contiguous().T):
+            _points_case(limbs, basis, xs)
+    x[140, 1] = 0.5
+    points_cuda.reset_launch_counts()
+    got = points_cuda.points(limbs, x)
+    assert bool(got[128:192].isnan().all())
+    assert not bool(got[:128].isnan().any() or got[192:].isnan().any())
+    assert points_cuda.limb_stats() == points_cuda.limb_counts(x)
+    assert points_cuda.limb_stats()["beyond"] == 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        points_cuda.points(limbs, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

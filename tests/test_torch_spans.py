@@ -147,9 +147,10 @@ def test_setup_spans(tmp_path):
     assert names.count("lgm.setup.qr") == 1
     assert names.count("lgm.setup.precompute") == 2
     assert names.count("lgm.setup.burn_in") == 1
+    # each sampler's basis limbs at its construction (points_operands),
     # kernel_operands at the first IMHK call, peikert_operands at the
     # first Peikert call (predicted_y is read on a card only)
-    assert names.count("lgm.setup.operands") == 2
+    assert names.count("lgm.setup.operands") == 4
 
 
 def test_fragments_span_only_when_it_packs(tmp_path):
