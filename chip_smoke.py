@@ -692,6 +692,7 @@ class Smoke:
         from lattice_gaussian_mcmc_tpu_torch.lattices import ntru_lattice
         from lattice_gaussian_mcmc_tpu_torch.ops.kernels import (
             klein_cuda,
+            launch_record,
             peikert_cuda,
             points_cuda,
             smk_cuda,
@@ -699,7 +700,7 @@ class Smoke:
         )
         from lattice_gaussian_mcmc_tpu_torch.utils import graphs
         self.kc, self.sc, self.pc = klein_cuda, smk_cuda, peikert_cuda
-        self.zc, self.ptc = zn_cuda, points_cuda
+        self.zc, self.ptc, self.rec = zn_cuda, points_cuda, launch_record
         self.graphs = graphs
         # the plain versions' matrix products run in full float32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -716,24 +717,20 @@ class Smoke:
         self.k = {}              # kernel -> numbers for the kernels line
 
     def reset_counts(self):
-        for mod in (self.kc, self.sc, self.pc, self.zc, self.ptc):
-            mod.reset_launch_counts()
+        self.rec.reset()
         self.graphs.reset_counts()
 
     def counts(self):
-        return {"klein_draw": self.kc.klein_draw.launches,
-                "klein_draw_centred": self.kc.klein_draw_centred.launches,
-                "klein_draw_fp32": self.kc.klein_draw.fp32_launches,
-                "klein_ring_fp32": self.kc.klein_ring.fp32_launches,
-                "imhk_fused": self.kc.imhk_fused.launches,
-                "imhk_trajectory": self.kc.imhk_trajectory.launches,
-                "smk_steps": self.sc.smk_steps.launches,
-                "peikert_rounds": self.pc.peikert_rounds.launches,
-                "klein_ring": self.kc.klein_ring.launches,
-                "babai_decode": self.kc.babai_decode.launches,
-                "babai_decode_fp32": self.kc.babai_decode.fp32_launches,
-                "sample_zn_draws": self.zc.sample_zn_draws.launches,
-                "points": self.ptc.points.launches}
+        """The launch record's launches of each kernel, and those of
+        klein.cu's FP32 sweep as `<kernel>_fp32`."""
+        out = {}
+        for k, r in self.rec.read().items():
+            out[k], out[f"{k}_fp32"] = r["launches"], r["fp32_launches"]
+        return out
+
+    def max_y(self, kernel):
+        """The largest |y| the launch record holds for `kernel`."""
+        return self.rec.read()[kernel]["max_abs_y"]
 
     def graph_counts(self):
         """The plain chains' captured graphs (utils/graphs.py) since the
@@ -833,13 +830,14 @@ def median_ms(fn, reps=POINTS_REPS):
 
 def points_case(s: Smoke, limbs, basis, x):
     """The kernel on coefficients x against the float64 DGEMM of the same
-    x (the cast and product it replaces): bit for bit, `limb_stats`
-    against the tiles' limb counts, both ms, the bound."""
+    x (the cast and product it replaces): bit for bit, the launch's
+    change of `limb_stats` against the tiles' limb counts, both ms, the
+    bound."""
     import torch
     ptc = s.ptc
-    ptc.reset_launch_counts()
+    before = ptc.limb_stats()
     got = ptc.points(limbs, x)
-    stats = ptc.limb_stats()
+    stats = {k: v - before[k] for k, v in ptc.limb_stats().items()}
     want = x.to(torch.float64) @ basis.T
     equal = torch.equal(got, want)
     expected_stats = ptc.limb_counts(x)
@@ -988,7 +986,7 @@ def check_b6(s: Smoke):
     centre = max(centre_err(pre, ops, rq[r * n_pad:(r + 1) * n_pad],
                             cq[r * n_pad:(r + 1) * n_pad]) for r in range(R))
     del cq, rqd
-    max_abs_y = kc.klein_ring.max_abs_y
+    max_abs_y = s.max_y("klein_ring")
     ok = (round0 and one_round and distinct and debug_equal
           and centre < MAX_CENTRE_ERR
           and all(draws_ok(r) for r in host + philox))
@@ -1024,7 +1022,7 @@ def check_qary(s: Smoke):
         pre = klein_precompute(lat, 1.5 * max_gs, tail_budget=0.01)
         ops = kc.kernel_operands(pre)
         n_pad, R = ops.n_pad, QARY_ROUNDS
-        guard = kc.exact_guard(dev)
+        guard = s.rec.ExactGuard(dev)
         u1 = torch.rand(n_pad, B, device=dev, generator=gen)
         y, lw = kc.klein_draw(ops, B, uniforms=u1, guard=guard)
         yp, lwp = kc.klein_draw_plain(ops, B, uniforms=u1)
@@ -1045,8 +1043,8 @@ def check_qary(s: Smoke):
         kc.imhk_fused(ops, x, lx, ax, QARY_STEPS, uniforms=u2, guard=guard)
         kc.imhk_fused_plain(ops, xp, lxp, axp, QARY_STEPS, uniforms=u2)
         b2 = compare_steps(x, xp, lx, lxp, ax, axp, n, QARY_STEPS)
-        top = guard[:, 1].tolist()     # rows: B2, B3, B1, B6
-        counted = int(guard[:, 0].sum())
+        rows = guard.read()
+        counted = sum(b for b, _ in rows.values())
         del u1, u6, u2, ring, ringp, x, xp
         sp = PeikertSampler(lat, 3.0 * float(np.linalg.norm(
             lat.basis.cpu().numpy(), 2)), device=dev)
@@ -1095,7 +1093,9 @@ def check_qary(s: Smoke):
         out[f"n{n}"] = {
             "ok": n_ok, "n_pad": n_pad, "window": ops.window,
             "wide": kc.wide_y(ops), "sigma": pre.sigma.item(),
-            "max_abs_y": {"b2": top[0], "b1": top[2], "b6": top[3]},
+            "max_abs_y": {"b2": rows["imhk_fused"][1],
+                          "b1": rows["klein_draw"][1],
+                          "b6": rows["klein_ring"][1]},
             "max_abs_coeff_b5": float(pc.ring_coeffs(ops_p, pc.peikert_rounds(
                 ops_p, B, 1, seed=83)).abs().max()),
             "counted_beyond_256": counted, "b1": b1, "b1_philox": b1_philox,
@@ -1122,7 +1122,7 @@ def blocked_vs_plain(s: Smoke, pre, B, steps, philox, hard=False):
     kc, dev, gen = s.kc, s.dev, s.gen
     ops = blocked_operands(pre)
     n, n_pad = ops.n, ops.n_pad
-    guard = kc.exact_guard(dev)
+    guard = s.rec.ExactGuard(dev)
     u1 = torch.rand(n_pad, B, device=dev, generator=gen)
     y, lw = kc.klein_draw(ops, B, uniforms=u1, guard=guard)
     yp, lwp = kc.klein_draw_plain(ops, B, uniforms=u1)
@@ -1143,8 +1143,8 @@ def blocked_vs_plain(s: Smoke, pre, B, steps, philox, hard=False):
             res[key] = dict(compare_steps(x, xp, lx, lxp, ax, axp, n,
                                           steps), steps=steps)
         del u2, x, xp
-    top = guard[:, 1].tolist()     # rows: B2, B3, B1, B6
-    counted = int(guard[:, 0].sum())
+    rows = guard.read()
+    counted = sum(b for b, _ in rows.values())
     ok = (all(draws_ok(r) for r in res.values()) and counted == 0
           and all(hard_decisions_ok(r, B) if hard else
                   r["accept_differing"] <= MAX_ACCEPT_SHARE
@@ -1153,7 +1153,8 @@ def blocked_vs_plain(s: Smoke, pre, B, steps, philox, hard=False):
     return ok, dict(res, ok=ok, dim=n, chains=B, n_pad=n_pad,
                     sigma=pre.sigma.item(), window=ops.window,
                     wide=kc.wide_y(ops), route=kc.klein_route(n_pad),
-                    max_abs_y={"b1": top[2], "b2": top[0]},
+                    max_abs_y={"b1": rows["klein_draw"][1],
+                               "b2": rows["imhk_fused"][1]},
                     counted_beyond_256=counted)
 
 
@@ -1290,8 +1291,9 @@ def check_fp32_route(s: Smoke):
     n_pad = ops.n_pad
 
     def counts():
-        return (kc.klein_draw.launches, kc.klein_ring.launches,
-                kc.klein_draw.fp32_launches, kc.klein_ring.fp32_launches)
+        c = s.counts()
+        return [c[k] for k in ("klein_draw", "klein_ring", "klein_draw_fp32",
+                               "klein_ring_fp32")]
 
     before = counts()
     u = torch.rand(n_pad, B, device=s.dev, generator=s.gen)
@@ -1317,11 +1319,11 @@ def check_fp32_route(s: Smoke):
         T, N, device=s.dev, generator=s.gen, dtype=torch.float64)
     ops7 = kc.babai_operands(lat.Q, lat.R)
     ct, k = kc.babai_centres(ops7, t)
-    b7_before = (kc.babai_decode.launches, kc.babai_decode.fp32_launches)
+    b7_before = s.counts()
     out7 = []
     ms7 = cuda_ms(lambda: out7.append(kc.babai_decode(ops7, ct)))
-    d7 = [kc.babai_decode.launches - b7_before[0],
-          kc.babai_decode.fp32_launches - b7_before[1]]
+    d7 = [s.counts()[k] - b7_before[k]
+          for k in ("babai_decode", "babai_decode_fp32")]
     plain7 = []
     plain_ms7 = cuda_ms(lambda: plain7.append(kc.babai_decode_plain(ops7,
                                                                     ct)))
@@ -1486,7 +1488,8 @@ def check_b2_ntru1024(s: Smoke):
                                        philox["max_abs_lw_err"]))
     return ok, {"dim": n, "n_pad": n_pad, "window": ops.window,
                 "sigma": FALCON1024_SIGMA, "chains": B, "steps": 2,
-                "resident_chains": kc.imhk_fused.resident_chains,
+                "resident_chains":
+                    s.rec.read()["imhk_fused"]["resident_chains"],
                 "host": host, "philox": philox,
                 "b3_vs_b2": dict(b3_vs_b2, keep=B3_CHECK_KEEP,
                                  thin=B3_CHECK_THIN)}
@@ -1555,12 +1558,12 @@ def check_b7_reach(s: Smoke):
     xs = torch.from_numpy(xstar(T)).to(s.dev)
     w = torch.from_numpy(rng.choice([-0.25, 0.25], (T, REACH_N))).to(s.dev)
     t = xs @ lat.basis.T + w
-    launches = (kc.babai_decode.launches, kc.babai_decode.fp32_launches)
+    counts = s.counts()
     before = kc.babai_y_stats()
     X = lat.nearest_plane(t)
     after = kc.babai_y_stats()
-    launches = (kc.babai_decode.launches - launches[0],
-                kc.babai_decode.fp32_launches - launches[1])
+    launches = tuple(s.counts()[k] - counts[k]
+                     for k in ("babai_decode", "babai_decode_fp32"))
     Xo = linalg.babai_nearest_plane(lat.Q, lat.R, t)
     ops = kc.babai_operands(lat.Q, lat.R)
     ct, k = kc.babai_centres(ops, t)
@@ -1773,7 +1776,7 @@ def check_b1_centred(s: Smoke):
         y, lw = kc.klein_draw_centred(ops, same, **kw)
         yb, lwb = kc.klein_draw(ops, B, **kwb)
         equal[name] = torch.equal(y, yb) and torch.equal(lw, lwb)
-    max_y = kc.klein_draw_centred.max_abs_y
+    max_y = s.max_y("klein_draw_centred")
     ok = (ops.window == SIGN_WINDOW and all(map(draws_ok, res.values()))
           and all(equal.values()) and 0 < max_y <= kc.EXACT_Y)
     s.note("B1c", max_abs_err=max(v["max_abs_lw_err"] for v in res.values()),
@@ -2008,7 +2011,7 @@ def phase_kernel_vs_plain(s: Smoke):
     emit({"phase": "kernel_vs_plain", "ok": ok, "chains": B, "dim": n,
           "window": W, "plain_allow_tf32": False,
           "b1": dict(b1, max_kernel_centre_err_over_sigma=centre_b1,
-                     max_abs_y=kc.klein_draw.max_abs_y, **b1_is_b2),
+                     max_abs_y=s.max_y("klein_draw"), **b1_is_b2),
           "b1_b6_b7_fp32_route": fp32, "b2_2steps": b2,
           "max_centre_err_over_sigma": centre,
           "max_kernel_centre_err_over_sigma": centre_kernel,
@@ -2096,7 +2099,7 @@ def phase_signing(s: Smoke):
     differ = harness.compare(rows, ref.expected(
         {"seed": torch.full((SIGN_REF_ROWS,), seed, dtype=torch.int64),
          "chain": torch.arange(SIGN_REF_ROWS)}))
-    max_y = kc.klein_draw_centred.max_abs_y
+    max_y = s.max_y("klein_draw_centred")
     # centred B1 alone on the last call's centres: U's fragments and U^T
     # read, the centres read and y and lw written once
     ops = signer.operands
@@ -2244,12 +2247,8 @@ def phase_flagship(s: Smoke):
         accs.append(sampler.acceptance_rate)
     launches = s.counts()
     s.launches["flagship"] = launches
-    expected = {"klein_draw": FLAGSHIP_REPS + 1, "klein_draw_centred": 0,
-                "klein_draw_fp32": 0,
-                "klein_ring_fp32": 0, "imhk_fused": FLAGSHIP_REPS,
-                "imhk_trajectory": 0, "smk_steps": 0, "peikert_rounds": 0,
-                "klein_ring": 0, "babai_decode": 0, "babai_decode_fp32": 0,
-                "sample_zn_draws": 0, "points": 0}
+    expected = dict(dict.fromkeys(launches, 0),
+                    klein_draw=FLAGSHIP_REPS + 1, imhk_fused=FLAGSHIP_REPS)
     peak = torch.cuda.max_memory_allocated()
     n = lat.n
     # output check: shape, finite integers, and the D_{L,sigma} second
@@ -2269,8 +2268,8 @@ def phase_flagship(s: Smoke):
           "rep_samples_per_s": rates, "acceptance": acc,
           "burn_in": sampler.burn_in, "launches": launches,
           "expected_launches": expected,
-          "b1_max_abs_y": s.kc.klein_draw.max_abs_y,
-          "b2_max_abs_y": s.kc.imhk_fused.max_abs_y,
+          "b1_max_abs_y": s.max_y("klein_draw"),
+          "b2_max_abs_y": s.max_y("imhk_fused"),
           "peak_allocated_bytes": peak,
           "finite": finite, "integral": integral,
           "norm2_over_dim_sigma2": norm_ratio, "card": s.card})
@@ -2363,9 +2362,9 @@ def phase_hard_regime(s: Smoke):
           "b3_ms": b3_ms, "b3_bound_ms": s.k["B3"]["bound_ms"],
           "pooled_acf": [float(r) for r in rho[:8]],
           "entry_sample_acceptance": entry_acc, "launches": launches,
-          "b1_max_abs_y": kc.klein_draw.max_abs_y,
-          "b2_max_abs_y": kc.imhk_fused.max_abs_y,
-          "b3_max_abs_y": kc.imhk_trajectory.max_abs_y, "card": s.card})
+          "b1_max_abs_y": s.max_y("klein_draw"),
+          "b2_max_abs_y": s.max_y("imhk_fused"),
+          "b3_max_abs_y": s.max_y("imhk_trajectory"), "card": s.card})
     if not ok:
         fail("hard_regime", "hard-regime row failed its checks")
 
@@ -2422,8 +2421,8 @@ def phase_smk(s: Smoke):
           "acceptance": a_s, "expected_acceptance": SMK_ROW_ACCEPTANCE,
           "warm_up_acceptance": warm_acc, "b4_ms": b4_ms,
           "b4_bound_ms": s.k["B4"]["bound_ms"],
-          "b1_max_abs_y": kc.klein_draw.max_abs_y,
-          "b4_max_abs_y": sc.smk_steps.max_abs_y,
+          "b1_max_abs_y": s.max_y("klein_draw"),
+          "b4_max_abs_y": s.max_y("smk_steps"),
           "launches": launches, "card": s.card})
     if not ok:
         fail("smk", "SMK row failed its checks")
@@ -2486,21 +2485,13 @@ def phase_peikert(s: Smoke):
 
 
 # -------------------------------------------------------- scale_validation
-def scale_validation_expected(sizes):
+def scale_validation_expected(s: Smoke, sizes):
     """The launches of one `validate_scale.run_validation` at dimension
     1024: B1 a Klein batch (smooth, hard and its extra KS seeds, the SMK
     start), B2 one 16-step launch a Klein/IMHK regime, B4 one, B5 one; the
     float64 route none."""
-    expected = {k: 0 for k in ("klein_draw", "klein_draw_centred",
-                               "klein_draw_fp32",
-                               "klein_ring_fp32", "imhk_fused",
-                               "imhk_trajectory", "smk_steps",
-                               "peikert_rounds", "klein_ring",
-                               "babai_decode", "babai_decode_fp32",
-                               "sample_zn_draws", "points")}
-    expected.update(klein_draw=2 + sizes.ks_seeds, imhk_fused=2,
-                    smk_steps=1, peikert_rounds=1)
-    return expected
+    return dict(dict.fromkeys(s.counts(), 0), klein_draw=2 + sizes.ks_seeds,
+                imhk_fused=2, smk_steps=1, peikert_rounds=1)
 
 
 def phase_scale_validation(s: Smoke):
@@ -2523,7 +2514,7 @@ def phase_scale_validation(s: Smoke):
             if isinstance(val, dict):
                 emit({"phase": "scale_validation_gate", "regime": name,
                       "check": check, **val})
-    expected = scale_validation_expected(sizes)
+    expected = scale_validation_expected(s, sizes)
     vs.write_results(res, os.path.join(REPO, "suite_results",
                                        "torch_validation"))
     regimes = {k: res[k]["passed"] for k in vs.REGIMES}
@@ -2609,9 +2600,9 @@ def phase_suite(s: Smoke):
               f"{r['algorithm']}{r['dimension']}": r["norm2_over_dim_sigma2"]
               for r in qary},
           "launches": launches,
-          "b1_max_abs_y": s.kc.klein_draw.max_abs_y,
-          "b2_max_abs_y": s.kc.imhk_fused.max_abs_y,
-          "b6_max_abs_y": s.kc.klein_ring.max_abs_y, "card": s.card})
+          "b1_max_abs_y": s.max_y("klein_draw"),
+          "b2_max_abs_y": s.max_y("imhk_fused"),
+          "b6_max_abs_y": s.max_y("klein_ring"), "card": s.card})
     if not ok:
         fail("suite", "benchmark suite rows failed their checks")
     return rows
@@ -3248,7 +3239,7 @@ def phase_mesh(s: Smoke):
         restore_checkpoint,
         save_checkpoint,
     )
-    kc, pc = s.kc, s.pc
+    pc = s.pc
     C, T = FLAGSHIP_CHAINS, STEPS_PER_LAUNCH
     out_dir = os.path.join(REPO, "suite_results", "mesh")
     cache = os.path.join(REPO, "bench_cache")
@@ -3620,27 +3611,19 @@ def phase_timing(s: Smoke, sampler):
 
 
 KERNELS = [
-    # (key, name, source, replaces, launch counter)
-    ("B1", "klein_draw (B1)", "klein_tc.cu", "klein_pallas.py:642",
-     "klein_draw"),
-    ("B1c", "klein_draw_centred (centred B1)", "klein_tc.cu",
-     "klein_pallas.py:642", "klein_draw_centred"),
-    ("B2", "imhk_fused (B2)", "imhk_tc.cu", "klein_pallas.py:798",
-     "imhk_fused"),
-    ("B3", "imhk_trajectory (B3)", "imhk_tc.cu", "klein_pallas.py:890",
-     "imhk_trajectory"),
-    ("B4", "smk_steps (B4)", "smk_tc.cu", "smk_pallas.py:439", "smk_steps"),
-    ("B5", "peikert_rounds (B5)", "peikert_tc.cu", "peikert_pallas.py:287",
-     "peikert_rounds"),
-    ("B6", "klein_ring (B6)", "klein_tc.cu", "klein_pallas.py:714",
-     "klein_ring"),
-    ("B7", "babai_decode (B7)", "klein_tc.cu", "klein_pallas.py:1027",
-     "babai_decode"),
-    ("B8", "sample_zn_draws (B8)", "zn.cu", "zn_pallas.py:97",
-     "sample_zn_draws"),
+    # (key, its wrapper: the launch record's name, label, source, replaces)
+    ("B1", "klein_draw", "B1", "klein_tc.cu", "klein_pallas.py:642"),
+    ("B1c", "klein_draw_centred", "centred B1", "klein_tc.cu",
+     "klein_pallas.py:642"),
+    ("B2", "imhk_fused", "B2", "imhk_tc.cu", "klein_pallas.py:798"),
+    ("B3", "imhk_trajectory", "B3", "imhk_tc.cu", "klein_pallas.py:890"),
+    ("B4", "smk_steps", "B4", "smk_tc.cu", "smk_pallas.py:439"),
+    ("B5", "peikert_rounds", "B5", "peikert_tc.cu", "peikert_pallas.py:287"),
+    ("B6", "klein_ring", "B6", "klein_tc.cu", "klein_pallas.py:714"),
+    ("B7", "babai_decode", "B7", "klein_tc.cu", "klein_pallas.py:1027"),
+    ("B8", "sample_zn_draws", "B8", "zn.cu", "zn_pallas.py:97"),
     # no TPU kernel: the JAX package leaves the points' product to XLA
-    ("PTS", "points (the lattice points x B^T)", "points.cu", None,
-     "points"),
+    ("PTS", "points", "the lattice points x B^T", "points.cu", None),
 ]
 
 
@@ -3648,18 +3631,18 @@ def kernels_line(s: Smoke):
     """One entry per kernel: `launches` sums its counts over the path
     phases; `plain_ms` of B3-B8 is at the check size (`check_shape`, where
     `check_ms` is the kernel's own time), their `ms` at the row's shape.
-    B1's, B6's and B7's `fp32_route_launches` sum the paths' launches of
-    klein.cu's FP32 sweep, which they take above n_pad 3,456."""
+    `fp32_route_launches` sums the paths' launches of klein.cu's FP32
+    sweep, which B1, B6 and B7 take above n_pad 3,456 (0 for the rest)."""
     out = []
-    for key, name, src, replaces, counter in KERNELS:
-        entry = {"name": name, "route": "cuda",
+    for key, kernel, label, src, replaces in KERNELS:
+        entry = {"name": f"{kernel} ({label})", "route": "cuda",
                  "source": f"lattice_gaussian_mcmc_tpu_torch/csrc/{src}",
                  "replaces": (f"lattice_gaussian_mcmc_tpu/ops/kernels/"
-                              f"{replaces}" if replaces else None),
-                 "launches": sum(c[counter] for c in s.launches.values())}
-        if f"{counter}_fp32" in s.counts():
-            entry["fp32_route_launches"] = sum(
-                c[f"{counter}_fp32"] for c in s.launches.values())
+                              f"{replaces}" if replaces else None)}
+        for field, suffix in (("launches", ""),
+                              ("fp32_route_launches", "_fp32")):
+            entry[field] = sum(c[kernel + suffix]
+                               for c in s.launches.values())
         entry.update(s.k[key])
         entry.setdefault("library_ms", None)
         out.append(entry)

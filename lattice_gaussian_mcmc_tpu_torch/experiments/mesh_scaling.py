@@ -39,7 +39,7 @@ from lattice_gaussian_mcmc_tpu_torch.experiments.configs import (
 )
 from lattice_gaussian_mcmc_tpu_torch.lattices import lattice_from_basis
 from lattice_gaussian_mcmc_tpu_torch.ops.kernels import (
-    klein_cuda,
+    launch_record,
     peikert_cuda,
 )
 from lattice_gaussian_mcmc_tpu_torch.parallel.collectives import (
@@ -103,9 +103,9 @@ def _timed(mesh: ChainMesh, run):
 
 
 def _launches():
-    return {"klein_draw": klein_cuda.klein_draw.launches,
-            "imhk_fused": klein_cuda.imhk_fused.launches,
-            "peikert_rounds": peikert_cuda.peikert_rounds.launches}
+    rec = launch_record.read()
+    return {k: rec[k]["launches"]
+            for k in ("klein_draw", "imhk_fused", "peikert_rounds")}
 
 
 def _row(mesh: ChainMesh, n_chains: int, samples: int, seconds: float,

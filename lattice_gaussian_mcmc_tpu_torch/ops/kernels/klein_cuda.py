@@ -2,7 +2,7 @@
 trajectory (B3) and batched Babai decoding (B7) on Hopper: wrappers of the
 CUDA kernels in `csrc/klein_tc.cu` (B1, B6, B7), `csrc/imhk_tc.cu` (B2,
 B3) and `csrc/klein.cu` (B1, B6 and B7 above `KLEIN_TC_MAX_N_PAD`), their
-plain PyTorch versions, launch counts, and the operand preparation.
+plain PyTorch versions and the operand preparation.
 
 Replaces the draw, ring, fused-MH and trajectory modes of the Pallas kernel
 `lattice_gaussian_mcmc_tpu/ops/kernels/klein_pallas.py` `_kernel`
@@ -28,9 +28,10 @@ B1, B2, B3 and B6 form the coupling on the tensor cores from an exact bf16
 split of the float32 U (U = U1 + U2 + U3, `split_bf16`), packed in the mma
 A-fragment order (`tc_fragments`). Their products are exact only while the
 draw's recentred coefficients are: |y| <= 256 (hazard C8). The kernels
-count the draws beyond that into an `exact_guard`; the wrapper, or the
-entry point that passed it one, raises before it returns. B1 and B6 keep
-the draw in shared memory, which bounds n_pad by `KLEIN_TC_MAX_N_PAD`:
+count the draws beyond that into their row of an `ExactGuard`
+(`launch_record.py`); the wrapper, or the entry point that passed it one,
+raises before it returns. B1 and B6 keep the draw in shared memory, which
+bounds n_pad by `KLEIN_TC_MAX_N_PAD`:
 above it they take the FP32 sweep of `csrc/klein.cu` (`klein_route`, by
 n_pad, before the launch). B2 and B3 keep the proposal in a device-memory
 scratch (`proposal_scratch`), so that eight blocks share an SM, and hold
@@ -59,6 +60,7 @@ import dataclasses
 from typing import TYPE_CHECKING
 
 import torch
+import torch.nn.functional as F
 
 from lattice_gaussian_mcmc_tpu_torch.ops.discrete_gaussian import (
     window_offsets,
@@ -68,6 +70,13 @@ from lattice_gaussian_mcmc_tpu_torch.ops.kernels._build import (
     load,
     ptr,
     raise_on,
+)
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels.launch_record import (
+    EXACT_Y,
+    ExactGuard,
+    count,
+    device_counters,
+    read_device_counters,
 )
 from lattice_gaussian_mcmc_tpu_torch.utils.prng import (
     TAG_ACCEPT,
@@ -85,7 +94,6 @@ if TYPE_CHECKING:
 BLOCK = 128        # n is padded to a multiple of this
 ROW_BLOCK = 64     # rows per block of the backward substitution
 ACCEPT_ROWS = 8    # host-uniform rows per fused step beyond n_pad
-EXACT_Y = 256      # |y| up to which the bf16 draw tile is exact (hazard C8)
 # predicted standard deviations of a coefficient that `wide_y` covers
 WIDE_TAIL = 7.0
 WIDE_Y = 1 << 24   # |y| below which the WIDE instantiations are exact (C15)
@@ -186,15 +194,26 @@ def tc_fragments(ops) -> torch.Tensor:
     return frag
 
 
+def _pad_precomp(pre: KleinPrecomp, block: int = BLOCK):
+    """Pad U/cs/sigmas so n is a multiple of `block`. Padded rows get U = I,
+    sigma = 1e-6 and cs = 0, so they draw 0 with log Z = 0 and never touch
+    the real rows (the off-diagonal padding of U is zero).
+    Returns (padded precomp, n)."""
+    n, pad = pre.n, (-pre.n) % block
+    if pad == 0:
+        return pre, n
+    U = torch.block_diag(pre.U, torch.eye(pad, dtype=pre.U.dtype,
+                                          device=pre.device))
+    return dataclasses.replace(
+        pre, U=U, cs=F.pad(pre.cs, (0, pad)),
+        sigmas=F.pad(pre.sigmas, (0, pad), value=1e-6)), n
+
+
 def kernel_operands(pre: KleinPrecomp, dtype=torch.float32) -> KleinOperands:
     """Pad to 128 rows and recenter: k = round(cs) (half to even),
     cs_eff = cs - U k in float64 then cast, isg = 1 / sigma_i."""
     with span("lgm.setup.operands"):
-        # imported here: klein_blocked imports this module at its top
-        from lattice_gaussian_mcmc_tpu_torch.samplers.klein_blocked import (
-            _pad_precomp,
-        )
-        ppre, n_real = _pad_precomp(pre, BLOCK)
+        ppre, n_real = _pad_precomp(pre)
         U64 = ppre.U.to(torch.float64)
         cs64 = ppre.cs.to(torch.float64)
         k = torch.round(cs64)
@@ -592,8 +611,8 @@ def _klein_launch(ops: KleinOperands, num_chains: int, n_rounds: int,
                   what: str, bad=None, dbg=None):
     """Launch B1 (n_rounds 1) or B6 on the library `klein_route` picks;
     returns the ring (n_rounds n_pad, B), the lw ring (n_rounds, B) and
-    that library's name. The tensor-core sweep counts C8 into bad (one row
-    of an `exact_guard`) and, with `dbg`, writes the centres there. Raises
+    that library's name. The tensor-core sweep counts C8 into bad (its row
+    of an `ExactGuard`) and, with `dbg`, writes the centres there. Raises
     on bad input or a launch error; does not wait."""
     if n_rounds < 1:
         raise ValueError(f"n_rounds {n_rounds} must be >= 1")
@@ -632,22 +651,13 @@ def _klein_launch(ops: KleinOperands, num_chains: int, n_rounds: int,
     return ring, lws, route
 
 
-def _count(wrapper, route: str):
-    """One launch of `wrapper` on `route`'s kernel: `launches` counts the
-    tensor-core sweep's, `fp32_launches` klein.cu's."""
-    if route == "klein_tc":
-        wrapper.launches += 1
-    else:
-        wrapper.fp32_launches += 1
-
-
 def klein_draw(ops: KleinOperands, num_chains: int, *, seed: int = 0,
                step: int = 0, chain_offset: int = 0, uniforms=None,
                guard=None):
     """B1: one Klein draw per chain. Returns (y (n_pad, B) recentered
-    integer-valued, lw (B,)). With `guard` (an `exact_guard`) the caller
-    reads the C8 counters with `check_exact`; without one the wrapper reads
-    its own after the launch. CPU operands run `klein_draw_plain`."""
+    integer-valued, lw (B,)). With `guard` (an `ExactGuard`) the caller
+    checks the C8 counters; without one the wrapper checks its own after
+    the launch. CPU operands run `klein_draw_plain`."""
     with span("lgm.kernel.b1"):
         if ops.device.type == "cpu":
             return klein_draw_plain(ops, num_chains, seed=seed, step=step,
@@ -655,13 +665,13 @@ def klein_draw(ops: KleinOperands, num_chains: int, *, seed: int = 0,
                                     uniforms=uniforms)
         own = guard is None
         if own:
-            guard = exact_guard(ops.device)
+            guard = ExactGuard(ops.device)
         y, lw, route = _klein_launch(ops, num_chains, 1, seed, step,
                                      chain_offset, uniforms, "klein_draw",
-                                     guard[2])
-        _count(klein_draw, route)
+                                     guard.row("klein_draw"))
+        count("klein_draw", fp32=route != "klein_tc")
         if own:
-            check_exact(guard, "klein_draw")
+            guard.check("klein_draw")
         return y, lw[0]
 
 
@@ -679,7 +689,7 @@ def klein_draw_centred(ops: KleinOperands, centres: torch.Tensor, *,
     at most `predicted_y(ops)` + 1/2 (tight for operands at centre 0), which
     must stay within the narrow kernel's exact 256 (hazard C8; there is no
     WIDE instantiation) or the wrapper raises before the launch; a drawn
-    |y| > 256 is counted into `guard`'s fifth row. `guard` and the uniforms
+    |y| > 256 is counted into its row of `guard`. `guard` and the uniforms
     as for `klein_draw`; tensor-core sweep only (n_pad up to
     `KLEIN_TC_MAX_N_PAD`). Without `uniforms` the draw takes the midpoint
     uniforms of its Philox counters (`utils/prng.py` `philox_midpoint`), in
@@ -706,20 +716,21 @@ def klein_draw_centred(ops: KleinOperands, centres: torch.Tensor, *,
             check_cuda("uniforms", uniforms, (n_pad, B))
         own = guard is None
         if own:
-            guard = exact_guard(ops.device)
+            guard = ExactGuard(ops.device)
         y = torch.empty(n_pad, B, dtype=torch.float32, device=ops.device)
         lw = torch.empty(B, dtype=torch.float32, device=ops.device)
         k0, k1 = seed_key(seed)
         rc = load("klein_tc").klein_tc_centred_launch(
             ptr(tc_fragments(ops)), ptr(ops.UT), ptr(centres), ptr(ops.isg),
             ptr(uniforms) if uniforms is not None else None, ptr(y), ptr(lw),
-            ptr(guard[4]), n_pad, B, ops.window, k0, k1, step, chain_offset,
+            ptr(guard.row("klein_draw_centred")), n_pad, B, ops.window, k0,
+            k1, step, chain_offset,
             ctypes.c_void_p(
                 torch.cuda.current_stream(ops.device).cuda_stream))
         raise_on("klein_tc", rc, "klein_draw_centred")
-        klein_draw_centred.launches += 1
+        count("klein_draw_centred")
         if own:
-            check_exact(guard, "klein_draw_centred")
+            guard.check("klein_draw_centred")
         return y, lw
 
 
@@ -737,13 +748,13 @@ def klein_ring(ops: KleinOperands, num_chains: int, n_rounds: int, *,
                                 uniforms=uniforms)
     own = guard is None
     if own:
-        guard = exact_guard(ops.device)
+        guard = ExactGuard(ops.device)
     ring, lws, route = _klein_launch(ops, num_chains, n_rounds, seed, step,
                                      chain_offset, uniforms, "klein_ring",
-                                     guard[3])
-    _count(klein_ring, route)
+                                     guard.row("klein_ring"))
+    count("klein_ring", fp32=route != "klein_tc")
     if own:
-        check_exact(guard, "klein_ring")
+        guard.check("klein_ring")
     return ring, lws
 
 
@@ -776,11 +787,11 @@ def klein_centres(ops: KleinOperands, num_chains: int, n_rounds: int = 1, *,
                                    uniforms=uniforms)
     dbg = torch.empty(n_rounds * ops.n_pad, num_chains, dtype=torch.float32,
                       device=ops.device)
-    guard = exact_guard(ops.device)
+    guard = ExactGuard(ops.device)
     ring, lws, _ = _klein_launch(ops, num_chains, n_rounds, seed, step,
                                  chain_offset, uniforms, "klein_centres",
-                                 guard[3], dbg=dbg)
-    check_exact(guard, "klein_centres")
+                                 guard.row("klein_ring"), dbg=dbg)
+    guard.check("klein_centres")
     return dbg, ring, lws
 
 
@@ -806,8 +817,8 @@ def babai_decode(ops: BabaiOperands, ct: torch.Tensor) -> torch.Tensor:
     """B7: Babai nearest plane for every column of the recentred centres ct
     (n_pad, B) in one launch; returns y (n_pad, B). The library is
     `klein_route`'s: the tensor-core sweep up to `KLEIN_TC_MAX_N_PAD`
-    (counted in `babai_decode.launches`), the FP32 sweep above (in
-    `babai_decode.fp32_launches`). Both are exact in their operands for
+    (the record's `launches`), the FP32 sweep above (its
+    `fp32_launches`). Both are exact in their operands for
     |y| < 2^24 and raise nothing; the launch adds to the device counters
     that `babai_y_stats` reads. CPU operands run `babai_decode_plain`."""
     with span("lgm.kernel.b7"):
@@ -820,7 +831,7 @@ def babai_decode(ops: BabaiOperands, ct: torch.Tensor) -> torch.Tensor:
         check_cuda("UT", ops.UT, (n_pad, n_pad))
         check_cuda("ct", ct, (n_pad, B))
         y = torch.empty_like(ct)
-        bad = _babai_counters(ops.device)
+        bad = device_counters("babai_decode", ops.device, 2, torch.int32)
         stream = ctypes.c_void_p(
             torch.cuda.current_stream(ops.device).cuda_stream)
         route = klein_route(n_pad)
@@ -833,56 +844,17 @@ def babai_decode(ops: BabaiOperands, ct: torch.Tensor) -> torch.Tensor:
                 ptr(ops.U), ptr(ops.UT), ptr(ct), ptr(y), ptr(bad), n_pad, B,
                 stream)
         raise_on(route, rc, "babai_decode")
-        _count(babai_decode, route)
+        count("babai_decode", fp32=route != "klein_tc")
         return y
 
 
-# device -> B7's counters since the last reset, (2,) int32: coefficients
-# with |y| > 256 (decoded on y's wide parts), largest |y|
-_BABAI_Y: dict = {}
-
-
-def _babai_counters(device) -> torch.Tensor:
-    c = _BABAI_Y.get(device)
-    if c is None:
-        c = _BABAI_Y[device] = torch.zeros(2, dtype=torch.int32,
-                                           device=device)
-    return c
-
-
 def babai_y_stats() -> dict:
-    """B7's recentred coefficients since the last `reset_launch_counts`,
-    over both routes (one synchronisation): how many had |y| > 256, and the
-    largest |y|."""
-    rows = [c.tolist() for c in _BABAI_Y.values()]
+    """B7's recentred coefficients since the last `launch_record.reset`,
+    over both routes (one synchronisation): how many had |y| > 256 (decoded
+    on y's wide parts), and the largest |y|."""
+    rows = read_device_counters("babai_decode")
     return {"beyond_256": sum(r[0] for r in rows),
             "max_abs_y": max((r[1] for r in rows), default=0)}
-
-
-def exact_guard(device) -> torch.Tensor:
-    """Hazard C8's device counters for one entry-point call, (5, 2) int32:
-    one row each for its B2, B3, B1, B6 and centred B1 launches, each
-    [draws with |y| > 256, largest |y| drawn]. Pass it to every launch of
-    the call, then read it once with `check_exact` before the call
-    returns."""
-    return torch.zeros(5, 2, dtype=torch.int32, device=device)
-
-
-def check_exact(guard: torch.Tensor, what: str):
-    """Read an `exact_guard` (one synchronisation): keep the largest |y| of
-    each kernel in `max_abs_y` of its wrapper (`imhk_fused`,
-    `imhk_trajectory`, `klein_draw`, `klein_ring`, `klein_draw_centred`),
-    and raise if any draw left the range where the bf16 coupling is
-    exact."""
-    with span("lgm.sync.c8_guard"):
-        rows = guard.tolist()
-    for wrapper, (_, top) in zip(_GUARDED, rows):
-        wrapper.max_abs_y = max(wrapper.max_abs_y, top)
-    bad = sum(b for b, _ in rows)
-    if bad:
-        raise RuntimeError(
-            f"{what}: {bad} drawn coefficients have |y| > {EXACT_Y}, "
-            "where the bf16 coupling is no longer exact (hazard C8)")
 
 
 def _imhk_tc_launch(ops: KleinOperands, x, lw, acc, n_steps: int, seed: int,
@@ -890,7 +862,7 @@ def _imhk_tc_launch(ops: KleinOperands, x, lw, acc, n_steps: int, seed: int,
                     bad: torch.Tensor, tlw=None, tx=None, thin: int = 1,
                     dbg=None) -> int:
     """Launch imhk_tc.cu's kernel on x (n_pad, B), lw, acc in place, its C8
-    counters into bad (one row of an `exact_guard`); raise on a launch
+    counters into bad (its row of an `ExactGuard`); raise on a launch
     error. Does not wait for the kernel. Returns the chains resident an SM
     at the launch (`imhk_tc_residency`)."""
     _check_operands(ops)
@@ -945,11 +917,9 @@ def imhk_fused(ops: KleinOperands, x, lw, acc, n_steps: int, *,
     lw (B,) and acc (B,) (float32 acceptance counts) in place. The proposal
     goes to a device-memory scratch (`proposal_scratch`) that the kernel
     reads back through a ring in shared memory, so that eight blocks of 32
-    chains share an SM (four for the WIDE instantiation); `resident_chains`
-    records the chains an SM held at the last launch. With `guard` (an `exact_guard`)
-    the caller reads the C8 counters with `check_exact`; without one the
-    wrapper reads its own after the launch. CPU operands run
-    `imhk_fused_plain`."""
+    chains share an SM (four for the WIDE instantiation); the record's
+    `resident_chains` holds the chains an SM held at the last launch.
+    `guard` as for `klein_draw`. CPU operands run `imhk_fused_plain`."""
     with span("lgm.kernel.b2"):
         if ops.device.type == "cpu":
             return imhk_fused_plain(ops, x, lw, acc, n_steps, seed=seed,
@@ -957,13 +927,12 @@ def imhk_fused(ops: KleinOperands, x, lw, acc, n_steps: int, *,
                                     uniforms=uniforms)
         own = guard is None
         if own:
-            guard = exact_guard(ops.device)
-        imhk_fused.resident_chains = _imhk_tc_launch(
+            guard = ExactGuard(ops.device)
+        count("imhk_fused", resident_chains=_imhk_tc_launch(
             ops, x, lw, acc, n_steps, seed, step, chain_offset, uniforms,
-            "imhk_fused", guard[0])
-        imhk_fused.launches += 1
+            "imhk_fused", guard.row("imhk_fused")))
         if own:
-            check_exact(guard, "imhk_fused")
+            guard.check("imhk_fused")
         return x, lw, acc
 
 
@@ -985,14 +954,14 @@ def imhk_trajectory(ops: KleinOperands, x, lw, acc, n_keep: int,
         raise ValueError(f"n_keep {n_keep} and thin {thin} must be >= 1")
     own = guard is None
     if own:
-        guard = exact_guard(ops.device)
+        guard = ExactGuard(ops.device)
     tlw, tx = _trajectory_ring(x, n_keep, coeffs)
-    imhk_trajectory.resident_chains = _imhk_tc_launch(
+    count("imhk_trajectory", resident_chains=_imhk_tc_launch(
         ops, x, lw, acc, n_keep * thin, seed, step, chain_offset, uniforms,
-        "imhk_trajectory", guard[1], tlw=tlw, tx=tx, thin=thin)
-    imhk_trajectory.launches += 1
+        "imhk_trajectory", guard.row("imhk_trajectory"), tlw=tlw, tx=tx,
+        thin=thin))
     if own:
-        check_exact(guard, "imhk_trajectory")
+        guard.check("imhk_trajectory")
     return x, lw, acc, tx, tlw
 
 
@@ -1021,10 +990,11 @@ def imhk_centres(ops: KleinOperands, x, lw, *, seed: int = 0,
                                   chain_offset=chain_offset)
     dbg = torch.empty(2 * ops.n_pad, x.shape[1], dtype=torch.float32,
                       device=ops.device)
-    guard = exact_guard(ops.device)
+    guard = ExactGuard(ops.device)
     _imhk_tc_launch(ops, x, lw, torch.zeros_like(lw), 1, seed, step,
-                    chain_offset, None, "imhk_centres", guard[0], dbg=dbg)
-    check_exact(guard, "imhk_centres")
+                    chain_offset, None, "imhk_centres",
+                    guard.row("imhk_fused"), dbg=dbg)
+    guard.check("imhk_centres")
     return dbg[:ops.n_pad], dbg[ops.n_pad:]
 
 
@@ -1059,32 +1029,3 @@ def imhk_tc_residency(n_pad: int, window: int, wide: bool, device) -> int:
             chains = _RESIDENCY[key] = imhk_tc_resources(
                 n_pad, window, wide)["resident_chains"]
     return chains
-
-
-# the wrappers of an `exact_guard`'s rows, in order
-_GUARDED = (imhk_fused, imhk_trajectory, klein_draw, klein_ring,
-            klein_draw_centred)
-
-
-def reset_launch_counts():
-    klein_draw.launches = 0
-    klein_ring.launches = 0
-    klein_draw_centred.launches = 0
-    # B1 / B6 launches of the FP32 sweep (klein.cu, n_pad above
-    # KLEIN_TC_MAX_N_PAD)
-    klein_draw.fp32_launches = 0
-    klein_ring.fp32_launches = 0
-    babai_decode.launches = 0
-    babai_decode.fp32_launches = 0
-    _BABAI_Y.clear()
-    imhk_fused.launches = 0
-    imhk_trajectory.launches = 0
-    # chains resident an SM at the last B2 / B3 launch
-    imhk_fused.resident_chains = 0
-    imhk_trajectory.resident_chains = 0
-    # largest |y| each tensor-core kernel drew since the reset (hazard C8)
-    for wrapper in _GUARDED:
-        wrapper.max_abs_y = 0
-
-
-reset_launch_counts()

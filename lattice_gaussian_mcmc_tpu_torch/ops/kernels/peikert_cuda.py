@@ -1,6 +1,6 @@
 """Peikert's convolution sampler (B5) on Hopper: the wrapper of the CUDA
-kernel in `csrc/peikert_tc.cu`, its plain PyTorch version, the launch count,
-the operand preparation and the window policy.
+kernel in `csrc/peikert_tc.cu`, its plain PyTorch version, the operand
+preparation and the window policy.
 
 Replaces the Pallas kernel
 `lattice_gaussian_mcmc_tpu/ops/kernels/peikert_pallas.py` `_peikert_kernel`
@@ -60,6 +60,7 @@ from lattice_gaussian_mcmc_tpu_torch.ops.kernels.klein_cuda import (
     ROW_BLOCK,
     _draw_row_plain,
 )
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels.launch_record import count
 from lattice_gaussian_mcmc_tpu_torch.samplers.klein import (
     MAX_WINDOW,
     suggest_window_budget,
@@ -313,7 +314,7 @@ def peikert_rounds(ops: PeikertOperands, num_chains: int,
         ring = _peikert_tc_launch(ops, num_chains, n_rounds, seed,
                                   chain_offset, uniforms, normals,
                                   "peikert_rounds")
-        peikert_rounds.launches += 1
+        count("peikert_rounds")
         return ring
 
 
@@ -337,9 +338,3 @@ def peikert_centres(ops: PeikertOperands, num_chains: int, *,
                                   dbg=centres)
     return centres, ring
 
-
-def reset_launch_counts():
-    peikert_rounds.launches = 0
-
-
-reset_launch_counts()

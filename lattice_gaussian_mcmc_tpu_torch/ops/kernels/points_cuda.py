@@ -1,7 +1,7 @@
 """Lattice points P = x B^T from integer coefficients, exactly, on Hopper's
 int8 tensor cores: the wrapper of `csrc/points.cu`, the basis's limbs made
-once at set-up, the plain PyTorch version of the kernel's limb arithmetic,
-and its launch and limb counts.
+once at set-up, the plain PyTorch version of the kernel's limb arithmetic
+and its limb counts.
 
 Every sampler of the port ends with integer coefficients x (rows, n) and an
 integer basis B; their points are x B^T. The float64 product computes them
@@ -39,6 +39,11 @@ from lattice_gaussian_mcmc_tpu_torch.ops.kernels._build import (
     load,
     ptr,
     raise_on,
+)
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels.launch_record import (
+    count,
+    device_counters,
+    read_device_counters,
 )
 from lattice_gaussian_mcmc_tpu_torch.utils.profiling import span
 
@@ -206,24 +211,12 @@ def points_plain(ops: PointsOperands, coeffs: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# device -> the kernel's counters since the last reset, (5,) int64: tiles
-# of x by limb count 1..4, tiles out of reach
-_LIMBS: dict = {}
-
-
-def _limb_counters(device) -> torch.Tensor:
-    c = _LIMBS.get(device)
-    if c is None:
-        c = _LIMBS[device] = torch.zeros(5, dtype=torch.int64, device=device)
-    return c
-
-
 def limb_stats() -> dict:
-    """The kernel's tiles of x since the last `reset_launch_counts`, by
+    """The kernel's tiles of x since the last `launch_record.reset`, by
     the limb count each took (`limbs_1` .. `limbs_4`), and those out of
     reach (`beyond`); each tile counted once a launch. One
     synchronisation."""
-    rows = [c.tolist() for c in _LIMBS.values()]
+    rows = read_device_counters("points")
     tot = [sum(r[i] for r in rows) for i in range(5)]
     out = {f"limbs_{k}": tot[k - 1] for k in range(1, MAX_LIMBS + 1)}
     out["beyond"] = tot[4]
@@ -281,17 +274,10 @@ def points(ops: PointsOperands, coeffs: torch.Tensor) -> torch.Tensor:
         rc = load("points").points_launch(
             ptr(coeffs), coeffs.element_size(), col, sr, sk, rows, n, vec,
             ptr(ops.words), ops.n_limbs, ptr(out),
-            ptr(_limb_counters(coeffs.device)),
+            ptr(device_counters("points", coeffs.device, 5, torch.int64)),
             ctypes.c_void_p(
                 torch.cuda.current_stream(coeffs.device).cuda_stream))
         raise_on("points", rc, "points")
-        points.launches += 1
+        count("points")
         return out
 
-
-def reset_launch_counts():
-    points.launches = 0
-    _LIMBS.clear()
-
-
-reset_launch_counts()

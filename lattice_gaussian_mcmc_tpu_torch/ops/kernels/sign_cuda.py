@@ -29,6 +29,7 @@ from lattice_gaussian_mcmc_tpu_torch.ops.kernels._build import (
     ptr,
     raise_on,
 )
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels.launch_record import count
 from lattice_gaussian_mcmc_tpu_torch.utils.prng import (
     TAG_HASH,
     TAG_ROW,
@@ -69,7 +70,7 @@ def hash_to_point(seed: int, num_messages: int, n: int, q: int,
         ptr(c), num_messages, n, q, k0, k1,
         ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     raise_on("sign", rc, "hash_to_point")
-    hash_to_point.launches += 1
+    count("hash_to_point")
     return c
 
 
@@ -96,13 +97,6 @@ def redraw_uniforms(seed: int, ids: torch.Tensor, step: int,
         ptr(u), ptr(ids), ids.numel(), n_rows, step, k0, k1,
         ctypes.c_void_p(torch.cuda.current_stream(ids.device).cuda_stream))
     raise_on("sign", rc, "redraw_uniforms")
-    redraw_uniforms.launches += 1
+    count("redraw_uniforms")
     return u
 
-
-def reset_launch_counts():
-    hash_to_point.launches = 0
-    redraw_uniforms.launches = 0
-
-
-reset_launch_counts()

@@ -1,6 +1,6 @@
 """Fused symmetric Metropolis-Klein steps (B4) on Hopper: the wrapper of
-the CUDA kernel in `csrc/smk_tc.cu`, its plain PyTorch version, the launch
-count and the operand preparation.
+the CUDA kernel in `csrc/smk_tc.cu`, its plain PyTorch version and the
+operand preparation.
 
 Replaces the Pallas kernel
 `lattice_gaussian_mcmc_tpu/ops/kernels/smk_pallas.py` `_smk_kernel`
@@ -23,10 +23,10 @@ The kernel is B2's tensor-core sweep (`klein_cuda.py`): its coupling runs
 over the exact bf16 split of U (`klein_cuda.tc_fragments`, built on the
 first launch of an operand set and kept on it), so its products are exact
 only while the state and the proposal's recentred coefficients are:
-|y| <= 256 (hazard C8). The kernel counts coefficients beyond that into an
-`exact_guard`; the wrapper, or the entry point that passed it one, raises
-before it returns. It keeps the proposal in shared memory, which bounds
-n_pad by `SMK_TC_MAX_N_PAD`.
+|y| <= 256 (hazard C8). The kernel counts coefficients beyond that into its
+row of an `ExactGuard` (`launch_record.py`); the wrapper, or the entry
+point that passed it one, raises before it returns. It keeps the proposal
+in shared memory, which bounds n_pad by `SMK_TC_MAX_N_PAD`.
 
 Dispatch. A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises. It never falls back.
@@ -57,6 +57,10 @@ from lattice_gaussian_mcmc_tpu_torch.ops.kernels.klein_cuda import (
     ROW_BLOCK,
     _draw_row_plain,
     _uniform_rows,
+)
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels.launch_record import (
+    ExactGuard,
+    count,
 )
 from lattice_gaussian_mcmc_tpu_torch.samplers.klein import (
     MAX_WINDOW,
@@ -241,30 +245,9 @@ def smk_steps_plain(ops: SMKOperands, x, acc, n_steps: int, *,
 # Kernel wrapper.
 # ---------------------------------------------------------------------------
 
-EXACT_Y = klein_cuda.EXACT_Y
 # the proposal tile and the coupling tile are B1's (imhk_tc_common.cuh
 # `tc_smem_bytes`), so the largest n_pad is B1's
 SMK_TC_MAX_N_PAD = klein_cuda.KLEIN_TC_MAX_N_PAD
-
-
-def exact_guard(device) -> torch.Tensor:
-    """Hazard C8's device counters for one entry-point call, (2,) int32:
-    [state or drawn coefficients with |y| > 256, largest |y|]. Pass it to
-    every B4 launch of the call, then read it once with `check_exact`."""
-    return torch.zeros(2, dtype=torch.int32, device=device)
-
-
-def check_exact(guard: torch.Tensor, what: str):
-    """Read an `exact_guard` (one synchronisation): keep the largest |y| in
-    `smk_steps.max_abs_y`, and raise if a coefficient left the range where
-    the bf16 coupling is exact."""
-    bad, top = guard.tolist()
-    smk_steps.max_abs_y = max(smk_steps.max_abs_y, top)
-    if bad:
-        raise RuntimeError(
-            f"{what}: {bad} state or drawn coefficients have |y| > "
-            f"{EXACT_Y}, where the bf16 coupling is no longer exact "
-            "(hazard C8)")
 
 
 def _check_operands(ops: SMKOperands):
@@ -288,7 +271,8 @@ def _smk_tc_launch(ops: SMKOperands, x, acc, n_steps: int, seed: int,
                    step: int, chain_offset: int, uniforms, what: str,
                    bad: torch.Tensor, dbg=None):
     """Launch smk_tc.cu's kernel on x (n_pad, B) and acc in place, its C8
-    counters into bad (an `exact_guard`); raise on a launch error. Returns
+    counters into bad (its row of an `ExactGuard`); raise on a launch
+    error. Returns
     the last step's log alpha (B,). Does not wait for the kernel."""
     _check_operands(ops)
     B = x.shape[1]
@@ -322,20 +306,20 @@ def smk_steps(ops: SMKOperands, x, acc, n_steps: int, *, seed: int = 0,
     """B4: n_steps fused SMK steps in one launch, updating the recentered
     state x (n_pad, B) and acc (B,) (float32 acceptance counts) in place.
     Returns (x, acc, log_alpha of the last step (B,)). With `guard` (an
-    `exact_guard`) the caller reads the C8 counters with `check_exact`;
-    without one the wrapper reads its own after the launch. CPU operands
-    run `smk_steps_plain`."""
+    `ExactGuard`) the caller checks the C8 counters; without one the
+    wrapper checks its own after the launch. CPU operands run
+    `smk_steps_plain`."""
     if ops.device.type == "cpu":
         return smk_steps_plain(ops, x, acc, n_steps, seed=seed, step=step,
                                chain_offset=chain_offset, uniforms=uniforms)
     own = guard is None
     if own:
-        guard = exact_guard(ops.device)
+        guard = ExactGuard(ops.device)
     la = _smk_tc_launch(ops, x, acc, n_steps, seed, step, chain_offset,
-                        uniforms, "smk_steps", guard)
-    smk_steps.launches += 1
+                        uniforms, "smk_steps", guard.row("smk_steps"))
+    count("smk_steps")
     if own:
-        check_exact(guard, "smk_steps")
+        guard.check("smk_steps")
     return x, acc, la
 
 
@@ -366,11 +350,11 @@ def smk_centres(ops: SMKOperands, x, *, seed: int = 0, step: int = 0,
     n_pad = ops.n_pad
     dbg = torch.empty(3 * n_pad, x.shape[1], dtype=torch.float32,
                       device=ops.device)
-    guard = exact_guard(ops.device)
+    guard = ExactGuard(ops.device)
     _smk_tc_launch(ops, x, torch.zeros(x.shape[1], device=ops.device), 1,
-                   seed, step, chain_offset, uniforms, "smk_centres", guard,
-                   dbg=dbg)
-    check_exact(guard, "smk_centres")
+                   seed, step, chain_offset, uniforms, "smk_centres",
+                   guard.row("smk_steps"), dbg=dbg)
+    guard.check("smk_centres")
     return dbg[:n_pad], dbg[n_pad:2 * n_pad], dbg[2 * n_pad:]
 
 
@@ -383,12 +367,3 @@ def smk_tc_resources(n_pad: int, window: int) -> dict:
              "smk_tc_info")
     return dict(zip(("registers", "local_bytes", "shared_bytes",
                      "blocks_per_sm", "threads"), list(out)))
-
-
-def reset_launch_counts():
-    smk_steps.launches = 0
-    # largest |y| of the state and the proposals since the reset (C8)
-    smk_steps.max_abs_y = 0
-
-
-reset_launch_counts()

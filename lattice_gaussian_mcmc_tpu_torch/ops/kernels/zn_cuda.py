@@ -1,5 +1,5 @@
 """I.i.d. draws of D_{Z, sigma, c} (B8) on Hopper: the wrapper of the CUDA
-kernel in `csrc/zn.cu`, its plain PyTorch version and the launch count.
+kernel in `csrc/zn.cu` and its plain PyTorch version.
 
 Replaces the Pallas kernel `lattice_gaussian_mcmc_tpu/ops/kernels/zn_pallas.py`
 `_kernel` (`sample_zn_pallas`), the direct Z^n sampler: one window CDF for a
@@ -33,6 +33,7 @@ from lattice_gaussian_mcmc_tpu_torch.ops.kernels._build import (
     ptr,
     raise_on,
 )
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels.launch_record import count
 from lattice_gaussian_mcmc_tpu_torch.utils.device import resolve_device
 from lattice_gaussian_mcmc_tpu_torch.utils.prng import (
     draw_uniforms,
@@ -110,12 +111,6 @@ def sample_zn_draws(num: int, sigma, center=0.0,
         ptr(out), num, k0, k1,
         ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
     raise_on("zn", rc, "sample_zn_draws")
-    sample_zn_draws.launches += 1
+    count("sample_zn_draws")
     return out
 
-
-def reset_launch_counts():
-    sample_zn_draws.launches = 0
-
-
-reset_launch_counts()

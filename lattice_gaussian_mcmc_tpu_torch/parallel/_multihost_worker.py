@@ -124,10 +124,7 @@ def main(argv=None) -> int:
     p.add_argument("--imhk-samples", type=int, default=5)
     args = p.parse_args(argv)
 
-    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import (
-        klein_cuda,
-        peikert_cuda,
-    )
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import launch_record
     from lattice_gaussian_mcmc_tpu_torch.parallel.runtime import (
         global_mesh,
         init_runtime,
@@ -138,14 +135,13 @@ def main(argv=None) -> int:
         result = run_paths(global_mesh(info.device), args.problem,
                            args.chains, args.steps, args.rounds,
                            args.imhk_samples, args.cache_dir)
+        rec = launch_record.read()
         result.update(process_count=info.process_count,
                       process_index=info.process_index,
                       distributed=info.distributed, backend=info.backend,
                       device=str(info.device), launches={
-                          "klein_draw": klein_cuda.klein_draw.launches,
-                          "imhk_fused": klein_cuda.imhk_fused.launches,
-                          "peikert_rounds":
-                              peikert_cuda.peikert_rounds.launches})
+                          k: rec[k]["launches"] for k in (
+                              "klein_draw", "imhk_fused", "peikert_rounds")})
     finally:
         shutdown_runtime()
     if info.process_index == 0 and args.out:

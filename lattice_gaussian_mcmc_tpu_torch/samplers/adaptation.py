@@ -27,6 +27,9 @@ import torch
 
 from lattice_gaussian_mcmc_tpu_torch.lattices.base import Lattice
 from lattice_gaussian_mcmc_tpu_torch.ops.kernels import klein_cuda, smk_cuda
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels.launch_record import (
+    ExactGuard,
+)
 from lattice_gaussian_mcmc_tpu_torch.samplers.imhk import ChainState, smk_step
 from lattice_gaussian_mcmc_tpu_torch.samplers.klein import klein_precompute
 from lattice_gaussian_mcmc_tpu_torch.samplers.klein_blocked import (
@@ -120,12 +123,13 @@ def _smk_window_plain(pre_h, Q, R, X, n_steps: int, seed: int, step: int):
 
 def _smk_start_card(pre_t, n_chains: int, seed: int):
     """The chains' Klein start at the target width, B1 at step 0, in B4's
-    layout: (B1's operands, recentred x (n_pad, B), its C8 guard)."""
+    layout: (B1's operands, recentred x (n_pad, B), the C8 guard that the
+    windows' B4 launches share)."""
     kops = klein_cuda.kernel_operands(pre_t)
-    kguard = klein_cuda.exact_guard(kops.device)
+    guard = ExactGuard(kops.device)
     x, _ = klein_cuda.klein_draw(kops, n_chains, seed=seed, step=0,
-                                 guard=kguard)
-    return kops, x, kguard
+                                 guard=guard)
+    return kops, x, guard
 
 
 def _smk_window_card(pre_t, kops, x, sigma_prop: float, n_steps: int,
@@ -165,8 +169,8 @@ def adapt_sigma_smk(lattice: Lattice, sigma: float,
     launch whose steps follow the last window's (window w starts at step 1
     + the steps of windows 0 .. w-1), so no two windows read the same
     random numbers; the state stays in B4's recentred layout until the
-    end, B1's operands (and U's fragments) are built once, and each
-    kernel's C8 guard is read once, after the last window. Any chain
+    end, B1's operands (and U's fragments) are built once, and the C8
+    guard of B1 and B4 is read once, after the last window. Any chain
     count runs (a B4 block owns 32 chains and masks the rest). On the
     CPU: a blocked Klein start and `_smk_window_plain`. The JAX package's
     `backend` and `tile` (its Pallas path's TPU tiling, with its
@@ -184,8 +188,7 @@ def adapt_sigma_smk(lattice: Lattice, sigma: float,
     device = pre_t.device
     on_card = device.type == "cuda"
     if on_card:
-        kops, x, kguard = _smk_start_card(pre_t, n_chains, seed)
-        sguard = smk_cuda.exact_guard(device)
+        kops, x, guard = _smk_start_card(pre_t, n_chains, seed)
     else:
         X, _ = klein_sample_batch_blocked(pre_t, n_chains, seed=seed)
     st = AdaptationState(log_sigma=math.log(sigma_prop0))
@@ -200,7 +203,7 @@ def adapt_sigma_smk(lattice: Lattice, sigma: float,
         row = {}
         if on_card:
             acc_rate, row["b4_window"] = _smk_window_card(
-                pre_t, kops, x, sp, steps_w, seed, step, sguard)
+                pre_t, kops, x, sp, steps_w, seed, step, guard)
         else:
             X, acc_rate = _smk_window_plain(_hybrid(pre_t, lattice, sp),
                                             lattice.Q, lattice.R, X,
@@ -218,8 +221,7 @@ def adapt_sigma_smk(lattice: Lattice, sigma: float,
             log_sigma=st.log_sigma + gamma * (acc_rate - target_acceptance),
             step=st.step + 1, history=st.history)
     if on_card:
-        klein_cuda.check_exact(kguard, "adapt_sigma_smk")
-        smk_cuda.check_exact(sguard, "adapt_sigma_smk")
+        guard.check("adapt_sigma_smk")
         X = klein_cuda.from_kernel_layout(kops, x)
     st.coeffs = X
     return st

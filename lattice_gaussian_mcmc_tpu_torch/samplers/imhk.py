@@ -30,6 +30,9 @@ from lattice_gaussian_mcmc_tpu_torch.ops.kernels import (
     points_cuda,
     smk_cuda,
 )
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels.launch_record import (
+    ExactGuard,
+)
 from lattice_gaussian_mcmc_tpu_torch.samplers.klein import (
     KleinPrecomp,
     klein_log_density,
@@ -315,7 +318,7 @@ class IMHKSampler:
         `sample_iid` falls back to `imhk_chains` there)."""
         check_backend(backend, self.device)
         ops = self.operands
-        guard = klein_cuda.exact_guard(self.device)
+        guard = ExactGuard(self.device)
         x, lw = klein_cuda.klein_draw(ops, n_chains, seed=seed, step=0,
                                       guard=guard)
         acc = torch.zeros_like(lw)
@@ -324,7 +327,7 @@ class IMHKSampler:
         x, lw, acc, tx, _ = klein_cuda.imhk_trajectory(
             ops, x, lw, acc, num_samples, thin, seed=seed,
             step=1 + self.burn_in, coeffs=True, guard=guard)
-        klein_cuda.check_exact(guard, "IMHKSampler.sample")
+        guard.check("IMHKSampler.sample")
         n_steps = num_samples * thin
         self.acceptance_rate = ((float(acc.sum()) - float(acc_burn))
                                 / (n_chains * n_steps))
@@ -353,12 +356,12 @@ class IMHKSampler:
             n_steps = max(1, self.burn_in if n_steps is None
                           else int(n_steps))
             ops = self.operands
-            guard = klein_cuda.exact_guard(self.device)
+            guard = ExactGuard(self.device)
             x, lw = klein_cuda.klein_draw(ops, num_samples, seed=seed,
                                           step=0, guard=guard)
             acc = torch.zeros_like(lw)
             self._advance(x, lw, acc, n_steps, seed, 1, guard)
-            klein_cuda.check_exact(guard, "IMHKSampler.sample_iid")
+            guard.check("IMHKSampler.sample_iid")
             with span("lgm.sync.acceptance"):
                 self.acceptance_rate = (float(acc.sum())
                                         / (num_samples * n_steps))
@@ -455,23 +458,21 @@ class MetropolisKleinSampler:
                    return_coeffs: bool = False, backend: str = "auto"):
         """`num_samples` independent SMK chains from a Klein draw of the
         target (B1), `n_steps` fused SMK steps each (B4, one launch);
-        returns the final states, (num_samples, n). Hazard C8's guards (the
-        start's and B4's) are read once, after the launches. On a card n
+        returns the final states, (num_samples, n). Hazard C8's guard (the
+        start's and B4's rows) is read once, after the launches. On a card n
         (padded to a multiple of 128) must be at most
         `smk_cuda.SMK_TC_MAX_N_PAD` (3,456), B4's reach; above it B4 raises
         before its launch."""
         check_backend(backend, self.device)
         n_steps = max(1, int(n_steps))
         kops = self.klein_operands
-        kguard = klein_cuda.exact_guard(self.device)
+        guard = ExactGuard(self.device)
         x, _ = klein_cuda.klein_draw(kops, num_samples, seed=seed, step=0,
-                                     guard=kguard)
+                                     guard=guard)
         acc = torch.zeros(num_samples, dtype=x.dtype, device=x.device)
-        guard = smk_cuda.exact_guard(self.device)
         smk_cuda.smk_steps(self.operands, x, acc, n_steps, seed=seed, step=1,
                            guard=guard)
-        klein_cuda.check_exact(kguard, "SMKSampler.sample_iid")
-        smk_cuda.check_exact(guard, "SMKSampler.sample_iid")
+        guard.check("SMKSampler.sample_iid")
         self.acceptance_rate = float(acc.sum()) / (num_samples * n_steps)
         coeffs = klein_cuda.from_kernel_layout(kops, x)
         return coeffs if return_coeffs else klein_points(

@@ -24,6 +24,9 @@ from lattice_gaussian_mcmc_tpu_torch.ops.discrete_gaussian import (
     sample_dgauss_icdf_with_logz,
 )
 from lattice_gaussian_mcmc_tpu_torch.ops.kernels import points_cuda
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels.launch_record import (
+    ExactGuard,
+)
 from lattice_gaussian_mcmc_tpu_torch.utils.device import (
     check_backend,
     resolve_device,
@@ -277,10 +280,10 @@ class KleinSampler:
         from lattice_gaussian_mcmc_tpu_torch.ops.kernels import klein_cuda
         check_backend(backend, self.device)
         ops = self.operands
-        guard = klein_cuda.exact_guard(self.device)
+        guard = ExactGuard(self.device)
         y, lw = klein_cuda.klein_draw(ops, num_samples, seed=seed, step=0,
                                       guard=guard)
-        klein_cuda.check_exact(guard, "KleinSampler.sample")
+        guard.check("KleinSampler.sample")
         return klein_cuda.from_kernel_layout(ops, y), lw
 
     def sample(self, seed: int, num_samples: int = 1,

@@ -1,5 +1,5 @@
-"""Blocked Klein sampling in PyTorch: padding, and the (B, n)-layout
-blocked draw and fused IMHK steps (counterpart of the JAX package's
+"""Blocked Klein sampling in PyTorch: the (B, n)-layout blocked draw and
+fused IMHK steps (counterpart of the JAX package's
 `samplers/klein_blocked.py`).
 
 On a CUDA precomputation the draw launches kernel B1 and the steps kernel
@@ -19,8 +19,6 @@ and then steps on one `pre` packs U once.
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from lattice_gaussian_mcmc_tpu_torch.ops.kernels import klein_cuda
@@ -30,28 +28,6 @@ from lattice_gaussian_mcmc_tpu_torch.ops.kernels.klein_cuda import (
     to_kernel_layout,
 )
 from lattice_gaussian_mcmc_tpu_torch.samplers.klein import KleinPrecomp
-
-DEFAULT_BLOCK = 128
-
-
-def _pad_precomp(pre: KleinPrecomp, block: int = DEFAULT_BLOCK):
-    """Pad U/cs/sigmas so n is a multiple of `block`. Padded rows get U = I,
-    sigma = 1e-6 and cs = 0, so they draw 0 with log Z = 0 and never touch
-    the real rows (the off-diagonal padding of U is zero).
-    Returns (padded precomp, n)."""
-    n = pre.n
-    n_pad = (-n) % block
-    if n_pad == 0:
-        return pre, n
-    dtype, dev = pre.U.dtype, pre.device
-    U = torch.zeros(n + n_pad, n + n_pad, dtype=dtype, device=dev)
-    U[:n, :n] = pre.U
-    idx = torch.arange(n, n + n_pad, device=dev)
-    U[idx, idx] = 1.0
-    cs = torch.cat([pre.cs, torch.zeros(n_pad, dtype=dtype, device=dev)])
-    sigmas = torch.cat([pre.sigmas,
-                        torch.full((n_pad,), 1e-6, dtype=dtype, device=dev)])
-    return dataclasses.replace(pre, U=U, cs=cs, sigmas=sigmas), n
 
 
 def blocked_operands(pre: KleinPrecomp) -> klein_cuda.KleinOperands:

@@ -49,6 +49,9 @@ from lattice_gaussian_mcmc_tpu_torch.ops.kernels import (
     points_cuda,
     sign_cuda,
 )
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels.launch_record import (
+    ExactGuard,
+)
 from lattice_gaussian_mcmc_tpu_torch.samplers.klein import (
     klein_points,
     klein_precompute,
@@ -119,7 +122,7 @@ class FalconSigner:
             ops = self.operands
             n_pad = ops.n_pad
             c = torch.as_tensor(targets).to(self.device, torch.float64)
-            guard = klein_cuda.exact_guard(self.device)
+            guard = ExactGuard(self.device)
             x0, cs = self.centres(c)
             y, _ = klein_cuda.klein_draw_centred(ops, cs, seed=seed, step=0,
                                                  guard=guard)
@@ -139,7 +142,7 @@ class FalconSigner:
                     s[idx] = s_r
                     bad = torch.zeros_like(bad)
                     bad[idx] = bad_r
-            klein_cuda.check_exact(guard, "FalconSigner.sign")
+            guard.check("FalconSigner.sign")
             self.redraw_rounds = rounds
             return s
 

@@ -165,10 +165,16 @@ def main(tree: str) -> dict:
     def run_b4():
         x, acc = y0.clone(), torch.zeros(SMK_CHAINS, device="cuda")
         # a cut copy may leave the range where its bf16 coupling is exact:
-        # give it a guard that is never read (trees before the guard have
-        # none)
-        kw = ({"guard": smk_cuda.exact_guard("cuda")}
-              if hasattr(smk_cuda, "exact_guard") else {})
+        # give it a guard that is never read (the launch record's, or B4's
+        # own in trees before it; trees before the guard have none)
+        try:
+            from lattice_gaussian_mcmc_tpu_torch.ops.kernels import (
+                launch_record,
+            )
+            kw = {"guard": launch_record.ExactGuard("cuda")}
+        except ImportError:
+            kw = ({"guard": smk_cuda.exact_guard("cuda")}
+                  if hasattr(smk_cuda, "exact_guard") else {})
         t = ms(lambda: smk_cuda.smk_steps(ss.operands, x, acc, SMK_STEPS,
                                           seed=400, step=1, **kw))
         return t, float(acc.sum())

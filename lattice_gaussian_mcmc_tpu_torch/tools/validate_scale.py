@@ -227,21 +227,11 @@ def f32_cond_mean_error(U64, cs64, sig64, window, X,
 
 
 def launch_total() -> int:
-    """Every kernel launch counted since the last reset, over B1-B8."""
-    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import (
-        klein_cuda,
-        peikert_cuda,
-        smk_cuda,
-        zn_cuda,
-    )
-    kc = klein_cuda
-    return (kc.klein_draw.launches + kc.klein_draw.fp32_launches
-            + kc.klein_ring.launches + kc.klein_ring.fp32_launches
-            + kc.imhk_fused.launches + kc.imhk_trajectory.launches
-            + kc.babai_decode.launches + kc.babai_decode.fp32_launches
-            + smk_cuda.smk_steps.launches
-            + peikert_cuda.peikert_rounds.launches
-            + zn_cuda.sample_zn_draws.launches)
+    """Every kernel launch the launch record counted since its last
+    reset, on either route."""
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels import launch_record
+    return sum(r["launches"] + r["fp32_launches"]
+               for r in launch_record.read().values())
 
 
 class _Side:
@@ -271,8 +261,11 @@ def kernel_klein_imhk(pre, n_chains: int, n_steps: int, seed: int) -> Dict:
     1 .. n_steps); no B2 launch when n_steps is 0. On CPU operands the
     wrappers run the plain versions in float32."""
     from lattice_gaussian_mcmc_tpu_torch.ops.kernels import klein_cuda as kc
+    from lattice_gaussian_mcmc_tpu_torch.ops.kernels.launch_record import (
+        ExactGuard,
+    )
     ops = kc.kernel_operands(pre)
-    guard = kc.exact_guard(ops.device)
+    guard = ExactGuard(ops.device)
     out = {"n_chains": n_chains, "n_steps": n_steps}
     with _Side(ops.device) as draw:
         y, lw = kc.klein_draw(ops, n_chains, seed=seed, step=0, guard=guard)
@@ -288,7 +281,7 @@ def kernel_klein_imhk(pre, n_chains: int, n_steps: int, seed: int) -> Dict:
         out["acceptance"] = float(acc.sum()) / (n_chains * n_steps)
         out["t_imhk_s"] = steps.seconds
         launches += steps.launches
-    kc.check_exact(guard, "validate_scale")
+    guard.check("validate_scale")
     out["launches"] = launches
     return out
 

@@ -15,6 +15,8 @@ import os
 import subprocess
 import sys
 import textwrap
+import time
+import types
 
 import pytest
 import torch
@@ -158,7 +160,13 @@ def test_no_fallback_without_a_card(tmp_path):
 
 def test_quick_cpu_run_of_two_experiments(tmp_path, monkeypatch):
     """`--quick --cpu` end to end for sensitivity and scaling: exit 0,
-    both ok in run_summary.json, the run's log file written and closed."""
+    both ok in run_summary.json, the run's log file written and closed.
+    The scaling experiment's clock is this process's CPU time: its
+    complexity exponent is fitted to times of the quick dimensions 32 and
+    64, which on the wall clock the load of other processes can reverse."""
+    from lattice_gaussian_mcmc_tpu_torch.experiments import dimension_scaling
+    monkeypatch.setattr(dimension_scaling, "time",
+                        types.SimpleNamespace(perf_counter=time.process_time))
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:

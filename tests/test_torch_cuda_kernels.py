@@ -27,6 +27,7 @@ from lattice_gaussian_mcmc_tpu_torch.lattices import (
 from lattice_gaussian_mcmc_tpu_torch.ops import linalg
 from lattice_gaussian_mcmc_tpu_torch.ops.kernels import (
     klein_cuda,
+    launch_record,
     peikert_cuda,
     smk_cuda,
     zn_cuda,
@@ -51,6 +52,11 @@ N, B = 136, 2048
 MAX_CHAINS_DIFFERING = 0.02
 # log-weights of chains that agree: 136 float32 log-normalizers, rounding
 LW_ATOL = 1e-4
+
+
+def _rec(kernel, field="launches"):
+    """`field` of `kernel` in the launch record."""
+    return launch_record.read()[kernel][field]
 
 
 def _operands(window=None):
@@ -140,13 +146,13 @@ def test_b2_matches_plain_at_the_falcon_widths(ring):
     """n_pad 1024 at W 16 and n_pad 2048 at W 24, on a chain count that
     leaves the last block part empty."""
     ops = _falcon_operands(ring)
-    klein_cuda.reset_launch_counts()
+    launch_record.reset()
     y, lw = klein_cuda.klein_draw(ops, ODD_CHAINS, seed=3)
     x, l, a = y.clone(), lw.clone(), torch.zeros_like(lw)
     xp, lp, ap = y.clone(), lw.clone(), torch.zeros_like(lw)
     klein_cuda.imhk_fused(ops, x, l, a, 2, seed=3, step=1)
     klein_cuda.imhk_fused_plain(ops, xp, lp, ap, 2, seed=3, step=1)
-    assert klein_cuda.imhk_fused.launches == 1
+    assert _rec("imhk_fused") == 1
     same = (x[:ops.n] == xp[:ops.n]).all(dim=0)
     assert 1 - same.float().mean().item() <= MAX_CHAINS_DIFFERING
     torch.testing.assert_close(l[same], lp[same], atol=FALCON_LW_ATOL,
@@ -161,15 +167,15 @@ def test_b2_b3_record_their_residency(ring):
     """Each launch records the chains an SM held, the kernel's own
     occupancy: eight blocks of 32 chains at both FALCON widths."""
     ops = _falcon_operands(ring)
-    klein_cuda.reset_launch_counts()
+    launch_record.reset()
     y, lw = klein_cuda.klein_draw(ops, 64, seed=1)
     klein_cuda.imhk_fused(ops, y, lw, torch.zeros_like(lw), 1, seed=1,
                           step=1)
     klein_cuda.imhk_trajectory(ops, y, lw, torch.zeros_like(lw), 1,
                                seed=1, step=2)
     res = klein_cuda.imhk_tc_resources(ops.n_pad, ops.window)
-    assert klein_cuda.imhk_fused.resident_chains == res["resident_chains"]
-    assert (klein_cuda.imhk_trajectory.resident_chains
+    assert _rec("imhk_fused", "resident_chains") == res["resident_chains"]
+    assert (_rec("imhk_trajectory", "resident_chains")
             == res["resident_chains"])
     assert res["resident_chains"] >= MIN_RESIDENT_CHAINS
     assert res["registers"] <= 128
@@ -223,9 +229,9 @@ def test_b2_b3_raise_beyond_the_exact_range():
         ops.cs[0] = centre       # the recentred centre of row 0
         assert klein_cuda.wide_y(ops) == wide
         x, lw, acc = state(ops)
-        klein_cuda.reset_launch_counts()
+        launch_record.reset()
         klein_cuda.imhk_fused(ops, x, lw, acc, 1, seed=1)
-        assert centre - 5 <= klein_cuda.imhk_fused.max_abs_y <= centre + 5
+        assert centre - 5 <= _rec("imhk_fused", "max_abs_y") <= centre + 5
     far = klein_cuda.kernel_operands(klein_precompute(far_lattice(), 0.02))
     far_centres(far)
     x, lw, acc = state(far)
@@ -262,12 +268,12 @@ def test_b2_b3_raise_above_their_largest_n_pad():
                                    shift=zeros, n=n_pad, window=16)
     x = torch.zeros(n_pad, 32, device="cuda")
     lw, acc = torch.zeros(32, device="cuda"), torch.zeros(32, device="cuda")
-    klein_cuda.reset_launch_counts()
+    launch_record.reset()
     with pytest.raises(ValueError, match=str(klein_cuda.IMHK_TC_MAX_N_PAD)):
         klein_cuda.imhk_fused(ops, x, lw, acc, 1, seed=1)
     with pytest.raises(ValueError, match=str(klein_cuda.IMHK_TC_MAX_N_PAD)):
         klein_cuda.imhk_trajectory(ops, x, lw, acc, 1, seed=1)
-    assert klein_cuda.imhk_fused.launches == 0
+    assert _rec("imhk_fused") == 0
 
 
 @pytest.mark.cuda
@@ -287,16 +293,16 @@ def test_sample_reads_the_c8_guard_once():
 
 @pytest.mark.cuda
 def test_wrappers_count_launches_and_reject_bad_input(ops):
-    klein_cuda.reset_launch_counts()
+    launch_record.reset()
     y, lw = klein_cuda.klein_draw(ops, 256, seed=1)
     klein_cuda.imhk_fused(ops, y, lw, torch.zeros_like(lw), 3, seed=1,
                           step=1)
-    assert klein_cuda.klein_draw.launches == 1
-    assert klein_cuda.imhk_fused.launches == 1
+    assert _rec("klein_draw") == 1
+    assert _rec("imhk_fused") == 1
     with pytest.raises(ValueError, match="shape"):
         klein_cuda.klein_draw(ops, 256, uniforms=torch.rand(8, 256,
                                                             device="cuda"))
-    assert klein_cuda.klein_draw.launches == 1
+    assert _rec("klein_draw") == 1
 
 
 @pytest.mark.cuda
@@ -356,9 +362,9 @@ def test_b4_matches_plain_2d_hard_regime():
     assert torch.equal(a[same], ap[same])
     assert 0 < a.sum().item() < 4 * 8192
     torch.testing.assert_close(la[same], lap[same], atol=LW_ATOL, rtol=0)
-    smk_cuda.reset_launch_counts()
+    launch_record.reset()
     s.sample_iid(5, 1024, n_steps=2, backend="cuda")
-    assert smk_cuda.smk_steps.launches == 1
+    assert _rec("smk_steps") == 1
 
 
 @pytest.mark.cuda
@@ -379,13 +385,13 @@ def test_b4_raises_beyond_the_exact_range_and_its_largest_n_pad():
         x = torch.zeros(ops.n_pad, chains, device="cuda")
         x[0] = value
         acc = torch.zeros(chains, device="cuda")
-        smk_cuda.reset_launch_counts()
+        launch_record.reset()
         if raises:
             with pytest.raises(RuntimeError, match="smk_steps.*C8"):
                 smk_cuda.smk_steps(ops, x, acc, 4, seed=1)
         else:
             smk_cuda.smk_steps(ops, x, acc, 4, seed=1)
-            assert 195 <= smk_cuda.smk_steps.max_abs_y <= 205
+            assert 195 <= _rec("smk_steps", "max_abs_y") <= 205
     s.klein_operands.cs[0] = 300.0   # the Klein start's row 0 beyond 256
     with pytest.raises(RuntimeError, match="SMKSampler.sample_iid.*C8"):
         s.sample_iid(1, chains, n_steps=2, return_coeffs=True)
@@ -395,10 +401,10 @@ def test_b4_raises_beyond_the_exact_range_and_its_largest_n_pad():
     big = smk_cuda.SMKOperands(U=eye, UT=eye, cse=zeros, isgp=zeros + 1,
                                wqt=zeros, shift=zeros, n=n_pad, window=8)
     x = torch.zeros(n_pad, 32, device="cuda")
-    smk_cuda.reset_launch_counts()
+    launch_record.reset()
     with pytest.raises(ValueError, match=str(smk_cuda.SMK_TC_MAX_N_PAD)):
         smk_cuda.smk_steps(big, x, torch.zeros(32, device="cuda"), 1)
-    assert smk_cuda.smk_steps.launches == 0
+    assert _rec("smk_steps") == 0
 
 
 @pytest.mark.cuda
@@ -539,10 +545,10 @@ def test_b7_matches_float64_and_counts():
                       device="cuda")
     t = xs @ lat.basis.T + 0.1 * torch.randn(B, N, dtype=torch.float64,
                                              device="cuda")
-    klein_cuda.reset_launch_counts()
+    launch_record.reset()
     X = lat.nearest_plane(t)
-    assert klein_cuda.babai_decode.launches == 1
-    assert klein_cuda.babai_decode.fp32_launches == 0
+    assert _rec("babai_decode") == 1
+    assert _rec("babai_decode", "fp32_launches") == 0
     assert klein_cuda.babai_y_stats()["beyond_256"] == 0
     assert torch.equal(X, xs)
     assert torch.equal(X, linalg.babai_nearest_plane(lat.Q, lat.R, t))
@@ -573,12 +579,12 @@ def test_b8_matches_plain_and_sample_zn_launches():
     z = zn_cuda.sample_zn_draws(num, 2.5, 0.5, 32, seed=3, device="cuda")
     assert torch.equal(zn_cuda.sample_zn_draws(
         1001, 2.5, 0.5, 32, seed=3, device="cuda"), z[:1001])
-    zn_cuda.reset_launch_counts()
+    launch_record.reset()
     Z = sample_zn(1, 64, 3.0, shape=(1000,), device="cuda")
-    assert Z.shape == (1000, 64) and zn_cuda.sample_zn_draws.launches == 1
+    assert Z.shape == (1000, 64) and _rec("sample_zn_draws") == 1
     s = UnifiedLatticeSampler(identity_lattice(16, device="cuda"), sigma=2.0)
     s.sample(2, 100)
-    assert zn_cuda.sample_zn_draws.launches == 2
+    assert _rec("sample_zn_draws") == 2
 
 
 @pytest.mark.cuda
@@ -599,12 +605,12 @@ def test_b7_decodes_beyond_256_on_its_wide_parts():
     xs = torch.from_numpy(xstar(200)).cuda()
     t = xs @ lat.basis.T + torch.from_numpy(
         rng.choice([-0.25, 0.25], (200, n))).cuda()
-    klein_cuda.reset_launch_counts()
+    launch_record.reset()
     X = lat.nearest_plane(t)
     assert torch.equal(X, xs)
     assert torch.equal(X, linalg.babai_nearest_plane(lat.Q, lat.R, t))
     stats = klein_cuda.babai_y_stats()
-    assert klein_cuda.babai_decode.launches == 1
+    assert _rec("babai_decode") == 1
     k = torch.round(t)
     y = xs - k
     assert stats["beyond_256"] == int((y.abs() > 256).sum()) > 0
@@ -627,10 +633,10 @@ def test_b7_fp32_route_above_the_tensor_core_reach():
                       device="cuda")
     t = xs @ lat.basis.T + 0.05 * torch.randn(T, n, dtype=torch.float64,
                                               device="cuda")
-    klein_cuda.reset_launch_counts()
+    launch_record.reset()
     X = lat.nearest_plane(t)
-    assert (klein_cuda.babai_decode.launches,
-            klein_cuda.babai_decode.fp32_launches) == (0, 1)
+    assert (_rec("babai_decode"),
+            _rec("babai_decode", "fp32_launches")) == (0, 1)
     assert torch.equal(X, xs)
     assert torch.equal(X, linalg.babai_nearest_plane(lat.Q, lat.R, t))
 
@@ -641,14 +647,14 @@ def test_klein_sampler_and_gibbs_reach_the_kernels():
         pytest.skip("needs a CUDA device")
     lat = lattice_from_basis(np.array([[1.0, 0.5], [0.0, 1.0]]),
                              device="cuda")
-    klein_cuda.reset_launch_counts()
+    launch_record.reset()
     X = KleinSampler(lat, 2.0).sample(1, 4096, return_coeffs=True,
                                       backend="cuda")
-    assert X.shape == (4096, 2) and klein_cuda.klein_draw.launches == 1
+    assert X.shape == (4096, 2) and _rec("klein_draw") == 1
     s = UnifiedLatticeSampler(lat, sigma=1.0)
     s.decode(2, torch.tensor([[0.3, 0.7], [1.2, -2.6]], device="cuda"),
              n_chains=4, n_sweeps=3)
-    assert klein_cuda.babai_decode.launches == 1
+    assert _rec("babai_decode") == 1
 
 
 @pytest.mark.cuda
@@ -716,11 +722,11 @@ def test_b1_b6_raise_beyond_the_exact_range():
     for centre, wide in ((200.0, False), (300.0, True)):
         ops.cs[0] = centre       # the recentred centre of row 0
         assert klein_cuda.wide_y(ops) == wide
-        klein_cuda.reset_launch_counts()
+        launch_record.reset()
         klein_cuda.klein_draw(ops, 256, seed=1)
         klein_cuda.klein_ring(ops, 256, 2, seed=1)
-        for wrapper in (klein_cuda.klein_draw, klein_cuda.klein_ring):
-            assert centre - 5 <= wrapper.max_abs_y <= centre + 5
+        for kernel in ("klein_draw", "klein_ring"):
+            assert centre - 5 <= _rec(kernel, "max_abs_y") <= centre + 5
     ks = KleinSampler(far_lattice(), 0.02)
     far_centres(ks.operands)
     with pytest.raises(RuntimeError, match="klein_draw.*C8"):
@@ -748,7 +754,7 @@ def test_b1_b6_fp32_route_above_the_tensor_core_reach():
     ops = klein_cuda.kernel_operands(klein_precompute(lat, 4.0,
                                                       tail_budget=0.01))
     assert ops.n_pad == 3584 and klein_cuda.klein_route(ops.n_pad) == "klein"
-    klein_cuda.reset_launch_counts()
+    launch_record.reset()
     unif = torch.rand(ops.n_pad, chains, device="cuda")
     y, lw = klein_cuda.klein_draw(ops, chains, uniforms=unif)
     yp, lwp = klein_cuda.klein_draw_plain(ops, chains, uniforms=unif)
@@ -764,10 +770,10 @@ def test_b1_b6_fp32_route_above_the_tensor_core_reach():
         assert 1 - same.float().mean().item() <= 0.05
         torch.testing.assert_close(lws[r, same], lwsp[r, same], atol=1e-3,
                                    rtol=0)
-    assert (klein_cuda.klein_draw.fp32_launches,
-            klein_cuda.klein_ring.fp32_launches) == (1, 1)
-    assert (klein_cuda.klein_draw.launches,
-            klein_cuda.klein_ring.launches) == (0, 0)
+    assert (_rec("klein_draw", "fp32_launches"),
+            _rec("klein_ring", "fp32_launches")) == (1, 1)
+    assert (_rec("klein_draw"),
+            _rec("klein_ring")) == (0, 0)
 
 
 @pytest.mark.cuda
@@ -822,10 +828,10 @@ def test_b1_b2_b6_wide_match_plain_on_the_reduced_qary_basis():
     ops = klein_cuda.kernel_operands(pre)
     assert ops.window == 104 and klein_cuda.wide_y(ops)
     n, chains = ops.n, 2048
-    klein_cuda.reset_launch_counts()
+    launch_record.reset()
     y, lw = klein_cuda.klein_draw(ops, chains, seed=3)
     yp, lwp = klein_cuda.klein_draw_plain(ops, chains, seed=3)
-    assert klein_cuda.klein_draw.max_abs_y > 256
+    assert _rec("klein_draw", "max_abs_y") > 256
     same = (y[:n] == yp[:n]).all(dim=0)
     assert 1 - same.float().mean().item() <= MAX_CHAINS_DIFFERING
     torch.testing.assert_close(lw[same], lwp[same], atol=1e-3, rtol=0)
@@ -864,12 +870,12 @@ def test_blocked_route_launches_b1_and_b2(monkeypatch):
     pre = klein_precompute(lat, 1.2 * float(lat.gs_norms.max()))
     monkeypatch.setattr(klein_cuda, "klein_draw_plain", plain)
     monkeypatch.setattr(klein_cuda, "imhk_fused_plain", plain)
-    klein_cuda.reset_launch_counts()
+    launch_record.reset()
     X, lw = klein_blocked.klein_sample_batch_blocked(pre, B, seed=3)
     X2, lw2, acc = klein_blocked.imhk_steps_batch_blocked(pre, X, lw, 6,
                                                           seed=3, step=1)
-    assert klein_cuda.klein_draw.launches == 1
-    assert klein_cuda.imhk_fused.launches == 1
+    assert _rec("klein_draw") == 1
+    assert _rec("imhk_fused") == 1
     assert klein_blocked.blocked_operands(pre).U.dtype == torch.float32
     assert X.is_cuda and X2.shape == (B, lat.n) and acc.dtype == torch.int32
     assert 0 < int(acc.sum()) <= 6 * B
@@ -900,13 +906,12 @@ def test_adapt_sigma_smk_launches_b4_on_disjoint_steps(monkeypatch):
         return real(ops, x, acc, n_steps, **kw)
 
     monkeypatch.setattr(smk_cuda, "smk_steps", record)
-    klein_cuda.reset_launch_counts()
-    smk_cuda.reset_launch_counts()
+    launch_record.reset()
     st = adaptation.adapt_sigma_smk(lat, sigma, n_windows=6, window_steps=4,
                                     n_chains=4096, warmup_windows=3,
                                     max_window_steps=16, seed=7)
-    assert klein_cuda.klein_draw.launches == 1
-    assert smk_cuda.smk_steps.launches == 6
+    assert _rec("klein_draw") == 1
+    assert _rec("smk_steps") == 6
     assert calls == [(1, 4), (5, 4), (9, 4), (13, 16), (29, 16), (45, 16)]
     assert st.coeffs.shape == (4096, lat.n) and st.coeffs.is_cuda
     assert 0 < st.history[-1]["acceptance"] < 1
@@ -929,11 +934,11 @@ def test_diagnose_convergence_runs_b1_b2_b3():
     lat = _ntru16_card()
     s = IMHKSampler(lat, 1.5 * float(lat.gs_norms.max()), burn_in=5,
                     device="cuda")
-    klein_cuda.reset_launch_counts()
+    launch_record.reset()
     d = s.diagnose_convergence(3, 300)
-    assert klein_cuda.klein_draw.launches == 2     # the start, the gap
-    assert klein_cuda.imhk_fused.launches == 1     # the burn-in
-    assert klein_cuda.imhk_trajectory.launches == 1
+    assert _rec("klein_draw") == 2     # the start, the gap
+    assert _rec("imhk_fused") == 1     # the burn-in
+    assert _rec("imhk_trajectory") == 1
     assert 0 < d["acceptance_rate"] <= 1
     assert 0 < d["spectral_gap_estimate"] <= 1
     assert d["empirical_std"].shape == (lat.n,)
@@ -959,14 +964,13 @@ def test_sharded_paths_launch_b1_b2_and_b5(monkeypatch):
     for name in ("klein_draw_plain", "imhk_fused_plain"):
         monkeypatch.setattr(klein_cuda, name, plain)
     monkeypatch.setattr(peikert_cuda, "peikert_rounds_plain", plain)
-    klein_cuda.reset_launch_counts()
-    peikert_cuda.reset_launch_counts()
+    launch_record.reset()
     m = mesh.make_mesh("cuda")
     X, lw, acc, rate = collectives.sharded_imhk_blocked(pre, B, 6, m, seed=3)
     Xp, _, var = collectives.sharded_peikert(ops, B, m, n_rounds=2, seed=4)
-    assert klein_cuda.klein_draw.launches == 1
-    assert klein_cuda.imhk_fused.launches == 1
-    assert peikert_cuda.peikert_rounds.launches == 1
+    assert _rec("klein_draw") == 1
+    assert _rec("imhk_fused") == 1
+    assert _rec("peikert_rounds") == 1
     assert 0.0 < rate <= 1.0 and X.is_cuda and Xp.shape == (2 * B, lat.n)
     assert bool(torch.isfinite(var).all()) and float(var.max()) > 0
     X0, lw0 = klein_blocked.klein_sample_batch_blocked(pre, B, seed=3)
@@ -1059,7 +1063,7 @@ def test_launches_past_2_24_raise_before_any_kernel():
     ops = klein_cuda.kernel_operands(klein_precompute(lat, 1.0))
     x = torch.zeros(ops.n_pad, 64, device="cuda")
     lw, acc = torch.zeros(64, device="cuda"), torch.zeros(64, device="cuda")
-    klein_cuda.reset_launch_counts()
+    launch_record.reset()
     for what, call in (
             ("klein_draw", lambda: klein_cuda.klein_draw(ops, 64, seed=1)),
             ("klein_ring", lambda: klein_cuda.klein_ring(ops, 64, 2,
@@ -1070,10 +1074,10 @@ def test_launches_past_2_24_raise_before_any_kernel():
                 ops, x, lw, acc, 2, seed=1))):
         with pytest.raises(ValueError, match=rf"{what}: .*2\^24.*C15"):
             call()
-    assert (klein_cuda.klein_draw.launches, klein_cuda.klein_ring.launches,
-            klein_cuda.imhk_fused.launches,
-            klein_cuda.imhk_trajectory.launches,
-            klein_cuda.klein_draw.fp32_launches) == (0, 0, 0, 0, 0)
+    assert (_rec("klein_draw"), _rec("klein_ring"),
+            _rec("imhk_fused"),
+            _rec("imhk_trajectory"),
+            _rec("klein_draw", "fp32_launches")) == (0, 0, 0, 0, 0)
     assert not bool(x.any()) and not bool(acc.any())
     with pytest.raises(ValueError, match="C15"):
         debug_sigma.main(["1024"])
@@ -1123,14 +1127,14 @@ def test_b1_centred_matches_plain_at_the_signing_width():
     _, ops = _sign_operands()
     cs = _residual_centres(ops, ODD_CHAINS, 1)
     unif = torch.rand(ops.n_pad, ODD_CHAINS, device="cuda")
-    klein_cuda.reset_launch_counts()
+    launch_record.reset()
     for kw in ({"uniforms": unif}, {"seed": 2 ** 33 + 5, "step": 2}):
         y, lw = klein_cuda.klein_draw_centred(ops, cs, **kw)
         yp, lwp = klein_cuda.klein_draw_centred_plain(ops, cs, **kw)
         res = smoke.compare_draws(y, yp, lw, lwp, ops.n)
         assert smoke.draws_ok(res), res
-    assert klein_cuda.klein_draw_centred.launches == 2
-    assert 0 < klein_cuda.klein_draw_centred.max_abs_y <= 256
+    assert _rec("klein_draw_centred") == 2
+    assert 0 < _rec("klein_draw_centred", "max_abs_y") <= 256
     # the chains' own centres: another chain's would draw elsewhere
     y2, _ = klein_cuda.klein_draw_centred(ops, cs.roll(1, dims=1),
                                           uniforms=unif)
@@ -1169,10 +1173,10 @@ def test_b1_centred_raises_where_draws_leave_the_narrow_range():
     ops = ks.operands
     ops.cs[1] = 300.0      # predicted past 256: B1 would take WIDE
     cs = ops.cs[:, None].expand(-1, 256).contiguous()
-    klein_cuda.reset_launch_counts()
+    launch_record.reset()
     with pytest.raises(ValueError, match="klein_draw_centred.*C8"):
         klein_cuda.klein_draw_centred(ops, cs, seed=1)
-    assert klein_cuda.klein_draw_centred.launches == 0
+    assert _rec("klein_draw_centred") == 0
     far_centres(ops)
     cs = ops.cs[:, None].expand(-1, 256).contiguous()
     with pytest.raises(RuntimeError, match="klein_draw_centred.*C8"):
@@ -1237,10 +1241,10 @@ def _points_case(limbs, basis, x):
     """The points' kernel on x against the float64 DGEMM bit for bit, and
     its tile counts against the inputs'."""
     from lattice_gaussian_mcmc_tpu_torch.ops.kernels import points_cuda
-    points_cuda.reset_launch_counts()
+    launch_record.reset()
     got = points_cuda.points(limbs, x)
     assert torch.equal(got, x.to(torch.float64) @ basis.T)
-    assert points_cuda.points.launches == 1
+    assert _rec("points") == 1
     stats = points_cuda.limb_stats()
     assert stats == points_cuda.limb_counts(x)
     return stats
@@ -1261,9 +1265,9 @@ def test_points_at_the_peikert_and_signing_layouts():
     x = s.sample(21, B, return_coeffs=True)
     assert x.stride(0) == 1 and x.dtype == torch.float32
     assert _points_case(s.limbs, basis, x)["limbs_2"] > 0
-    points_cuda.reset_launch_counts()
+    launch_record.reset()
     assert torch.equal(s.sample(21, B), x.double() @ basis.T)
-    assert points_cuda.points.launches == 1
+    assert _rec("points") == 1
     lat, _ = _sign_operands()
     sigma, q, beta2, tail = SIGN
     signer = FalconSigner(lat, sigma, q, beta2, tail_budget=tail,
@@ -1275,9 +1279,9 @@ def test_points_at_the_peikert_and_signing_layouts():
     assert _points_case(signer._limbs, basis, x.T)["limbs_2"] > 0
     for m in (1, 3):
         _points_case(signer._limbs, basis, x[:, :m].contiguous().T)
-    points_cuda.reset_launch_counts()
+    launch_record.reset()
     signer.sign(5, c)
-    assert points_cuda.points.launches >= 1
+    assert _rec("points") >= 1
 
 
 @pytest.mark.cuda
@@ -1301,11 +1305,11 @@ def test_points_at_the_imhk_layout(ring):
     assert stats["limbs_1"] > 0 and stats["limbs_2"] == 0
     if ring == 512:
         s = IMHKSampler(lat, FALCON[ring][0], tail_budget=0.01)
-        points_cuda.reset_launch_counts()
+        launch_record.reset()
         X = s.sample_iid(3, 256, n_steps=2, return_coeffs=True)
         assert torch.equal(s.sample_iid(3, 256, n_steps=2),
                            X.double() @ lat.basis.T)
-        assert points_cuda.points.launches == 1
+        assert _rec("points") == 1
 
 
 @pytest.mark.cuda
@@ -1331,7 +1335,7 @@ def test_points_reach_wide_bases_odd_shapes_and_nan():
         for xs in (x, x.float(), x.T.contiguous().T):
             _points_case(limbs, basis, xs)
     x[140, 1] = 0.5
-    points_cuda.reset_launch_counts()
+    launch_record.reset()
     got = points_cuda.points(limbs, x)
     assert bool(got[128:192].isnan().all())
     assert not bool(got[:128].isnan().any() or got[192:].isnan().any())

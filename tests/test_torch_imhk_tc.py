@@ -16,7 +16,10 @@ from lattice_gaussian_mcmc_tpu_torch.lattices import (
     lattice_from_basis,
     ntru_lattice,
 )
-from lattice_gaussian_mcmc_tpu_torch.ops.kernels import klein_cuda
+from lattice_gaussian_mcmc_tpu_torch.ops.kernels import (
+    klein_cuda,
+    launch_record,
+)
 from lattice_gaussian_mcmc_tpu_torch.samplers import klein_precompute
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -177,21 +180,6 @@ def test_centres_plain_is_a_b2_step():
     torch.testing.assert_close(c[:N], want[:N], atol=1e-4, rtol=0)
 
 
-def test_exact_guard_raises_once_read():
-    """Hazard C8's counters: `check_exact` keeps each kernel's largest |y|
-    and raises when a draw left the exact range, naming the entry point."""
-    klein_cuda.reset_launch_counts()
-    guard = klein_cuda.exact_guard("cpu")
-    guard[0, 1], guard[1, 1] = 81, 26
-    klein_cuda.check_exact(guard, "entry")
-    assert klein_cuda.imhk_fused.max_abs_y == 81
-    assert klein_cuda.imhk_trajectory.max_abs_y == 26
-    guard[1, 0] = 3
-    with pytest.raises(RuntimeError, match="entry: 3 drawn.*C8"):
-        klein_cuda.check_exact(guard, "entry")
-    klein_cuda.reset_launch_counts()
-
-
 def test_wide_y_is_made_again_after_an_in_place_change():
     """Fault C11's prediction is kept on the operands and made again once
     U, cs or isg was changed in place. On [[1, 1000], [0, 1]] at sigma
@@ -266,11 +254,13 @@ def test_resources_count_the_chains_an_sm_holds(monkeypatch):
 
 
 def test_reset_clears_the_recorded_residency():
-    klein_cuda.imhk_fused.resident_chains = 256
-    klein_cuda.imhk_trajectory.resident_chains = 256
-    klein_cuda.reset_launch_counts()
-    assert klein_cuda.imhk_fused.resident_chains == 0
-    assert klein_cuda.imhk_trajectory.resident_chains == 0
+    for kernel in ("imhk_fused", "imhk_trajectory"):
+        launch_record.count(kernel, resident_chains=256)
+        assert launch_record.read()[kernel]["resident_chains"] == 256
+    launch_record.reset()
+    rec = launch_record.read()
+    assert rec["imhk_fused"]["resident_chains"] == 0
+    assert rec["imhk_trajectory"]["resident_chains"] == 0
 
 
 def test_split_cuts_find_their_sites_once(tmp_path):

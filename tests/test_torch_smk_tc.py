@@ -5,7 +5,8 @@ centres on the SMK row's operands (NTRU-512, sigma 0.45 max ||b*_i||,
 proposal 0.45 sigma, window 8), with U1 alone shown to fail the same gate;
 the plain version of the kernel's debug instantiation against the plain
 version's own debug outputs (which `tests/test_torch_smk.py` holds to the
-Pallas kernel's debug mode); and hazard C8's guard. The kernel itself runs
+Pallas kernel's debug mode). Hazard C8's guard is tested with the launch
+record's (`tests/test_torch_launch_record.py`). The kernel itself runs
 only on a card (`tests/test_torch_cuda_kernels.py`, `chip_smoke.py`)."""
 
 import os
@@ -83,8 +84,8 @@ def test_smk_row_operands(smk_row):
         klein_cuda.split_bf16(s.klein_operands.U)))
     assert smk_cuda.SMK_TC_MAX_N_PAD == klein_cuda.IMHK_TC_MAX_N_PAD
     # every state and proposal coefficient is exact in bf16 (hazard C8)
-    assert float(y.abs().max()) <= smk_cuda.EXACT_Y
-    assert float(p.abs().max()) <= smk_cuda.EXACT_Y
+    assert float(y.abs().max()) <= klein_cuda.EXACT_Y
+    assert float(p.abs().max()) <= klein_cuda.EXACT_Y
 
 
 def test_plain_centres_within_gate(smk_row):
@@ -147,20 +148,3 @@ def test_centres_plain_is_the_plain_debug_step():
     # the centres are ct - sum_{j>i} U_ij p_j of the proposal
     want = ct - (ops.U @ p - p)
     torch.testing.assert_close(c[:N], want[:N], atol=1e-4, rtol=0)
-
-
-def test_exact_guard_raises_once_read():
-    """Hazard C8's counters for B4: `check_exact` keeps the largest |y| and
-    raises when a state or drawn coefficient left the exact range, naming
-    the entry point."""
-    smk_cuda.reset_launch_counts()
-    guard = smk_cuda.exact_guard("cpu")
-    assert guard.shape == (2,) and guard.dtype == torch.int32
-    guard[1] = 81
-    smk_cuda.check_exact(guard, "entry")
-    assert smk_cuda.smk_steps.max_abs_y == 81
-    guard[0] = 3
-    with pytest.raises(RuntimeError, match="entry: 3 state or drawn.*C8"):
-        smk_cuda.check_exact(guard, "entry")
-    smk_cuda.reset_launch_counts()
-    assert smk_cuda.smk_steps.max_abs_y == 0
