@@ -77,13 +77,15 @@
 //   coupling runs, and each sub-block's triangle of UT by cp.async while
 //   the sub-block before it finishes (klein_tc.cu's `tri_load`).
 // - Each row is drawn by two threads per chain: each computes half of the
-//   window's weights; the CDF is the same sequential sum as draw_row's (the
-//   low half's sum is shuffled up), so the draw is draw_row's bit for bit.
-//   Each thread draws the Philox uniform of one row of a pair, one pair
-//   ahead of the draws.
-// - At 256 chains an SM the draws are bound by instruction issue (~290
-//   warp-instructions a row of 16 chains), no longer by a row's latency;
-//   the coupling alone is L2-bound on U's fragments; see PERF.md. The
+//   window's weights, one side's segments of products (klein_common.cuh:
+//   two exps a thread a row at W 16, four at W 24); the CDF is the same
+//   sequential sum as draw_row's (the low half's sum is shuffled up), so
+//   the draw is draw_row's bit for bit. Each thread draws the Philox
+//   uniform of one row of a pair, one pair ahead of the draws.
+// - At 256 chains an SM the draws are bound by instruction issue (the
+//   row loop ~220 SASS instructions a row at W 16, ~274 at W 24,
+//   tools/draw_sass.py), no longer by a row's latency; the coupling alone
+//   is L2-bound on U's fragments; see PERF.md. The
 //   largest n_pad, 3,456 (klein_cuda.py IMHK_TC_MAX_N_PAD; its wrapper
 //   raises above it), is B1's, which starts the chains.
 //

@@ -325,9 +325,10 @@ __device__ void sub_update(const uint4 (&a)[RB / SB - 1][PARTS],
 }
 
 // draw_row<W> by the two threads of a chain (h = 0, 1), bit for bit: each
-// computes W/2 of the weights, the low half's sum is shuffled up, and the
-// CDF is the same sequential sum. W == 0: draw_row's runtime window, run
-// by both threads alike.
+// computes W/2 of the weights, one side's segments (the lower side's in
+// walk order, put back in ascending order by a select), the low half's sum
+// is shuffled up, and the CDF is the same sequential sum. W == 0:
+// draw_row's runtime window, run by both threads alike.
 template <int W>
 __device__ __forceinline__ float draw_pair(float c, float isg, float u,
                                            int window, int h, int lane,
@@ -341,9 +342,10 @@ __device__ __forceinline__ float draw_pair(float c, float isg, float u,
     const float a = __fmul_rn(isg, isg);
     const float nad = __fmul_rn(-a, delta);
     const float m = __fmul_rn(__fmul_rn(-0.5f, a), __fmul_rn(delta, delta));
-    float w[H];
+    float wt[H], w[H];
+    side_weights(wt, h != 0, nad, a, expf(-a));
 #pragma unroll
-    for (int j = 0; j < H; ++j) w[j] = window_weight(h * H + j, H, nad, a);
+    for (int j = 0; j < H; ++j) w[j] = h ? wt[j] : wt[H - 1 - j];
     float s = 0.0f;
 #pragma unroll
     for (int j = 0; j < H; ++j) s = __fadd_rn(s, w[j]);

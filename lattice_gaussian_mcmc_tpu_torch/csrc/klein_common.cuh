@@ -79,13 +79,109 @@ struct Uniforms {
   }
 };
 
-// Unnormalised window weight of offset `off` from base = rint(c):
-// exp(-a (off^2 / 2 + delta off)) = exp(off * nad + (off^2 / 2) * (-a)).
-__device__ __forceinline__ float window_weight(int k, int half, float nad,
-                                               float a) {
-  const float off = (float)(k - half);
+// The window's unnormalised weights w(off) = exp(off nad - a off^2 / 2),
+// a = isg^2, nad = -a delta, for the offsets off = -W/2 .. W - W/2 - 1 from
+// base = rint(c). They go in segments of SEG offsets aligned on the centre,
+// [0, 7], [8, 15], ... and [-8, -1], [-16, -9], ... (the window's edge may
+// cut the last one short), each walked away from the centre from its
+// anchor, the offset nearest 0: w(k + d) = w(k) rho, then rho = rho e, with
+// e = exp(-a) once a row and d = +-1. The anchor's weight is expf of the
+// argument of `weight_arg`; its first ratio is one more expf,
+// exp(d nad - a (|k| + 1/2)), except at the anchors 0 and -1: w(0) = 1 with
+// ratio w(1), and w(-1) with ratio w(-1) e. A weight is a function of its
+// offset alone, so every split of the window computes the same weights.
+constexpr int SEG = 8;
+
+// off nad + (off^2 / 2) (-a), rounded as written
+__device__ __forceinline__ float weight_arg(float off, float nad, float a) {
   const float offh = __fmul_rn(__fmul_rn(0.5f, off), off);
-  return expf(__fadd_rn(__fmul_rn(off, nad), __fmul_rn(offh, -a)));
+  return __fadd_rn(__fmul_rn(off, nad), __fmul_rn(offh, -a));
+}
+
+// Anchor of segment q on the upper side (up: offsets SEG q ..) or the lower
+// (offsets -SEG q - 1 ..): its weight w and the ratio rho to the next
+// weight away from the centre.
+__device__ __forceinline__ void anchor(int q, bool up, float nad, float a,
+                                       float e, float& w, float& rho) {
+  if (q == 0) {
+    const float x = expf(__fadd_rn(up ? nad : -nad, __fmul_rn(0.5f, -a)));
+    w = up ? 1.0f : x;
+    rho = up ? x : __fmul_rn(x, e);
+  } else {
+    const float off = up ? (float)(SEG * q) : (float)(-SEG * q - 1);
+    w = expf(weight_arg(off, nad, a));
+    rho = expf(__fadd_rn(up ? nad : -nad, __fmul_rn(fabsf(off) + 0.5f, -a)));
+  }
+}
+
+// Segment q of one side in walk order: s[t] is the weight of offset
+// SEG q + t (up) or -SEG q - 1 - t (down); where the window's edge cuts the
+// segment short, the weights past it go unused.
+__device__ __forceinline__ void side_segment(int q, bool up, float nad,
+                                             float a, float e,
+                                             float (&s)[SEG]) {
+  float w, rho;
+  anchor(q, up, nad, a, e, w, rho);
+  s[0] = w;
+#pragma unroll
+  for (int t = 1; t < SEG; ++t) {
+    w = __fmul_rn(w, rho);
+    rho = __fmul_rn(rho, e);
+    s[t] = w;
+  }
+}
+
+// The N weights of one side in walk order: wt[t] is the weight of offset t
+// (up) or -1 - t (down).
+template <int N>
+__device__ __forceinline__ void side_weights(float (&wt)[N], bool up,
+                                             float nad, float a, float e) {
+#pragma unroll
+  for (int q = 0; SEG * q < N; ++q) {
+    float s[SEG];
+    side_segment(q, up, nad, a, e, s);
+#pragma unroll
+    for (int t = 0; t < SEG; ++t)
+      if (SEG * q + t < N) wt[SEG * q + t] = s[t];
+  }
+}
+
+// The W weights of a compile-time window in ascending order of offset.
+template <int W>
+__device__ __forceinline__ void window_weights(float (&w)[W], float nad,
+                                               float a) {
+  static_assert(W >= 2, "a window of at least 2");
+  constexpr int LO = W / 2, HI = W - W / 2;
+  const float e = expf(-a);
+  float lo[LO], hi[HI];
+  side_weights(lo, false, nad, a, e);
+  side_weights(hi, true, nad, a, e);
+#pragma unroll
+  for (int k = 0; k < W; ++k) w[k] = k < LO ? lo[LO - 1 - k] : hi[k - LO];
+}
+
+// f(weight) for each offset of a runtime window of w, in ascending order:
+// one segment at a time into SEG registers, then handed on in order.
+template <class F>
+__device__ __forceinline__ void for_each_weight(int w, float nad, float a,
+                                                F&& f) {
+  const int lo = w / 2, hi = w - w / 2;
+  const float e = expf(-a);
+  float s[SEG];
+  for (int q = (lo + SEG - 1) / SEG - 1; q >= 0; --q) {
+    const int n = min(SEG, lo - SEG * q);
+    side_segment(q, false, nad, a, e, s);
+#pragma unroll
+    for (int t = SEG - 1; t >= 0; --t)
+      if (t < n) f(s[t]);
+  }
+  for (int q = 0; SEG * q < hi; ++q) {
+    const int n = min(SEG, hi - SEG * q);
+    side_segment(q, true, nad, a, e, s);
+#pragma unroll
+    for (int t = 0; t < SEG; ++t)
+      if (t < n) f(s[t]);
+  }
 }
 
 // Windowed inverse-CDF draw around c with inverse width isg. W > 0:
@@ -106,23 +202,23 @@ __device__ __forceinline__ float draw_row(float c, float isg, float u,
   float total = 0.0f;
   if constexpr (W > 0) {
     float cdf[W];
+    window_weights<W>(cdf, nad, a);
 #pragma unroll
     for (int k = 0; k < W; ++k) {
-      total = __fadd_rn(total, window_weight(k, half, nad, a));
+      total = __fadd_rn(total, cdf[k]);
       cdf[k] = total;
     }
     const float target = __fmul_rn(u, total);
 #pragma unroll
     for (int k = 0; k < W; ++k) idx += cdf[k] < target ? 1 : 0;
   } else {
-    for (int k = 0; k < w; ++k)
-      total = __fadd_rn(total, window_weight(k, half, nad, a));
+    for_each_weight(w, nad, a, [&](float v) { total = __fadd_rn(total, v); });
     const float target = __fmul_rn(u, total);
     float run = 0.0f;
-    for (int k = 0; k < w; ++k) {
-      run = __fadd_rn(run, window_weight(k, half, nad, a));
+    for_each_weight(w, nad, a, [&](float v) {
+      run = __fadd_rn(run, v);
       idx += run < target ? 1 : 0;
-    }
+    });
   }
   idx = min(idx, w - 1);
   logz = __fadd_rn(m, logf(total));
@@ -138,12 +234,16 @@ __device__ __forceinline__ float log_normalizer(float c, float isg,
   const float a = __fmul_rn(isg, isg);
   const float nad = __fmul_rn(-a, delta);
   const float m = __fmul_rn(__fmul_rn(-0.5f, a), __fmul_rn(delta, delta));
-  const int w = W > 0 ? W : window;
-  const int half = w / 2;
   float total = 0.0f;
+  if constexpr (W > 0) {
+    float wk[W];
+    window_weights<W>(wk, nad, a);
 #pragma unroll
-  for (int k = 0; k < w; ++k)
-    total = __fadd_rn(total, window_weight(k, half, nad, a));
+    for (int k = 0; k < W; ++k) total = __fadd_rn(total, wk[k]);
+  } else {
+    for_each_weight(window, nad, a,
+                    [&](float v) { total = __fadd_rn(total, v); });
+  }
   return __fadd_rn(m, logf(total));
 }
 

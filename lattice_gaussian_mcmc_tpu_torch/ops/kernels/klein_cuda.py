@@ -57,14 +57,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import TYPE_CHECKING
 
 import torch
 import torch.nn.functional as F
 
-from lattice_gaussian_mcmc_tpu_torch.ops.discrete_gaussian import (
-    window_offsets,
-)
 from lattice_gaussian_mcmc_tpu_torch.ops.kernels._build import (
     check_cuda,
     load,
@@ -288,17 +286,83 @@ def from_kernel_layout(ops: KleinOperands, y: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _draw_row_plain(c, isg, u, window, offs, offs_half):
+SEGMENT = 8        # weights a segment of the window (klein_common.cuh SEG)
+
+
+@functools.lru_cache(maxsize=None)
+def window_segments(window: int) -> tuple:
+    """The segments of a window's offsets -W//2 .. W - W//2 - 1, as
+    klein_common.cuh walks them: ((anchor, last), ...) in ascending order,
+    [0, 7], [8, 15], ... above the centre and [-1, -8], [-9, -16], ...
+    below it, each from its anchor, the offset nearest 0, to its last
+    offset away from the centre; the window's edge may cut the outermost
+    segments short."""
+    lo, hi = window // 2, window - window // 2
+    down = [(-1 - a, -min(a + SEGMENT, lo)) for a in range(0, lo, SEGMENT)]
+    up = [(a, min(a + SEGMENT, hi) - 1) for a in range(0, hi, SEGMENT)]
+    return tuple(down[::-1] + up)
+
+
+@functools.lru_cache(maxsize=None)
+def _segment_tables(window: int, dtype, device):
+    """Per segment (anchor, anchor^2 / 2, its direction +-1, |anchor| +
+    1/2, whether it is the anchor -1) as (S,) tensors, and each offset's
+    (step from its anchor, segment)."""
+    segs = window_segments(window)
+    anc = [a for a, _ in segs]
+    sgn = [-1.0 if a < 0 else 1.0 for a, _ in segs]
+    t = torch.tensor
+
+    def col(v):
+        return t(v, dtype=dtype, device=device)
+
+    step, seg = [], []
+    for s, (a, last) in enumerate(segs):
+        n = abs(last - a) + 1
+        order = range(n - 1, -1, -1) if sgn[s] < 0 else range(n)
+        step += list(order)
+        seg += [s] * n
+    return (col(anc), col([0.5 * a * a for a in anc]), col(sgn),
+            col([abs(a) + 0.5 for a in anc]),
+            t([a == -1 for a in anc], device=device),
+            t(step, device=device), t(seg, device=device))
+
+
+def _window_weights_plain(nad, a, window):
+    """The window's weights (W, *nad.shape) in ascending order of offset,
+    as the kernels compute them (klein_common.cuh): each segment of
+    `window_segments` from its anchor's weight exp(off nad + (off^2/2)(-a))
+    and first ratio exp(d nad + (|off| + 1/2)(-a)) (w(0) = 1; below the
+    centre, w(-1) e), walked away from the centre by w = w rho, then
+    rho = rho e, e = exp(-a), all in the dtype of nad."""
+    anc, anch, sgn, dist, at1, step, seg = _segment_tables(
+        window, nad.dtype, nad.device)
+    shape = (-1,) + (1,) * nad.dim()
+    anc, anch, sgn, dist, at1 = (v.reshape(shape)
+                                 for v in (anc, anch, sgn, dist, at1))
+    e = torch.exp(-a)
+    w = torch.exp(anc * nad + anch * (-a))      # w(0) = exp(0) = 1
+    rho = torch.where(at1, w * e, torch.exp(sgn * nad + dist * (-a)))
+    walk = [w]
+    for _ in range(1, min(SEGMENT, window - window // 2)):
+        w = w * rho
+        rho = rho * e
+        walk.append(w)
+    return torch.stack(walk)[step, seg]
+
+
+def _draw_row_plain(c, isg, u, window):
     """Windowed inverse-CDF draw around centres c (B,) with the kernel's
-    arithmetic: max-shifted logits -a (off^2/2 + delta off), a = isg^2,
-    a sequential prefix sum for the CDF, idx = #{k : cdf_k < u total}.
-    Returns (z, log Z) with log Z = m + log(total)."""
+    arithmetic: unnormalised weights exp(-a (off^2/2 + delta off)),
+    a = isg^2, by `_window_weights_plain`, a sequential prefix sum for the
+    CDF, idx = #{k : cdf_k < u total}. Returns (z, log Z) with
+    log Z = m + log(total)."""
     base = torch.round(c)
     delta = base - c
     a = isg * isg
     nad = (-a) * delta
     m = (-0.5 * a) * (delta * delta)
-    w = torch.exp(offs * nad + offs_half * (-a))          # (W, B)
+    w = _window_weights_plain(nad, a, window)              # (W, B)
     cdf = torch.empty_like(w)
     run = torch.zeros_like(c)
     for k in range(window):
@@ -324,8 +388,6 @@ def _propose_plain(ops: KleinOperands, rows, out: torch.Tensor,
     row that couples to nothing and is dropped from the output)."""
     n_pad, B = out.shape
     dt, dev = ops.U.dtype, ops.device
-    offs = window_offsets(ops.window, dt, dev)[:, None]
-    offs_half = 0.5 * offs * offs
     lw = torch.zeros(B, dtype=torch.float64, device=dev)
     for lo in range(n_pad - ROW_BLOCK, -1, -ROW_BLOCK):
         hi = lo + ROW_BLOCK
@@ -339,8 +401,7 @@ def _propose_plain(ops: KleinOperands, rows, out: torch.Tensor,
                  - ops.U[i, i + 1:hi] @ out[i + 1:hi])
             if centres is not None:
                 centres[i] = c
-            z, logz = _draw_row_plain(c, ops.isg[i], u[r], ops.window,
-                                      offs, offs_half)
+            z, logz = _draw_row_plain(c, ops.isg[i], u[r], ops.window)
             out[i] = z
             lw += logz.to(torch.float64)
     return lw.to(dt)

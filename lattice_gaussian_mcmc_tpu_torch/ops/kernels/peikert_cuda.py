@@ -47,9 +47,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lattice_gaussian_mcmc_tpu_torch.ops.discrete_gaussian import (
-    window_offsets,
-)
 from lattice_gaussian_mcmc_tpu_torch.ops.kernels._build import (
     check_cuda,
     load,
@@ -226,8 +223,6 @@ def peikert_rounds_plain(ops: PeikertOperands, num_chains: int,
     n_pad, dt, dev = ops.n_pad, ops.L2T.dtype, ops.device
     if (uniforms is None) != (normals is None):
         raise ValueError("pass both host uniforms and normals, or neither")
-    offs = window_offsets(ops.window, dt, dev)[:, None, None]
-    offs_half = 0.5 * offs * offs
     isg = torch.tensor(ops.isg, dtype=dt, device=dev)
     chains = chain_ids(num_chains, chain_offset, dev)
     ring = torch.empty(n_rounds * n_pad, num_chains, dtype=dt, device=dev)
@@ -243,8 +238,7 @@ def peikert_rounds_plain(ops: PeikertOperands, num_chains: int,
         c = ops.cp[:, None] - ops.L2T.T @ z
         if centres is not None and k == 0:
             centres.copy_(c)
-        ring[rows], _ = _draw_row_plain(c, isg, u, ops.window, offs,
-                                        offs_half)
+        ring[rows], _ = _draw_row_plain(c, isg, u, ops.window)
     return ring
 
 

@@ -42,9 +42,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lattice_gaussian_mcmc_tpu_torch.ops.discrete_gaussian import (
-    window_offsets,
-)
 from lattice_gaussian_mcmc_tpu_torch.ops.kernels import klein_cuda
 from lattice_gaussian_mcmc_tpu_torch.ops.kernels._build import (
     check_cuda,
@@ -57,6 +54,7 @@ from lattice_gaussian_mcmc_tpu_torch.ops.kernels.klein_cuda import (
     ROW_BLOCK,
     _draw_row_plain,
     _uniform_rows,
+    _window_weights_plain,
 )
 from lattice_gaussian_mcmc_tpu_torch.ops.kernels.launch_record import (
     ExactGuard,
@@ -140,18 +138,18 @@ def smk_operands(pre: KleinPrecomp, sigma_prop: float, dtype=torch.float32,
 # ---------------------------------------------------------------------------
 
 
-def _log_normalizer_plain(c, isg, window, offs, offs_half):
+def _log_normalizer_plain(c, isg, window):
     """log Z of the window around rows of centres c (n, B) with inverse
-    widths isg (n, 1): `_draw_row_plain`'s normaliser, its sum in the
-    kernel's sequential order."""
+    widths isg (n, 1): `_draw_row_plain`'s normaliser, the weights of
+    `_window_weights_plain` summed in the kernel's sequential order."""
     base = torch.round(c)
     delta = base - c
     a = isg * isg
     nad = (-a) * delta
     m = (-0.5 * a) * (delta * delta)
     total = torch.zeros_like(c)
-    for k in range(window):
-        total = total + torch.exp(offs[k] * nad + offs_half[k] * (-a))
+    for w in _window_weights_plain(nad, a, window):
+        total = total + w
     return m + torch.log(total)
 
 
@@ -163,8 +161,6 @@ def _smk_propose_plain(ops: SMKOperands, rows, out, ct, ctn, centres=None):
     i's centre c_i goes to centres[i]."""
     n_pad, B = out.shape
     dt, dev = ops.U.dtype, ops.device
-    offs = window_offsets(ops.window, dt, dev)[:, None]
-    offs_half = 0.5 * offs * offs
     lw = torch.zeros(B, dtype=torch.float64, device=dev)
     for lo in range(n_pad - ROW_BLOCK, -1, -ROW_BLOCK):
         hi = lo + ROW_BLOCK
@@ -178,8 +174,7 @@ def _smk_propose_plain(ops: SMKOperands, rows, out, ct, ctn, centres=None):
             c = ct[i] - coup
             if centres is not None:
                 centres[i] = c
-            z, logz = _draw_row_plain(c, ops.isgp[i], u[r], ops.window,
-                                      offs, offs_half)
+            z, logz = _draw_row_plain(c, ops.isgp[i], u[r], ops.window)
             out[i] = z
             ctn[i] = z + coup
             lw += logz.to(torch.float64)
@@ -198,8 +193,6 @@ def smk_steps_plain(ops: SMKOperands, x, acc, n_steps: int, *,
     `qn`, `qc`, `log_alpha`."""
     n_pad, B = x.shape
     dt, dev = ops.U.dtype, ops.device
-    offs = window_offsets(ops.window, dt, dev)
-    offs_half = 0.5 * offs * offs
     ct = ops.U @ x
     prop = torch.zeros_like(x)
     ctn = torch.zeros_like(x)
@@ -220,8 +213,8 @@ def smk_steps_plain(ops: SMKOperands, x, acc, n_steps: int, *,
         # padded rows add exactly 0 (c' = 0 at width 1e-6, wqt = 0)
         n = ops.n
         cp = (ctn[:n] - ct[:n]) + x[:n]
-        lwr = _log_normalizer_plain(cp, ops.isgp[:n, None], ops.window,
-                                    offs, offs_half).to(torch.float64).sum(0)
+        lwr = _log_normalizer_plain(cp, ops.isgp[:n, None],
+                                    ops.window).to(torch.float64).sum(0)
         tn = ops.wqt[:n, None] * (ctn[:n] - ops.cse[:n, None])
         tc = ops.wqt[:n, None] * (ct[:n] - ops.cse[:n, None])
         qn = (tn * tn).to(torch.float64).sum(dim=0)

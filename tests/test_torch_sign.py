@@ -214,11 +214,9 @@ def test_signing_uniforms_are_midpoints_that_exclude_0():
     # the stream's k = 0 takes the window's first point, its midpoint
     # the Gaussian's own draw (a row of width 1 around 0, window 40)
     isg = torch.ones(1, dtype=torch.float64)
-    offs = klein_cuda.window_offsets(40, torch.float64, "cpu")[:, None]
     zero = torch.zeros(1, dtype=torch.float64)
     low = lambda v: klein_cuda._draw_row_plain(
-        zero, isg, torch.full((1,), v, dtype=torch.float64), 40, offs,
-        0.5 * offs * offs)[0]
+        zero, isg, torch.full((1,), v, dtype=torch.float64), 40)[0]
     assert float(low(0.0)) == -20.0
     assert -7.0 < float(low(2.0 ** -24)) < -4.0
 
