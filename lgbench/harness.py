@@ -5,7 +5,8 @@ produced against the plain reference, and read the cell's metrics.
 Everything that belongs to one configuration, mix, cell or metric is a file
 of its own, found by name under `lgbench/`:
 
-    configs/<config>.json   the deployment: key, width rules, precision
+    configs/<config>.json   the deployment: its lattice, width rules,
+                            precision
     mixes/<traffic>.json    the traffic: entry point, sizes, how calls are made
     cells/<cell>.json       the check of a cell: rows sampled, limits
     entries/<entry>.py      the program's entry point the mix drives
@@ -13,6 +14,16 @@ of its own, found by name under `lgbench/`:
     metrics/<metric>.py     `read(ctx)` of one metric, None when it has
                             nothing to read
     roofline/<kernel>.py    a kernel's symbol and the algorithm's counts
+
+A configuration names its lattice in one of two ways, as a path under
+`lgbench/` with the file's sha256 beside it: "key" and "key_sha256", a
+frozen NTRU key (an .npz with n, f, g, F, G) whose secret basis is the
+lattice; or "basis" and "basis_sha256", a frozen integer basis (an .npz of
+one int64 array "B", columns the basis vectors). "dimension" is the
+basis's size, and "sigma_rules" maps a mix's "sigma_rule" to a width:
+{"value": s}, {"factor": f, "eps": e} (f eta_e(Z^dim) s1(B)), or with
+"of": "gs_max" f eta_e(Z^dim) max ||b*_i||. `plan` checks the file, its
+hash and its shape before any set-up (`reference/lattice.py` `basis_of`).
 """
 
 from __future__ import annotations
@@ -108,8 +119,7 @@ def plan(bench: Bench, name: str, device, traced: bool = False) -> Plan:
     cell = bench.cell(name)
     config = bench.config(cell["config"])
     mix = bench.data("mixes", cell["traffic"])
-    basis = lattice.secret_basis(lattice.load_key(
-        os.path.join(bench.dir, config["key"])))
+    basis = lattice.basis_of(config, bench.dir)
     rule = mix.get("sigma_rule")
     sigma = (lattice.sigma_of(config["sigma_rules"][rule], basis)
              if rule else None)

@@ -8,6 +8,8 @@ import json
 import os
 import shutil
 
+from lgbench.reference.lattice import sha256
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 LGBENCH = os.path.dirname(HERE)
 ROOT = os.path.dirname(LGBENCH)
@@ -40,8 +42,10 @@ def make_root(tmp: str) -> str:
                 os.path.join(d, "data"))
     with open(os.path.join(d, "configs", "falcon512.json")) as f:
         cfg = json.load(f)
-    cfg.update(name="tiny", key="data/ntru_16_12289_0_g.npz", n=16,
-               dimension=32)
+    cfg.update(name="tiny", key="data/ntru_16_12289_0_g.npz",
+               key_sha256=sha256(os.path.join(d, "data",
+                                              "ntru_16_12289_0_g.npz")),
+               n=16, dimension=32)
     write(os.path.join(d, "configs", "tiny.json"), cfg)
     spec["configs"].append({"name": "tiny", "source": "test key",
                             "file": "lgbench/configs/tiny.json",
