@@ -728,6 +728,10 @@ class Smoke:
             out[k], out[f"{k}_fp32"] = r["launches"], r["fp32_launches"]
         return out
 
+    def wide_launches(self):
+        """The launch record's WIDE launches, summed over the kernels."""
+        return sum(r["wide_launches"] for r in self.rec.read().values())
+
     def max_y(self, kernel):
         """The largest |y| the launch record holds for `kernel`."""
         return self.rec.read()[kernel]["max_abs_y"]
@@ -1006,7 +1010,9 @@ def check_qary(s: Smoke):
     at its Peikert operands there, QARY_CHAINS chains: each against its
     plain version on the caller's uniforms (and B1, B5 on Philox too),
     with the largest |y| each kernel drew (hazard C8; read from a guard of
-    the check's own)."""
+    the check's own) and the launches that took the WIDE instantiations
+    (the launch record's `wide_launches`), which must not be 0 where
+    `wide_y` predicts draws past 256."""
     import numpy as np
     import torch
     from lattice_gaussian_mcmc_tpu_torch.experiments import benchmark
@@ -1023,6 +1029,7 @@ def check_qary(s: Smoke):
         ops = kc.kernel_operands(pre)
         n_pad, R = ops.n_pad, QARY_ROUNDS
         guard = s.rec.ExactGuard(dev)
+        wide_before = s.wide_launches()
         u1 = torch.rand(n_pad, B, device=dev, generator=gen)
         y, lw = kc.klein_draw(ops, B, uniforms=u1, guard=guard)
         yp, lwp = kc.klein_draw_plain(ops, B, uniforms=u1)
@@ -1045,6 +1052,8 @@ def check_qary(s: Smoke):
         b2 = compare_steps(x, xp, lx, lxp, ax, axp, n, QARY_STEPS)
         rows = guard.read()
         counted = sum(b for b, _ in rows.values())
+        wide = kc.wide_y(ops)
+        wide_launches = s.wide_launches() - wide_before
         del u1, u6, u2, ring, ringp, x, xp
         sp = PeikertSampler(lat, 3.0 * float(np.linalg.norm(
             lat.basis.cpu().numpy(), 2)), device=dev)
@@ -1062,12 +1071,14 @@ def check_qary(s: Smoke):
                 and all(draws_ok(r) for r in b6)
                 and draws_ok(b2) and b2["accept_differing"] <= MAX_ACCEPT_SHARE
                 and b2["accept_differing_agreeing"] == 0 and counted == 0
+                and (wide_launches > 0 or not wide)
                 and all(r["coeffs_differing"] <= MAX_COEFF_SHARE
                         and r["ties_off_by_one"] for r in (b5, b5_philox)))
         ok = ok and n_ok
         for key, res in (("B1", b1), ("B2", b2), ("B6", b6[0]), ("B5", b5)):
             s.note(key, **{f"qary{n}_coeffs_differing":
                            res["coeffs_differing"]})
+        s.note("B2", **{f"qary{n}_wide_launches": wide_launches})
         # each kernel at the suite row's shapes (65,536 chains; B1 the
         # imhk row's start, B2 its 16 steps, B6 the klein row's 8 rounds,
         # B5 the Peikert row's one round), by CUDA events
@@ -1092,7 +1103,8 @@ def check_qary(s: Smoke):
             s.note(key, **{f"qary{n}_plain_ms": ms})
         out[f"n{n}"] = {
             "ok": n_ok, "n_pad": n_pad, "window": ops.window,
-            "wide": kc.wide_y(ops), "sigma": pre.sigma.item(),
+            "wide": wide, "wide_launches": wide_launches,
+            "sigma": pre.sigma.item(),
             "max_abs_y": {"b2": rows["imhk_fused"][1],
                           "b1": rows["klein_draw"][1],
                           "b6": rows["klein_ring"][1]},

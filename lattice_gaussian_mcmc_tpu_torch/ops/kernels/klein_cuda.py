@@ -55,6 +55,7 @@ tensors it launches the kernel or raises. It never falls back.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -254,6 +255,12 @@ def wide_y(ops: KleinOperands) -> bool:
     NTRU-512 at FALCON's sigma stays far below 256. A draw beyond the
     prediction on the narrow instantiation still raises (hazard C8)."""
     return predicted_y(ops) > EXACT_Y
+
+
+def _wide_span(wide: bool):
+    """The span `lgm.route.wide` around a launch that `wide_y` sent to a
+    WIDE instantiation (its device time falls under it), else nothing."""
+    return span("lgm.route.wide") if wide else contextlib.nullcontext()
 
 
 def check_reach(ops: KleinOperands, what: str):
@@ -671,10 +678,11 @@ def _klein_launch(ops: KleinOperands, num_chains: int, n_rounds: int,
                   seed: int, step: int, chain_offset: int, uniforms,
                   what: str, bad=None, dbg=None):
     """Launch B1 (n_rounds 1) or B6 on the library `klein_route` picks;
-    returns the ring (n_rounds n_pad, B), the lw ring (n_rounds, B) and
-    that library's name. The tensor-core sweep counts C8 into bad (its row
-    of an `ExactGuard`) and, with `dbg`, writes the centres there. Raises
-    on bad input or a launch error; does not wait."""
+    returns the ring (n_rounds n_pad, B), the lw ring (n_rounds, B), that
+    library's name and whether the launch took the WIDE instantiation
+    (`wide_y`). The tensor-core sweep counts C8 into bad (its row of an
+    `ExactGuard`) and, with `dbg`, writes the centres there. Raises on bad
+    input or a launch error; does not wait."""
     if n_rounds < 1:
         raise ValueError(f"n_rounds {n_rounds} must be >= 1")
     _check_operands(ops)
@@ -691,14 +699,17 @@ def _klein_launch(ops: KleinOperands, num_chains: int, n_rounds: int,
     stream = ctypes.c_void_p(
         torch.cuda.current_stream(ops.device).cuda_stream)
     route = klein_route(n_pad)
+    wide = False
     if route == "klein_tc":
         check_cuda("bad", bad, (2,), torch.int32)
         wide = dbg is None and wide_y(ops)
-        rc = load(route).klein_tc_launch(
-            ptr(tc_fragments(ops)), ptr(ops.UT), ptr(ops.cs), ptr(ops.isg),
-            unif, ptr(ring), ptr(lws), ptr(dbg) if dbg is not None else None,
-            ptr(bad), n_pad, num_chains, ops.window, n_rounds, k0, k1, step,
-            chain_offset, int(wide), stream)
+        lib, frag = load(route), tc_fragments(ops)
+        with _wide_span(wide):
+            rc = lib.klein_tc_launch(
+                ptr(frag), ptr(ops.UT), ptr(ops.cs), ptr(ops.isg), unif,
+                ptr(ring), ptr(lws), ptr(dbg) if dbg is not None else None,
+                ptr(bad), n_pad, num_chains, ops.window, n_rounds, k0, k1,
+                step, chain_offset, int(wide), stream)
     else:
         if dbg is not None:
             raise ValueError(f"{what}: the centres are written by the "
@@ -709,7 +720,7 @@ def _klein_launch(ops: KleinOperands, num_chains: int, n_rounds: int,
             ptr(ring), ptr(lws), n_pad, num_chains, ops.window, n_rounds,
             k0, k1, step, chain_offset, stream)
     raise_on(route, rc, what)
-    return ring, lws, route
+    return ring, lws, route, wide
 
 
 def klein_draw(ops: KleinOperands, num_chains: int, *, seed: int = 0,
@@ -727,10 +738,11 @@ def klein_draw(ops: KleinOperands, num_chains: int, *, seed: int = 0,
         own = guard is None
         if own:
             guard = ExactGuard(ops.device)
-        y, lw, route = _klein_launch(ops, num_chains, 1, seed, step,
-                                     chain_offset, uniforms, "klein_draw",
-                                     guard.row("klein_draw"))
-        count("klein_draw", fp32=route != "klein_tc")
+        y, lw, route, wide = _klein_launch(ops, num_chains, 1, seed, step,
+                                           chain_offset, uniforms,
+                                           "klein_draw",
+                                           guard.row("klein_draw"))
+        count("klein_draw", fp32=route != "klein_tc", wide=wide)
         if own:
             guard.check("klein_draw")
         return y, lw[0]
@@ -810,10 +822,11 @@ def klein_ring(ops: KleinOperands, num_chains: int, n_rounds: int, *,
     own = guard is None
     if own:
         guard = ExactGuard(ops.device)
-    ring, lws, route = _klein_launch(ops, num_chains, n_rounds, seed, step,
-                                     chain_offset, uniforms, "klein_ring",
-                                     guard.row("klein_ring"))
-    count("klein_ring", fp32=route != "klein_tc")
+    ring, lws, route, wide = _klein_launch(ops, num_chains, n_rounds, seed,
+                                           step, chain_offset, uniforms,
+                                           "klein_ring",
+                                           guard.row("klein_ring"))
+    count("klein_ring", fp32=route != "klein_tc", wide=wide)
     if own:
         guard.check("klein_ring")
     return ring, lws
@@ -849,9 +862,9 @@ def klein_centres(ops: KleinOperands, num_chains: int, n_rounds: int = 1, *,
     dbg = torch.empty(n_rounds * ops.n_pad, num_chains, dtype=torch.float32,
                       device=ops.device)
     guard = ExactGuard(ops.device)
-    ring, lws, _ = _klein_launch(ops, num_chains, n_rounds, seed, step,
-                                 chain_offset, uniforms, "klein_centres",
-                                 guard.row("klein_ring"), dbg=dbg)
+    ring, lws, _, _ = _klein_launch(ops, num_chains, n_rounds, seed, step,
+                                    chain_offset, uniforms, "klein_centres",
+                                    guard.row("klein_ring"), dbg=dbg)
     guard.check("klein_centres")
     return dbg, ring, lws
 
@@ -921,11 +934,12 @@ def babai_y_stats() -> dict:
 def _imhk_tc_launch(ops: KleinOperands, x, lw, acc, n_steps: int, seed: int,
                     step: int, chain_offset: int, uniforms, what: str,
                     bad: torch.Tensor, tlw=None, tx=None, thin: int = 1,
-                    dbg=None) -> int:
+                    dbg=None) -> tuple:
     """Launch imhk_tc.cu's kernel on x (n_pad, B), lw, acc in place, its C8
     counters into bad (its row of an `ExactGuard`); raise on a launch
     error. Does not wait for the kernel. Returns the chains resident an SM
-    at the launch (`imhk_tc_residency`)."""
+    at the launch (`imhk_tc_residency`) and whether it took the WIDE
+    instantiation (`wide_y`)."""
     _check_operands(ops)
     check_reach(ops, what)
     if ops.n_pad > IMHK_TC_MAX_N_PAD:
@@ -946,18 +960,21 @@ def _imhk_tc_launch(ops: KleinOperands, x, lw, acc, n_steps: int, seed: int,
     # the WIDE instantiation's float32 proposals (fault C11)
     yprop = torch.empty_like(x) if wide else None
     scratch = proposal_scratch(ops.n_pad, B, ops.device)
-    rc = lib.imhk_tc_launch(
-        ptr(tc_fragments(ops)), ptr(ops.UT), ptr(ops.cs), ptr(ops.isg),
-        ptr(uniforms) if uniforms is not None else None,
-        ptr(x), ptr(lw), ptr(acc),
-        ptr(tlw) if tlw is not None else None,
-        ptr(tx) if tx is not None else None,
-        ptr(dbg) if dbg is not None else None,
-        ptr(yprop) if yprop is not None else None, ptr(scratch), ptr(bad),
-        thin, ops.n_pad, B, ops.window, n_steps, k0, k1, step, chain_offset,
-        ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
+    frag = tc_fragments(ops)
+    with _wide_span(wide):
+        rc = lib.imhk_tc_launch(
+            ptr(frag), ptr(ops.UT), ptr(ops.cs), ptr(ops.isg),
+            ptr(uniforms) if uniforms is not None else None,
+            ptr(x), ptr(lw), ptr(acc),
+            ptr(tlw) if tlw is not None else None,
+            ptr(tx) if tx is not None else None,
+            ptr(dbg) if dbg is not None else None,
+            ptr(yprop) if yprop is not None else None, ptr(scratch),
+            ptr(bad), thin, ops.n_pad, B, ops.window, n_steps, k0, k1, step,
+            chain_offset,
+            ctypes.c_void_p(torch.cuda.current_stream(ops.device).cuda_stream))
     raise_on("imhk_tc", rc, what)
-    return imhk_tc_residency(ops.n_pad, ops.window, wide, ops.device)
+    return imhk_tc_residency(ops.n_pad, ops.window, wide, ops.device), wide
 
 
 def proposal_scratch(n_pad: int, num_chains: int, device) -> torch.Tensor:
@@ -989,9 +1006,10 @@ def imhk_fused(ops: KleinOperands, x, lw, acc, n_steps: int, *,
         own = guard is None
         if own:
             guard = ExactGuard(ops.device)
-        count("imhk_fused", resident_chains=_imhk_tc_launch(
+        resident, wide = _imhk_tc_launch(
             ops, x, lw, acc, n_steps, seed, step, chain_offset, uniforms,
-            "imhk_fused", guard.row("imhk_fused")))
+            "imhk_fused", guard.row("imhk_fused"))
+        count("imhk_fused", resident_chains=resident, wide=wide)
         if own:
             guard.check("imhk_fused")
         return x, lw, acc
@@ -1017,10 +1035,11 @@ def imhk_trajectory(ops: KleinOperands, x, lw, acc, n_keep: int,
     if own:
         guard = ExactGuard(ops.device)
     tlw, tx = _trajectory_ring(x, n_keep, coeffs)
-    count("imhk_trajectory", resident_chains=_imhk_tc_launch(
+    resident, wide = _imhk_tc_launch(
         ops, x, lw, acc, n_keep * thin, seed, step, chain_offset, uniforms,
         "imhk_trajectory", guard.row("imhk_trajectory"), tlw=tlw, tx=tx,
-        thin=thin))
+        thin=thin)
+    count("imhk_trajectory", resident_chains=resident, wide=wide)
     if own:
         guard.check("imhk_trajectory")
     return x, lw, acc, tx, tlw

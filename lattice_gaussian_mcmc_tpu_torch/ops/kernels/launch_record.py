@@ -4,11 +4,13 @@ The record holds, for each wrapper by name (`KERNELS`), its launches on
 the route it normally takes (`launches`), on klein.cu's FP32 sweep above
 the tensor-core sweep's reach (`fp32_launches`, B1, B6 and B7), the
 largest |y| its tensor-core kernel drew (`max_abs_y`, the kernels of
-`GUARDED`) and the chains an SM held at its last launch
-(`resident_chains`, B2 and B3). Counters that a kernel keeps on the device
-(B7's wide coefficients, the points kernel's limbs) register here by name
-(`device_counters`). `reset` sets all of it to 0; `read` returns the
-record. The kernels of `GUARDED` count hazard C8 into an `ExactGuard`.
+`GUARDED`), the chains an SM held at its last launch (`resident_chains`,
+B2 and B3) and, of its `launches`, those that `klein_cuda.wide_y` sent to
+the WIDE instantiation (`wide_launches`, B1, B2, B3 and B6). Counters that
+a kernel keeps on the device (B7's wide coefficients, the points kernel's
+limbs) register here by name (`device_counters`). `reset` sets all of it
+to 0; `read` returns the record. The kernels of `GUARDED` count hazard C8
+into an `ExactGuard`.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ KERNELS = ("klein_draw", "klein_draw_centred", "klein_ring", "imhk_fused",
 # an ExactGuard's rows: B2, B3, B1, B6, centred B1, B4
 GUARDED = ("imhk_fused", "imhk_trajectory", "klein_draw", "klein_ring",
            "klein_draw_centred", "smk_steps")
-FIELDS = ("launches", "fp32_launches", "max_abs_y", "resident_chains")
+FIELDS = ("launches", "fp32_launches", "max_abs_y", "resident_chains",
+          "wide_launches")
 EXACT_Y = 256      # |y| up to which the bf16 coupling is exact (hazard C8)
 
 _RECORD: dict = {}
@@ -42,11 +45,14 @@ def read() -> dict:
     return {k: dict(v) for k, v in _RECORD.items()}
 
 
-def count(kernel: str, fp32: bool = False, resident_chains=None):
-    """One launch of `kernel` (on klein.cu's FP32 sweep with `fp32`), with
+def count(kernel: str, fp32: bool = False, resident_chains=None,
+          wide: bool = False):
+    """One launch of `kernel` (on klein.cu's FP32 sweep with `fp32`; on
+    the WIDE instantiation with `wide`, counted in `launches` too), with
     the chains an SM held at it where given."""
     entry = _RECORD[kernel]
     entry["fp32_launches" if fp32 else "launches"] += 1
+    entry["wide_launches"] += bool(wide)
     if resident_chains is not None:
         entry["resident_chains"] = resident_chains
 

@@ -8,7 +8,9 @@ and `compiled_cost` (FLOPs counted by `torch.utils.flop_counter`).
 Spans. The port marks its stages with `span(name)`, named `lgm.<kind>.<what>`:
 `lgm.entry.*` the whole body of an entry point (`sample_iid`,
 `peikert_sample`, `nearest_plane`), `lgm.kernel.b1` / `b2` / `b5` / `b7` one
-kernel launch (or its plain version on the CPU), `lgm.sync.*` a read that
+kernel launch (or its plain version on the CPU), `lgm.route.wide` a launch
+of B1, B2, B3 or B6 that `klein_cuda.wide_y` sent to its WIDE
+instantiation (inside the kernel's span), `lgm.sync.*` a read that
 waits for the card (`c8_guard`, `acceptance`), `lgm.operands.*` operands
 built in a call (`babai`, `fragments`), `lgm.layout.*` the work between
 kernels (`centres`, `recentre`, `coeffs`, `points`) and `lgm.setup.*` the

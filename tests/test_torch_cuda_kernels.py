@@ -847,6 +847,53 @@ def test_b1_b2_b6_wide_match_plain_on_the_reduced_qary_basis():
         <= 0.01 * float(ap.sum())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("config,rule,wide", [("qary64_bkz20", "suite", 1),
+                                              ("falcon512", "signing", 0)])
+def test_sample_iid_takes_the_wide_route_where_draws_pass_256(
+        config, rule, wide, tmp_path):
+    """The benchmark's q-ary configuration (the BKZ-20 basis of the suite's
+    n = 64 row at its width, window 88) predicts draws past 256: one
+    `sample_iid` call sends B1 and B2 to their WIDE instantiations, one
+    launch each, each in a `lgm.route.wide` span, and the largest |y| they
+    drew reaches the record. On falcon512's basis nothing takes that
+    route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    import json
+
+    from lattice_gaussian_mcmc_tpu_torch.utils.profiling import profile_trace
+    from lgbench import harness
+    from lgbench.reference import lattice as ref_lattice
+    bench = harness.Bench()
+    cfg = bench.config(config)
+    basis = ref_lattice.basis_of(cfg, bench.dir)
+    sigma = ref_lattice.sigma_of(cfg["sigma_rules"][rule], basis)
+    s = IMHKSampler(lattice_from_basis(basis, device="cuda"), sigma,
+                    tail_budget=0.01)
+    assert klein_cuda.wide_y(s.operands) == bool(wide)
+    launch_record.reset()
+    with profile_trace(str(tmp_path)):
+        X = s.sample_iid(5, 4096, n_steps=8)
+        torch.cuda.synchronize()
+    assert X.shape == (4096, basis.shape[0]) and bool(torch.isfinite(X).all())
+    for kernel in ("klein_draw", "imhk_fused"):
+        assert _rec(kernel) == 1
+        assert _rec(kernel, "wide_launches") == wide
+    top = max(_rec("klein_draw", "max_abs_y"), _rec("imhk_fused", "max_abs_y"))
+    if wide:
+        assert 256 < top < klein_cuda.WIDE_Y
+    else:
+        assert 0 < top <= 256
+    with open(tmp_path / "trace.json") as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    assert names.count("lgm.route.wide") == 2 * wide
+    assert names.count("lgm.kernel.b1") == names.count("lgm.kernel.b2") == 1
+
+
 def _ntru16_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")

@@ -29,9 +29,11 @@ OLD_METRICS = ("b2_roofline", "b5_roofline", "b7_roofline",
                "idle_pct.sample", "idle_pct.decode")
 NEW_METRICS = {
     "entry_idle_ms.sample": ("falcon512.imhk_smooth",
-                             "falcon1024.imhk_smooth", "falcon512.peikert"),
+                             "falcon1024.imhk_smooth", "falcon512.peikert",
+                             "qary64_bkz20.imhk_smooth"),
     "entry_alloc_ms.sample": ("falcon512.imhk_smooth",
-                              "falcon1024.imhk_smooth", "falcon512.peikert"),
+                              "falcon1024.imhk_smooth", "falcon512.peikert",
+                              "qary64_bkz20.imhk_smooth"),
     "entry_idle_ms.decode": ("falcon512.decode",),
     "entry_alloc_ms.decode": ("falcon512.decode",),
 }
