@@ -1164,7 +1164,9 @@ def blocked_vs_plain(s: Smoke, pre, B, steps, philox, hard=False):
                   for k, r in res.items() if k.startswith("b2")))
     return ok, dict(res, ok=ok, dim=n, chains=B, n_pad=n_pad,
                     sigma=pre.sigma.item(), window=ops.window,
-                    wide=kc.wide_y(ops), route=kc.klein_route(n_pad),
+                    wide=kc.wide_y(ops),
+                    route=kc.klein_route(n_pad, ops.window,
+                                         wide=kc.wide_y(ops)),
                     max_abs_y={"b1": rows["klein_draw"][1],
                                "b2": rows["imhk_fused"][1]},
                     counted_beyond_256=counted)

@@ -29,9 +29,11 @@
 //   only other chains' rows hide a row's latency: the kernel is built for
 //   eight blocks an SM (256 chains, 16 warps). __launch_bounds__ holds a
 //   thread to 128 registers, and a block takes 21,120 bytes of shared
-//   memory whatever n_pad is, so the registers set the residency at every
-//   n_pad (imhk_tc_info reports it). The WIDE instantiation is built for
-//   four blocks (128 chains): its wide parts would spill at 128 registers.
+//   memory whatever n_pad is (at W 0 the draw's store too, with which
+//   eight blocks fit up to window 288), so the registers set the
+//   residency at every n_pad (imhk_tc_info reports it). The WIDE
+//   instantiation is built for four blocks (128 chains): its wide parts
+//   would spill at 128 registers.
 // - The proposal lives in a device-memory scratch that the wrapper
 //   allocates, n_pad x 64 bytes a block: bf16, (n_pad, 32) chain-minor,
 //   the 16-byte chunks of a row XOR-swizzled by (row / 2) mod 4
@@ -81,7 +83,14 @@
 //   two exps a thread a row at W 16, four at W 24); the CDF is the same
 //   sequential sum as draw_row's (the low half's sum is shuffled up), so
 //   the draw is draw_row's bit for bit. Each thread draws the Philox
-//   uniform of one row of a pair, one pair ahead of the draws.
+//   uniform of one row of a pair, one pair ahead of the draws. Windows 8,
+//   16 and 24 are compiled (`draw_pair`); any other takes the W 0
+//   instantiation, whose draw (`draw_split`) also splits the window by
+//   side: one pass, the lower side's segment-end CDFs and the upper
+//   side's anchors kept in shared memory after the kernel's own
+//   (split_bytes, 384 bytes a segment of a side), the upper side walked
+//   again by products from its anchors, and only the segment where the
+//   CDF crosses u total walked a third time.
 // - At 256 chains an SM the draws are bound by instruction issue (the
 //   row loop ~220 SASS instructions a row at W 16, ~274 at W 24,
 //   tools/draw_sass.py), no longer by a row's latency; the coupling alone
@@ -302,6 +311,13 @@ __global__ void __launch_bounds__(TPB, WIDE ? MIN_BLOCKS_WIDE : MIN_BLOCKS)
   const WideY wide{big, yprop, B, chain0};
   // the block's proposal, (n_pad, 32) bf16 in the tile's layout
   unsigned char* ysc = yscratch + (size_t)blockIdx.x * n_pad * Y_ROW;
+  // W 0: this thread's slots of draw_split's store (split_slot)
+  int sstride = 0;
+  float* slot = nullptr;
+  if constexpr (W == 0)
+    slot = split_slot(reinterpret_cast<float*>(
+                          smem + split_at(imhk_smem_bytes(n_pad, WIDE))),
+                      crow, op.window, false, cl, h, sstride);
 
   float lw = valid ? lw_state[chain] : 0.0f;
   float a_cnt = valid ? acc[chain] : 0.0f;
@@ -371,8 +387,13 @@ __global__ void __launch_bounds__(TPB, WIDE ? MIN_BLOCKS_WIDE : MIN_BLOCKS)
             }
             const float c = __fsub_rn(cs_b[r], crow[r]);
             float logz;
-            const float y = draw_pair<W>(c, isg_b[r], upair[e], op.window, h,
-                                         lane, logz);
+            float y;
+            if constexpr (W == 0)
+              y = draw_split(c, isg_b[r], upair[e], op.window, h, lane, slot,
+                             sstride, logz);
+            else
+              y = draw_pair<W>(c, isg_b[r], upair[e], op.window, h, lane,
+                               logz);
             lwp += (double)logz;
             if (h == 0) {
               *reinterpret_cast<unsigned short*>(ytile + y_off(r, cl)) =
@@ -487,13 +508,21 @@ __global__ void __launch_bounds__(TPB, WIDE ? MIN_BLOCKS_WIDE : MIN_BLOCKS)
   }
 }
 
+// A block's shared memory: imhk_smem_bytes, and at W 0 draw_split's store
+// for the window (at most 45,920 bytes at n_pad 3,456 and window 1,024:
+// below the 48 KB a block may take without opting in)
+template <int W, bool WIDE>
+size_t kernel_smem(int n_pad, int window) {
+  const size_t own = imhk_smem_bytes(n_pad, WIDE);
+  return W == 0 ? split_at(own) + split_bytes(window, false) : own;
+}
+
 template <int W, bool DBG, bool WIDE>
 int launch(const TcOperands& op, const Uniforms& un, float* x, float* lw,
            float* acc, float* tlw, float* tx, float* dbg, float* yprop,
            unsigned char* ysc, int* bad, int thin, long long B, int n_steps,
            uint32_t step, uint32_t chain_offset, cudaStream_t stream) {
-  // below the 48 KB a block may take without opting in
-  const size_t smem = imhk_smem_bytes(op.n_pad, WIDE);
+  const size_t smem = kernel_smem<W, WIDE>(op.n_pad, op.window);
   const dim3 grid((unsigned)((B + NC - 1) / NC));
   imhk_tc_kernel<W, DBG, WIDE><<<grid, TPB, smem, stream>>>(
       op, un, x, lw, acc, tlw, tx, dbg, yprop, ysc, bad, thin, B, n_steps,
@@ -520,12 +549,12 @@ int launch_by_window(const TcOperands& op, const Uniforms& un, float* x,
 }
 
 template <int W, bool WIDE>
-int info(int n_pad, int* out) {
+int info(int n_pad, int window, int* out) {
   cudaFuncAttributes fa;
   const auto kernel = imhk_tc_kernel<W, false, WIDE>;
   cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = imhk_smem_bytes(n_pad, WIDE);
+  const size_t smem = kernel_smem<W, WIDE>(n_pad, window);
   int blocks = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, TPB,
                                                     smem);
@@ -591,17 +620,17 @@ int imhk_tc_launch(const void* Ufrag, const float* UT, const float* cs,
 int imhk_tc_info(int n_pad, int window, int wide, int* out) {
   if (wide) {
     switch (window) {
-      case 8: return info<8, true>(n_pad, out);
-      case 16: return info<16, true>(n_pad, out);
-      case 24: return info<24, true>(n_pad, out);
-      default: return info<0, true>(n_pad, out);
+      case 8: return info<8, true>(n_pad, window, out);
+      case 16: return info<16, true>(n_pad, window, out);
+      case 24: return info<24, true>(n_pad, window, out);
+      default: return info<0, true>(n_pad, window, out);
     }
   }
   switch (window) {
-    case 8: return info<8, false>(n_pad, out);
-    case 16: return info<16, false>(n_pad, out);
-    case 24: return info<24, false>(n_pad, out);
-    default: return info<0, false>(n_pad, out);
+    case 8: return info<8, false>(n_pad, window, out);
+    case 16: return info<16, false>(n_pad, window, out);
+    case 24: return info<24, false>(n_pad, window, out);
+    default: return info<0, false>(n_pad, window, out);
   }
 }
 

@@ -328,7 +328,8 @@ __device__ void sub_update(const uint4 (&a)[RB / SB - 1][PARTS],
 // computes W/2 of the weights, one side's segments (the lower side's in
 // walk order, put back in ascending order by a select), the low half's sum
 // is shuffled up, and the CDF is the same sequential sum. W == 0:
-// draw_row's runtime window, run by both threads alike.
+// draw_row's runtime window, run by both threads alike (B4; B1, B2, B3
+// and B6 take `draw_split` there).
 template <int W>
 __device__ __forceinline__ float draw_pair(float c, float isg, float u,
                                            int window, int h, int lane,
@@ -366,6 +367,195 @@ __device__ __forceinline__ float draw_pair(float c, float isg, float u,
     logz = __fadd_rn(m, logf(total));
     return __fadd_rn(base, (float)(idx - H));
   }
+}
+
+// The runtime window (W 0) of B1, B2, B3 and B6: draw_row<0>'s draw bit for
+// bit, by the two threads of a chain in one pass over the window.
+// - Thread h = 0 takes the lower offsets -w/2 .. -1, h = 1 the upper
+//   0 .. w - w/2 - 1, each in segments of SEG with klein_common.cuh's
+//   anchors and products, so every weight is the same float as draw_row's;
+//   one segment of each side a step, J = split_steps(w) steps.
+// - The lower thread walks its side far to near, so its running sum is
+//   draw_row's CDF from 0, and keeps the CDF at the end of each segment
+//   (its farthest segment, the first, may be cut short by the window's
+//   edge, or be empty). The upper thread keeps its segments' anchors
+//   (w, rho).
+// - The low sum is shuffled up. The upper thread walks its side again from
+//   the kept anchors, products only, its sum continuing from the low sum,
+//   and keeps each segment's end CDF in place of the anchor's w; total is
+//   its last value, the same __fadd_rn sequence as draw_row's.
+// - target = u total. The weights are >= 0, so the CDF is monotone and
+//   idx = #{k : cdf_k < target} is the weights of the whole segments whose
+//   end CDF is below target and the count inside the first segment whose
+//   end is not. Each thread finds that segment on its side and walks it
+//   again from the end CDF before it; the lower side's answer wins, the
+//   upper side's counts past the lower side's w/2.
+// The store: the upper threads' (w, rho) pairs, a step's NC float2
+// chain-minor, split_bytes in shared memory after the kernel's own; the
+// lower thread's end CDFs after the pairs, a step's NC floats, or, where
+// the kernel lends them (`lend`: B1 and B6, whose shared memory sets their
+// residency), in its chain's unused floats of the coupling tile
+// (CT_STRIDE - RB of them) up to that many steps. At a chain stride of 72
+// floats four lower threads of a warp share each bank there, so B2 and B3,
+// whose registers set their residency, keep them in the store.
+
+// steps of draw_split at window w: the segments of the upper side
+__host__ __device__ inline int split_steps(int w) {
+  return (w - w / 2 + SEG - 1) / SEG;
+}
+
+// whether the lower side's end CDFs go in the coupling tile's unused
+// floats: the kernel lends them and they fit
+__host__ __device__ inline bool split_in_tile(int w, bool lend) {
+  return lend && split_steps(w) <= CT_STRIDE - RB;
+}
+
+// draw_split's store for a block's NC chains at window w
+__host__ __device__ inline size_t split_bytes(int w, bool lend) {
+  return (size_t)split_steps(w) * NC * (split_in_tile(w, lend) ? 2 : 3) *
+         sizeof(float);
+}
+
+// where the store starts after `bytes` of a kernel's own shared memory
+__host__ __device__ inline size_t split_at(size_t bytes) {
+  return (bytes + 15) & ~(size_t)15;
+}
+
+// This thread's slot of step 0, given the store at sp and its chain's row
+// crow of the coupling tile, and the floats from one step's slot to the
+// next.
+__device__ __forceinline__ float* split_slot(float* sp, float* crow,
+                                             int window, bool lend, int cl,
+                                             int h, int& stride) {
+  const int J = split_steps(window);
+  const bool tile = split_in_tile(window, lend);
+  stride = h ? 2 * NC : tile ? 1 : NC;
+  if (h) return sp + 2 * cl;
+  return tile ? crow + RB : sp + (size_t)2 * NC * J + cl;
+}
+
+// klein_common.cuh `anchor` with its side and segment known at run time
+// only: the same exps and products, a select in place of its branch, so
+// that the two threads of a pair run one instruction stream.
+__device__ __forceinline__ void anchor_split(int q, bool up, float nad,
+                                             float a, float e, float& w,
+                                             float& rho) {
+  const float off = up ? (float)(SEG * q) : (float)(-SEG * q - 1);
+  const float x = expf(weight_arg(off, nad, a));
+  const float r =
+      expf(__fadd_rn(up ? nad : -nad, __fmul_rn(fabsf(off) + 0.5f, -a)));
+  w = up && q == 0 ? 1.0f : x;
+  rho = !up && q == 0 ? __fmul_rn(x, e) : r;
+}
+
+// side_segment's products from an anchor: s[t] = the weight t steps away
+// from the centre
+__device__ __forceinline__ void walk(float w, float rho, float e,
+                                     float (&s)[SEG]) {
+  s[0] = w;
+#pragma unroll
+  for (int t = 1; t < SEG; ++t) {
+    w = __fmul_rn(w, rho);
+    rho = __fmul_rn(rho, e);
+    s[t] = w;
+  }
+}
+
+// The draw; slot and stride from split_slot. logz as draw_row's.
+__device__ __forceinline__ float draw_split(float c, float isg, float u,
+                                            int w, int h, int lane,
+                                            float* slot, int stride,
+                                            float& logz) {
+  const float base = rintf(c);
+  const float delta = __fsub_rn(base, c);
+  const float a = __fmul_rn(isg, isg);
+  const float nad = __fmul_rn(-a, delta);
+  const float m = __fmul_rn(__fmul_rn(-0.5f, a), __fmul_rn(delta, delta));
+  const float e = expf(-a);
+  const int lo = w / 2, hi = w - lo, J = split_steps(w);
+  const bool up = h != 0;
+  // weights of the lower side's farthest segment inside the window
+  const int n0 = lo - SEG * (J - 1);
+  float s[SEG], aw, ar;
+  // step j: the lower thread's segment J - 1 - j (ascending offsets), the
+  // upper's j; step 0 alone may cut the lower segment short
+  float run = 0.0f;
+  anchor_split(up ? 0 : J - 1, up, nad, a, e, aw, ar);
+  walk(aw, ar, e, s);
+#pragma unroll
+  for (int t = SEG - 1; t >= 0; --t)
+    if (t < n0) run = __fadd_rn(run, s[t]);
+  if (up)
+    *reinterpret_cast<float2*>(slot) = make_float2(aw, ar);
+  else
+    slot[0] = run;
+#pragma unroll 1
+  for (int j = 1; j < J; ++j) {
+    anchor_split(up ? j : J - 1 - j, up, nad, a, e, aw, ar);
+    walk(aw, ar, e, s);
+#pragma unroll
+    for (int t = SEG - 1; t >= 0; --t) run = __fadd_rn(run, s[t]);
+    if (up)
+      *reinterpret_cast<float2*>(slot + j * stride) = make_float2(aw, ar);
+    else
+      slot[j * stride] = run;
+  }
+  const float low = __shfl_sync(FULL, run, lane & ~1);
+  // the upper side again from its anchors; its last segment may be cut
+  // short
+  float cum = low;
+  if (up) {
+#pragma unroll 1
+    for (int j = 0; j < J - 1; ++j) {
+      float* p = slot + j * stride;
+      const float2 an = *reinterpret_cast<const float2*>(p);
+      walk(an.x, an.y, e, s);
+#pragma unroll
+      for (int t = 0; t < SEG; ++t) cum = __fadd_rn(cum, s[t]);
+      p[0] = cum;
+    }
+    float* p = slot + (J - 1) * stride;
+    const float2 an = *reinterpret_cast<const float2*>(p);
+    walk(an.x, an.y, e, s);
+    const int n = hi - SEG * (J - 1);
+#pragma unroll
+    for (int t = 0; t < SEG; ++t)
+      if (t < n) cum = __fadd_rn(cum, s[t]);
+    p[0] = cum;
+  }
+  const float total = __shfl_sync(FULL, cum, lane | 1);
+  const float target = __fmul_rn(u, total);
+  // this side's whole segments that end below target
+  int k = 0;
+#pragma unroll 1
+  for (int j = 0; j < J; ++j) k += slot[j * stride] < target ? 1 : 0;
+  // the first that does not, walked again in ascending order from the end
+  // CDF before it (k == J: none on this side)
+  const int kk = min(k, J - 1);
+  float cdf = kk > 0 ? slot[(kk - 1) * stride] : (up ? low : 0.0f);
+  anchor_split(up ? kk : J - 1 - kk, up, nad, a, e, aw, ar);
+  walk(aw, ar, e, s);
+  const int n = up ? min(SEG, hi - SEG * kk) : (kk == 0 ? n0 : SEG);
+  int in = 0;
+#pragma unroll
+  for (int t = 0; t < SEG; ++t) {
+    const int at = up ? t : SEG - 1 - t;
+    const float v = up ? s[t] : s[SEG - 1 - t];
+    if (at < n) {
+      cdf = __fadd_rn(cdf, v);
+      in += cdf < target ? 1 : 0;
+    }
+  }
+  // weights below target on this side: the lower side's, or -1 where its
+  // CDF stays below target throughout; the upper side's past lo
+  const int mine =
+      up ? lo + (k == J ? hi : SEG * k + in)
+         : (k == J ? -1 : (k == 0 ? 0 : n0 + SEG * (k - 1)) + in);
+  const int other = __shfl_xor_sync(FULL, mine, 1);
+  const int il = up ? other : mine, iu = up ? mine : other;
+  const int idx = min(il >= 0 ? il : iu, w - 1);
+  logz = __fadd_rn(m, logf(total));
+  return __fadd_rn(base, (float)(idx - lo));
 }
 
 }  // namespace lgk

@@ -55,9 +55,19 @@
 // - B6's rounds run inside the block, which reuses its tiles; lw is summed
 //   in double and written once a round.
 // - Windows 8, 16 and 24 are compiled with the CDF in registers; any other
-//   window takes draw_row's runtime-window branch.
+//   window takes the W 0 instantiation, whose draw (imhk_tc_common.cuh
+//   `draw_split`) splits the window by side in one pass, keeps each
+//   segment's end CDF and the upper side's anchors in shared memory (the
+//   lower side's CDFs in the coupling tile's unused floats up to 8
+//   segments, the anchors after the kernel's own: 256 bytes a segment of
+//   a side), and walks only the segment where the CDF crosses u total
+//   again. At n_pad 1024 three blocks an SM fit it up to window 112,
+//   narrow and WIDE; where the tile and the store pass a block's 227 KB
+//   (n_pad 3,456 past window 112, from n_pad 3,200 at the widest windows)
+//   klein_cuda.py `klein_route` takes klein.cu's sweep.
 // - 64 threads and 64 n_pad + 9,344 bytes of shared memory a block (74,880
-//   at n_pad 1024): three blocks (96 chains) per SM there.
+//   at n_pad 1024), and at W 0 the draw's store: three blocks (96 chains)
+//   per SM there.
 //
 // Randomness: host uniforms or Philox4x32-10, the function of
 // lattice_gaussian_mcmc_tpu_torch/utils/prng.py, bit for bit.
@@ -202,6 +212,14 @@ __global__ void __launch_bounds__(TPB, 3)
   const float* tri = reinterpret_cast<const float*>(smem + tri_at);
   const uint32_t trism = ysm + (uint32_t)tri_at;
   unsigned char* big = smem + tri_at + (BABAI ? TRI_BYTES : 0);
+  // W 0: this thread's slots of draw_split's store (split_slot)
+  int sstride = 0;
+  float* slot = nullptr;
+  if constexpr (W == 0 && !BABAI)
+    slot = split_slot(reinterpret_cast<float*>(
+                          smem + split_at(klein_smem_bytes(n_pad, BABAI,
+                                                           WIDE))),
+                      crow, op.window, true, cl, h, sstride);
   const long long chain0 = (long long)blockIdx.x * NC;
   int n_big = 0;
 
@@ -305,8 +323,12 @@ __global__ void __launch_bounds__(TPB, 3)
                 cs_i = __ldg(op.cs + i);
               c = __fsub_rn(cs_i, crow[r]);
               float logz;
-              y = draw_pair<W>(c, __ldg(op.isg + i), upair[e], op.window, h,
-                               lane, logz);
+              if constexpr (W == 0)
+                y = draw_split(c, __ldg(op.isg + i), upair[e], op.window, h,
+                               lane, slot, sstride, logz);
+              else
+                y = draw_pair<W>(c, __ldg(op.isg + i), upair[e], op.window,
+                                 h, lane, logz);
               lwp += (double)logz;
             }
             if (h == 0) {
@@ -368,13 +390,21 @@ __global__ void __launch_bounds__(TPB, 3)
   }
 }
 
+// A block's shared memory: klein_smem_bytes, and for a draw at W 0
+// draw_split's store for the window
+template <int W, bool BABAI, bool WIDE>
+size_t kernel_smem(int n_pad, int window) {
+  const size_t own = klein_smem_bytes(n_pad, BABAI, WIDE);
+  return W == 0 && !BABAI ? split_at(own) + split_bytes(window, true) : own;
+}
+
 template <int W, bool RING, bool DBG, bool BABAI = false, bool WIDE = false,
           bool CENTRED = false>
 int launch(const TcOperands& op, const Uniforms& un, const float* ctin,
            float* y, float* lw, float* dbg, int* bad, long long B,
            int n_rounds, uint32_t step, uint32_t chain_offset,
            cudaStream_t stream) {
-  const size_t smem = klein_smem_bytes(op.n_pad, BABAI, WIDE);
+  const size_t smem = kernel_smem<W, BABAI, WIDE>(op.n_pad, op.window);
   cudaError_t e = cudaFuncSetAttribute(
       klein_tc_kernel<W, RING, DBG, BABAI, WIDE, CENTRED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -417,12 +447,12 @@ int launch_centred(const TcOperands& op, const Uniforms& un, const float* ct,
 
 template <int W, bool RING, bool BABAI = false, bool WIDE = false,
           bool CENTRED = false>
-int info(int n_pad, int* out) {
+int info(int n_pad, int window, int* out) {
   cudaFuncAttributes fa;
   const auto kernel = klein_tc_kernel<W, RING, false, BABAI, WIDE, CENTRED>;
   cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = klein_smem_bytes(n_pad, BABAI, WIDE);
+  const size_t smem = kernel_smem<W, BABAI, WIDE>(n_pad, window);
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -441,10 +471,10 @@ int info(int n_pad, int* out) {
 template <bool RING, bool WIDE = false>
 int info_by_window(int n_pad, int window, int* out) {
   switch (window) {
-    case 8: return info<8, RING, false, WIDE>(n_pad, out);
-    case 16: return info<16, RING, false, WIDE>(n_pad, out);
-    case 24: return info<24, RING, false, WIDE>(n_pad, out);
-    default: return info<0, RING, false, WIDE>(n_pad, out);
+    case 8: return info<8, RING, false, WIDE>(n_pad, window, out);
+    case 16: return info<16, RING, false, WIDE>(n_pad, window, out);
+    case 24: return info<24, RING, false, WIDE>(n_pad, window, out);
+    default: return info<0, RING, false, WIDE>(n_pad, window, out);
   }
 }
 
@@ -539,12 +569,13 @@ int klein_tc_info(int n_pad, int window, int mode, int* out) {
   switch (mode) {
     case 0: return info_by_window<false>(n_pad, window, out);
     case 1: return info_by_window<true>(n_pad, window, out);
-    case 2: return info<0, false, true>(n_pad, out);
+    case 2: return info<0, false, true>(n_pad, window, out);
     case 3: return info_by_window<false, true>(n_pad, window, out);
     case 4: return info_by_window<true, true>(n_pad, window, out);
     case 5:
-      return window == 40 ? info<40, false, false, false, true>(n_pad, out)
-                          : info<0, false, false, false, true>(n_pad, out);
+      return window == 40
+                 ? info<40, false, false, false, true>(n_pad, window, out)
+                 : info<0, false, false, false, true>(n_pad, window, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -199,10 +199,11 @@ def _kernel_figures(pre, device) -> Dict:
     if device.type != "cuda":
         return {"n_pad": ops.n_pad, "route": "plain",
                 "kernel_resources": None}
-    route = klein_cuda.klein_route(ops.n_pad)
+    wide = klein_cuda.wide_y(ops)
+    route = klein_cuda.klein_route(ops.n_pad, ops.window, wide=wide)
     res = None
     if route == "klein_tc":
-        mode = "b1_wide" if klein_cuda.wide_y(ops) else "b1"
+        mode = "b1_wide" if wide else "b1"
         res = klein_cuda.klein_tc_resources(ops.n_pad, ops.window, mode)
     return {"n_pad": ops.n_pad, "route": route, "kernel_resources": res}
 

@@ -32,8 +32,9 @@ count the draws beyond that into their row of an `ExactGuard`
 (`launch_record.py`); the wrapper, or the entry point that passed it one,
 raises before it returns. B1 and B6 keep the draw in shared memory, which
 bounds n_pad by `KLEIN_TC_MAX_N_PAD`:
-above it they take the FP32 sweep of `csrc/klein.cu` (`klein_route`, by
-n_pad, before the launch). B2 and B3 keep the proposal in a device-memory
+above it, or where a window they do not compile leaves no room for its
+draw's store, they take the FP32 sweep of `csrc/klein.cu` (`klein_route`,
+by n_pad and window, before the launch). B2 and B3 keep the proposal in a device-memory
 scratch (`proposal_scratch`), so that eight blocks share an SM, and hold
 the same limit, `IMHK_TC_MAX_N_PAD`: above it they raise. B7 is the same sweep
 with rounding in place of the draw and takes the same route; its
@@ -108,6 +109,13 @@ KLEIN_TC_MAX_N_PAD = 3456
 # has been checked on the card
 IMHK_TC_MAX_N_PAD = KLEIN_TC_MAX_N_PAD
 TC_CHAINS = 32     # chains a block of the tensor-core sweeps (NC)
+# the windows B1, B2, B3 and B6 compile (klein_tc.cu, imhk_tc.cu), and
+# centred B1's; any other takes their W 0 instantiation, whose draw keeps
+# floats a chain for each segment of a side in shared memory
+# (imhk_tc_common.cuh `split_bytes`)
+TC_WINDOWS = (8, 16, 24)
+CENTRED_WINDOW = 40
+TC_BLOCK_SMEM = 232448   # the shared memory a block of sm_90 may take
 
 
 @dataclasses.dataclass
@@ -666,12 +674,52 @@ def _check_operands(ops: KleinOperands):
         raise ValueError(f"window {ops.window} outside [1, 1024]")
 
 
-def klein_route(n_pad: int) -> str:
-    """The kernel library B1 and B6 launch at n_pad: "klein_tc" (the
-    tensor-core sweep, `csrc/klein_tc.cu`) up to `KLEIN_TC_MAX_N_PAD`,
-    where its draw tile fits a block's shared memory, and "klein" (the FP32
-    sweep of `csrc/klein.cu`, no limit on n_pad) above."""
-    return "klein_tc" if n_pad <= KLEIN_TC_MAX_N_PAD else "klein"
+def runtime_window(window: int, compiled=TC_WINDOWS) -> bool:
+    """Whether a launch at `window` takes the W 0 instantiation: a window
+    the library does not compile (`TC_WINDOWS`; centred B1's is
+    `CENTRED_WINDOW`)."""
+    return window not in compiled
+
+
+def _runtime_tc(route: str, window: int) -> bool:
+    """A B1/B6 launch on `route` took the tensor-core sweep's W 0
+    instantiation (klein.cu's sweep is counted apart, in `fp32_launches`)."""
+    return route == "klein_tc" and runtime_window(window)
+
+
+# floats a chain of the coupling tile that no row uses (imhk_tc_common.cuh
+# CT_STRIDE - RB)
+TILE_SPARE = 8
+
+
+def split_bytes(window: int) -> int:
+    """imhk_tc_common.cuh `split_bytes` as B1 and B6 take it (`lend`): the
+    W 0 draw's store for a block of `TC_CHAINS` chains, for each segment of
+    a side the upper thread's anchor (2 floats a chain) and, past
+    `TILE_SPARE` segments, the lower thread's end CDF (1 float), which
+    otherwise lives in the coupling tile."""
+    steps = -(-(window - window // 2) // SEGMENT)
+    return steps * TC_CHAINS * (2 if steps <= TILE_SPARE else 3) * 4
+
+
+def klein_route(n_pad: int, window: int = TC_WINDOWS[0],
+                compiled=TC_WINDOWS, wide: bool = False) -> str:
+    """The kernel library B1 and B6 launch at n_pad and `window` (on their
+    WIDE instantiation with `wide`): "klein_tc" (the tensor-core sweep,
+    `csrc/klein_tc.cu`) up to `KLEIN_TC_MAX_N_PAD`, where its draw tile
+    fits a block's shared memory, with, at a window outside `compiled`, the
+    W 0 draw's store (`split_bytes`) after the tile, the coupling tile and
+    WIDE's flags (klein_tc.cu `kernel_smem`); else "klein" (the FP32 sweep
+    of `csrc/klein.cu`, no limit on n_pad). The default window is a
+    compiled one, which needs no store (B7, which draws nothing, takes
+    it)."""
+    if n_pad > KLEIN_TC_MAX_N_PAD:
+        return "klein"
+    if runtime_window(window, compiled):
+        own = 64 * n_pad + 9344 + (n_pad // 16 if wide else 0)
+        if -(-own // 16) * 16 + split_bytes(window) > TC_BLOCK_SMEM:
+            return "klein"
+    return "klein_tc"
 
 
 def _klein_launch(ops: KleinOperands, num_chains: int, n_rounds: int,
@@ -698,11 +746,10 @@ def _klein_launch(ops: KleinOperands, num_chains: int, n_rounds: int,
     unif = ptr(uniforms) if uniforms is not None else None
     stream = ctypes.c_void_p(
         torch.cuda.current_stream(ops.device).cuda_stream)
-    route = klein_route(n_pad)
-    wide = False
+    wide = dbg is None and wide_y(ops)
+    route = klein_route(n_pad, ops.window, wide=wide)
     if route == "klein_tc":
         check_cuda("bad", bad, (2,), torch.int32)
-        wide = dbg is None and wide_y(ops)
         lib, frag = load(route), tc_fragments(ops)
         with _wide_span(wide):
             rc = lib.klein_tc_launch(
@@ -714,7 +761,8 @@ def _klein_launch(ops: KleinOperands, num_chains: int, n_rounds: int,
         if dbg is not None:
             raise ValueError(f"{what}: the centres are written by the "
                              "tensor-core sweep only, n_pad <= "
-                             f"{KLEIN_TC_MAX_N_PAD}")
+                             f"{KLEIN_TC_MAX_N_PAD} (`klein_route`)")
+        wide = False
         rc = load(route).klein_ring_launch(
             ptr(ops.U), ptr(ops.UT), ptr(ops.cs), ptr(ops.isg), unif,
             ptr(ring), ptr(lws), n_pad, num_chains, ops.window, n_rounds,
@@ -742,7 +790,8 @@ def klein_draw(ops: KleinOperands, num_chains: int, *, seed: int = 0,
                                            chain_offset, uniforms,
                                            "klein_draw",
                                            guard.row("klein_draw"))
-        count("klein_draw", fp32=route != "klein_tc", wide=wide)
+        count("klein_draw", fp32=route != "klein_tc", wide=wide,
+              runtime_window=_runtime_tc(route, ops.window))
         if own:
             guard.check("klein_draw")
         return y, lw[0]
@@ -775,10 +824,12 @@ def klein_draw_centred(ops: KleinOperands, centres: torch.Tensor, *,
         _check_operands(ops)
         n_pad, B = ops.n_pad, centres.shape[1]
         check_cuda("centres", centres, (n_pad, B))
-        if klein_route(n_pad) != "klein_tc":
+        if klein_route(n_pad, ops.window, (CENTRED_WINDOW,)) != "klein_tc":
             raise ValueError(
-                f"klein_draw_centred: n_pad {n_pad} is above "
-                f"{KLEIN_TC_MAX_N_PAD}, the largest the centred draw takes")
+                f"klein_draw_centred: n_pad {n_pad} at window {ops.window} "
+                "is past the tensor-core sweep's shared memory (n_pad up to "
+                f"{KLEIN_TC_MAX_N_PAD}), the only route the centred draw "
+                "takes")
         top = predicted_y(ops) + CENTRED_MEAN
         if not top <= EXACT_Y:
             raise ValueError(
@@ -801,7 +852,8 @@ def klein_draw_centred(ops: KleinOperands, centres: torch.Tensor, *,
             ctypes.c_void_p(
                 torch.cuda.current_stream(ops.device).cuda_stream))
         raise_on("klein_tc", rc, "klein_draw_centred")
-        count("klein_draw_centred")
+        count("klein_draw_centred",
+              runtime_window=runtime_window(ops.window, (CENTRED_WINDOW,)))
         if own:
             guard.check("klein_draw_centred")
         return y, lw
@@ -826,7 +878,8 @@ def klein_ring(ops: KleinOperands, num_chains: int, n_rounds: int, *,
                                            step, chain_offset, uniforms,
                                            "klein_ring",
                                            guard.row("klein_ring"))
-    count("klein_ring", fp32=route != "klein_tc", wide=wide)
+    count("klein_ring", fp32=route != "klein_tc", wide=wide,
+          runtime_window=_runtime_tc(route, ops.window))
     if own:
         guard.check("klein_ring")
     return ring, lws
@@ -1009,7 +1062,8 @@ def imhk_fused(ops: KleinOperands, x, lw, acc, n_steps: int, *,
         resident, wide = _imhk_tc_launch(
             ops, x, lw, acc, n_steps, seed, step, chain_offset, uniforms,
             "imhk_fused", guard.row("imhk_fused"))
-        count("imhk_fused", resident_chains=resident, wide=wide)
+        count("imhk_fused", resident_chains=resident, wide=wide,
+              runtime_window=runtime_window(ops.window))
         if own:
             guard.check("imhk_fused")
         return x, lw, acc
@@ -1039,7 +1093,8 @@ def imhk_trajectory(ops: KleinOperands, x, lw, acc, n_keep: int,
         ops, x, lw, acc, n_keep * thin, seed, step, chain_offset, uniforms,
         "imhk_trajectory", guard.row("imhk_trajectory"), tlw=tlw, tx=tx,
         thin=thin)
-    count("imhk_trajectory", resident_chains=resident, wide=wide)
+    count("imhk_trajectory", resident_chains=resident, wide=wide,
+          runtime_window=runtime_window(ops.window))
     if own:
         guard.check("imhk_trajectory")
     return x, lw, acc, tx, tlw

@@ -5,8 +5,11 @@ the route it normally takes (`launches`), on klein.cu's FP32 sweep above
 the tensor-core sweep's reach (`fp32_launches`, B1, B6 and B7), the
 largest |y| its tensor-core kernel drew (`max_abs_y`, the kernels of
 `GUARDED`), the chains an SM held at its last launch (`resident_chains`,
-B2 and B3) and, of its `launches`, those that `klein_cuda.wide_y` sent to
-the WIDE instantiation (`wide_launches`, B1, B2, B3 and B6). Counters that
+B2 and B3), of its `launches`, those that `klein_cuda.wide_y` sent to
+the WIDE instantiation (`wide_launches`, B1, B2, B3 and B6), and those at
+a window the library does not compile, which took the W 0 instantiation
+and its split draw (`runtime_window_launches`, B1, centred B1, B2, B3 and
+B6; `klein_cuda.runtime_window`). Counters that
 a kernel keeps on the device (B7's wide coefficients, the points kernel's
 limbs) register here by name (`device_counters`). `reset` sets all of it
 to 0; `read` returns the record. The kernels of `GUARDED` count hazard C8
@@ -26,7 +29,7 @@ KERNELS = ("klein_draw", "klein_draw_centred", "klein_ring", "imhk_fused",
 GUARDED = ("imhk_fused", "imhk_trajectory", "klein_draw", "klein_ring",
            "klein_draw_centred", "smk_steps")
 FIELDS = ("launches", "fp32_launches", "max_abs_y", "resident_chains",
-          "wide_launches")
+          "wide_launches", "runtime_window_launches")
 EXACT_Y = 256      # |y| up to which the bf16 coupling is exact (hazard C8)
 
 _RECORD: dict = {}
@@ -46,13 +49,15 @@ def read() -> dict:
 
 
 def count(kernel: str, fp32: bool = False, resident_chains=None,
-          wide: bool = False):
+          wide: bool = False, runtime_window: bool = False):
     """One launch of `kernel` (on klein.cu's FP32 sweep with `fp32`; on
-    the WIDE instantiation with `wide`, counted in `launches` too), with
-    the chains an SM held at it where given."""
+    the WIDE instantiation with `wide`, on the W 0 instantiation with
+    `runtime_window`, each counted in `launches` too), with the chains an
+    SM held at it where given."""
     entry = _RECORD[kernel]
     entry["fp32_launches" if fp32 else "launches"] += 1
     entry["wide_launches"] += bool(wide)
+    entry["runtime_window_launches"] += bool(runtime_window)
     if resident_chains is not None:
         entry["resident_chains"] = resident_chains
 

@@ -128,6 +128,179 @@ def test_b1_runtime_window_matches_plain():
     _agree(y, yp, lw, lwp)
 
 
+# runtime windows of the split draw (imhk_tc_common.cuh `draw_split`), one
+# past each compiled window, odd and even, the q-ary cells' 88 and 104, and
+# one of 13 segments a side
+SPLIT_WINDOWS = (12, 33, 40, 88, 104, 200)
+SPLIT_CHAINS = 256
+U_MAX = 1.0 - 2.0 ** -23     # the largest Philox uniform
+
+
+def _dyadic_operands(n, window, wide, seed):
+    """Operands whose coupling is exact in float32 whatever the order of its
+    sums: U unit upper-triangular with entries 0 and +-1/64, cs multiples of
+    1/64, so every product U_ij y_j and every partial sum is a multiple of
+    1/64 far below 2^18, and the kernels' and the plain versions' centres
+    agree bit for bit. Narrow: cs within 8, sigma_i W/16 to W/8 (at most
+    14); WIDE: cs within 400, sigma_i W/4 to W/2, so draws pass 256."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(seed)
+    n_pad = -(-n // klein_cuda.BLOCK) * klein_cuda.BLOCK
+    U = torch.eye(n_pad, dtype=torch.float64)
+    off = torch.randint(-1, 2, (n, n), generator=g).double() / 64
+    U[:n, :n] += torch.triu(off, 1)
+    cs = torch.zeros(n_pad, dtype=torch.float64)
+    top = 400 if wide else 8
+    cs[:n] = torch.randint(-64 * top, 64 * top + 1, (n,), generator=g) / 64
+    lo, hi = (window / 4, window / 2) if wide else (window / 16,
+                                                      min(window / 8, 14.0))
+    sig = torch.full((n_pad,), 1e-6, dtype=torch.float64)
+    sig[:n] = lo + (hi - lo) * torch.rand(n, generator=g, dtype=torch.float64)
+    Uf = U.float().cuda()
+    return klein_cuda.KleinOperands(
+        U=Uf, UT=Uf.T.contiguous(), cs=cs.float().cuda(),
+        isg=(1.0 / sig).float().cuda(), shift=torch.zeros(n_pad).cuda(),
+        n=n, window=window)
+
+
+def _segment_end_uniforms(ops):
+    """Uniforms that put u total exactly on the CDF at the end of each
+    segment of row n - 1's window (its centre is cs[n - 1] in every draw),
+    those that land, with the window's weights as the plain version forms
+    them on the card."""
+    n, W = ops.n, ops.window
+    c, isg = ops.cs[n - 1:n], ops.isg[n - 1:n]
+    base = torch.round(c)
+    a = isg * isg
+    w = klein_cuda._window_weights_plain((-a) * (base - c), a, W)[:, 0]
+    run, cdf = torch.zeros_like(c[0]), []
+    for k in range(W):
+        run = run + w[k]
+        cdf.append(run)
+    total, lo = cdf[-1], W // 2
+    ends = ({lo - 1 - 8 * q for q in range(-(-lo // 8))}
+            | {lo + 8 * q + 7 for q in range(-(-(W - lo) // 8))})
+    out = []
+    for k in sorted(e for e in ends if 0 <= e < W - 1):
+        u0 = int((cdf[k] / total).view(torch.int32))
+        for d in (0, 1, -1, 2, -2):
+            u = torch.tensor(u0 + d, dtype=torch.int32).view(torch.float32)
+            if (u.cuda() * total).item() == cdf[k].item() and u < U_MAX:
+                out.append(float(u))
+                break
+    return out
+
+
+def _edge_uniforms(ops, steps, extra, seed):
+    """Host uniforms of `steps` blocks of n_pad + extra rows: uniform on
+    [2^-23, 1), 1/2 in the padded rows and the extra ones; in each block a
+    quarter of the chains take u = 0 at a row (the window's first point), a
+    quarter the largest uniform (its last, where that weight counts), and a
+    quarter a uniform that lands exactly on a segment's end CDF at row
+    n - 1."""
+    n, n_pad, B = ops.n, ops.n_pad, SPLIT_CHAINS
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ends = _segment_end_uniforms(ops)
+    assert ends
+    rows = []
+    for s in range(steps):
+        u = torch.rand(n_pad + extra, B, device="cuda", generator=g)
+        u = u.clamp(min=2.0 ** -23)
+        u[n:] = 0.5
+        b = torch.arange(B, device="cuda")
+        q = b[b % 4 == 0]
+        u[(7 * q + s) % n, q] = 0.0
+        q = b[b % 4 == 1]
+        u[(5 * q + s) % n, q] = U_MAX
+        q = b[b % 4 == 2]
+        u[n - 1, q] = torch.tensor(ends, device="cuda")[
+            (q // 4 + s) % len(ends)]
+        rows.append(u)
+    return torch.cat(rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 1024])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_runtime_window_kernels_equal_plain_bit_for_bit(n, wide):
+    """B1, B2 and B3 at windows they do not compile take the split draw
+    (`draw_split`); on operands whose coupling is exact their draws, lw,
+    states and acceptances equal the plain versions' bit for bit, with
+    uniforms at 0, at the largest Philox uniform and on segment-end CDFs,
+    narrow and WIDE, at n_pad 128 and 1024. The record counts each launch
+    as a runtime-window launch."""
+    B = SPLIT_CHAINS
+    for window in SPLIT_WINDOWS:
+        ops = _dyadic_operands(n, window, wide, 100 * n + window)
+        assert klein_cuda.wide_y(ops) == wide, window
+        assert klein_cuda.runtime_window(window)
+        launch_record.reset()
+        u1 = _edge_uniforms(ops, 1, 0, window)
+        y, lw = klein_cuda.klein_draw(ops, B, uniforms=u1)
+        yp, lwp = klein_cuda.klein_draw_plain(ops, B, uniforms=u1)
+        assert torch.equal(y, yp) and torch.equal(lw, lwp), window
+        if wide:
+            assert _rec("klein_draw", "max_abs_y") > 256, window
+        u2 = _edge_uniforms(ops, 2, klein_cuda.ACCEPT_ROWS, window + 1)
+        x, l, a = y.clone(), lw.clone(), torch.zeros_like(lw)
+        xp, lp, ap = y.clone(), lw.clone(), torch.zeros_like(lw)
+        klein_cuda.imhk_fused(ops, x, l, a, 2, uniforms=u2)
+        klein_cuda.imhk_fused_plain(ops, xp, lp, ap, 2, uniforms=u2)
+        assert torch.equal(x, xp) and torch.equal(l, lp), window
+        assert torch.equal(a, ap), window
+        out = klein_cuda.imhk_trajectory(ops, y.clone(), lw.clone(),
+                                         torch.zeros_like(lw), 2, 1,
+                                         uniforms=u2, coeffs=True)
+        want = klein_cuda.imhk_trajectory_plain(
+            ops, y.clone(), lw.clone(), torch.zeros_like(lw), 2, 1,
+            uniforms=u2, coeffs=True)
+        assert all(torch.equal(o, w) for o, w in zip(out, want)), window
+        assert torch.equal(out[0], x), window
+        for kernel in ("klein_draw", "imhk_fused", "imhk_trajectory"):
+            assert _rec(kernel) == _rec(kernel, "runtime_window_launches") \
+                == 1, (window, kernel)
+            assert _rec(kernel, "wide_launches") == wide
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [8, 16, 24])
+def test_compiled_windows_count_no_runtime_window_launch(window):
+    ops = _operands(window=window)
+    launch_record.reset()
+    y, lw = klein_cuda.klein_draw(ops, B, seed=1)
+    klein_cuda.klein_ring(ops, B, 2, seed=1)
+    klein_cuda.imhk_fused(ops, y, lw, torch.zeros_like(lw), 1, seed=1,
+                          step=1)
+    for kernel in ("klein_draw", "klein_ring", "imhk_fused"):
+        assert _rec(kernel) == 1
+        assert _rec(kernel, "runtime_window_launches") == 0
+
+
+@pytest.mark.cuda
+def test_runtime_window_keeps_the_residency():
+    """The split draw's store costs no residency at the q-ary cell's shapes
+    (n_pad 128, window 88): B2 eight blocks an SM, WIDE B2 four with no
+    local memory, B1 and WIDE B1 as many as at a compiled window; at
+    n_pad 1024 B1 and WIDE B1 keep their three blocks up to window 112."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    b2 = klein_cuda.imhk_tc_resources(128, 88)
+    b2w = klein_cuda.imhk_tc_resources(128, 88, wide=True)
+    assert b2["blocks_per_sm"] == 8
+    assert b2w["blocks_per_sm"] == 4 and b2w["local_bytes"] == 0
+    assert b2w["shared_bytes"] > klein_cuda.imhk_tc_resources(
+        128, 16, wide=True)["shared_bytes"]
+    for mode in ("b1", "b1_wide"):
+        at16 = klein_cuda.klein_tc_resources(128, 16, mode)["blocks_per_sm"]
+        assert klein_cuda.klein_tc_resources(
+            128, 88, mode)["blocks_per_sm"] == at16
+    for mode in ("b1", "b1_wide"):
+        for window in (88, 112):
+            assert klein_cuda.klein_tc_resources(
+                1024, window, mode)["blocks_per_sm"] == 3, (mode, window)
+
+
 @pytest.mark.cuda
 def test_b2_matches_plain(ops):
     y, lw = klein_cuda.klein_draw(ops, B, seed=9, step=0)
@@ -856,8 +1029,9 @@ def test_sample_iid_takes_the_wide_route_where_draws_pass_256(
     n = 64 row at its width, window 88) predicts draws past 256: one
     `sample_iid` call sends B1 and B2 to their WIDE instantiations, one
     launch each, each in a `lgm.route.wide` span, and the largest |y| they
-    drew reaches the record. On falcon512's basis nothing takes that
-    route."""
+    drew reaches the record. Both run at a window the library does not
+    compile, so the record counts two runtime-window launches a call. On
+    falcon512's basis (window 16) nothing takes either route."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     if REPO not in sys.path:
@@ -882,6 +1056,7 @@ def test_sample_iid_takes_the_wide_route_where_draws_pass_256(
     for kernel in ("klein_draw", "imhk_fused"):
         assert _rec(kernel) == 1
         assert _rec(kernel, "wide_launches") == wide
+        assert _rec(kernel, "runtime_window_launches") == wide
     top = max(_rec("klein_draw", "max_abs_y"), _rec("imhk_fused", "max_abs_y"))
     if wide:
         assert 256 < top < klein_cuda.WIDE_Y

@@ -86,7 +86,8 @@ def test_split_coupling_centres_within_gate(row):
 def test_b1_b6_route_by_n_pad():
     """The tensor-core sweep while its draw tile (64 n_pad + 9,344 bytes,
     imhk_tc_common.cuh `tc_smem_bytes`) fits a block, klein.cu's FP32 sweep
-    above: chosen from n_pad alone, before any launch."""
+    above: at a compiled window chosen from n_pad alone, before any
+    launch."""
     assert klein_cuda.KLEIN_TC_MAX_N_PAD == klein_cuda.IMHK_TC_MAX_N_PAD
     for n_pad in range(klein_cuda.BLOCK, 8192, klein_cuda.BLOCK):
         fits = 64 * n_pad + 9_344 <= SMEM_PER_BLOCK
@@ -94,6 +95,44 @@ def test_b1_b6_route_by_n_pad():
         assert klein_cuda.klein_route(n_pad) == want, n_pad
     assert klein_cuda.klein_route(3456) == "klein_tc"
     assert klein_cuda.klein_route(3584) == "klein"
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_b1_b6_route_leaves_room_for_the_split_draws_store(wide):
+    """At a window they do not compile, B1 and B6 draw with the split draw,
+    whose store (2 floats a chain for each segment of a side, 3 past 8
+    segments, 32 chains a block: 1,536 bytes at window 88) follows the
+    tile, the coupling tile and WIDE's flags, 16-byte aligned; where it
+    does not fit a block the sweep is klein.cu's. The compiled windows and
+    centred B1's 40 need no store."""
+    assert klein_cuda.split_bytes(88) == 1_536
+    assert klein_cuda.split_bytes(128) == 8 * 32 * 8
+    assert klein_cuda.split_bytes(129) == 9 * 32 * 12
+    assert klein_cuda.split_bytes(1024) == 64 * 32 * 12
+    assert [klein_cuda.split_bytes(w) // 256 for w in (1, 2, 16, 17, 33)] \
+        == [1, 1, 1, 2, 3]
+    for n_pad in range(klein_cuda.BLOCK, klein_cuda.KLEIN_TC_MAX_N_PAD + 1,
+                       klein_cuda.BLOCK):
+        own = 64 * n_pad + 9_344 + (n_pad // 16 if wide else 0)
+        for window in (8, 16, 24, 40, 80, 88, 112, 113, 128, 129, 200, 416,
+                       752, 1024):
+            store = (klein_cuda.split_bytes(window)
+                     if window not in (8, 16, 24) else 0)
+            fits = -(-own // 16) * 16 + store <= SMEM_PER_BLOCK
+            assert klein_cuda.klein_route(n_pad, window, wide=wide) == (
+                "klein_tc" if fits else "klein"), (n_pad, window)
+            assert klein_cuda.klein_route(
+                n_pad, window, (klein_cuda.CENTRED_WINDOW,), wide) == (
+                "klein_tc" if window == 40 or -(-own // 16) * 16
+                + klein_cuda.split_bytes(window) <= SMEM_PER_BLOCK
+                else "klein"), (n_pad, window)
+    assert klein_cuda.klein_route(3456, 112) == "klein_tc"
+    assert klein_cuda.klein_route(3456, 113) == "klein"
+    assert klein_cuda.klein_route(3072, 1024, wide=wide) == "klein_tc"
+    assert klein_cuda.klein_route(3200, 1024) == "klein"
+    assert klein_cuda.runtime_window(88) and klein_cuda.runtime_window(40)
+    assert not klein_cuda.runtime_window(16)
+    assert not klein_cuda.runtime_window(40, (klein_cuda.CENTRED_WINDOW,))
 
 
 @pytest.mark.parametrize("n_pad", [1024, 2048, 3456])

@@ -99,3 +99,26 @@ def test_wrappers_carry_no_counters(kernel):
                 if hasattr(m, kernel)]
     assert len(wrappers) == 1 and callable(wrappers[0])
     assert not any(hasattr(wrappers[0], f) for f in launch_record.FIELDS)
+
+
+def test_runtime_window_launches_count_the_w0_instantiation():
+    """`runtime_window_launches` counts, of a kernel's launches, those at a
+    window its library does not compile; they are launches too, and a
+    reset clears them."""
+    launch_record.count("klein_draw", runtime_window=True)
+    launch_record.count("imhk_fused", resident_chains=128, wide=True,
+                        runtime_window=True)
+    launch_record.count("imhk_fused", resident_chains=256)
+    launch_record.count("klein_ring", fp32=True)
+    rec = launch_record.read()
+    assert all("runtime_window_launches" in r for r in rec.values())
+    assert (rec["klein_draw"]["launches"],
+            rec["klein_draw"]["runtime_window_launches"]) == (1, 1)
+    assert (rec["imhk_fused"]["launches"],
+            rec["imhk_fused"]["runtime_window_launches"],
+            rec["imhk_fused"]["wide_launches"]) == (2, 1, 1)
+    assert rec["klein_ring"]["runtime_window_launches"] == 0
+    assert sum(r["runtime_window_launches"] for r in rec.values()) == 2
+    launch_record.reset()
+    assert all(r["runtime_window_launches"] == 0
+               for r in launch_record.read().values())
